@@ -1,0 +1,100 @@
+"""Build the CUDA kernels under csrc/ into shared libraries and load them.
+
+Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
+into ``build/kernels/<name>-<hash>.so`` at the root of the checkout, with a
+plain C interface that the wrappers call through ctypes. The hash covers
+the source and the flags, so an edited source builds anew and an unchanged
+one is reused. `build_all` starts one nvcc per source, all at once.
+
+Importing this module needs no nvcc: only a build does, and without one it
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, List
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> List[str]:
+    """Kernel names: one per ``csrc/*.cu``."""
+    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the port's CUDA kernels are built on the machine "
+                           "with the card")
+    return nvcc
+
+
+def library_path(name: str) -> str:
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build_all(names: List[str] = None) -> Dict[str, str]:
+    """Compile every named kernel whose library is missing, one nvcc per
+    source, all started together. Returns name -> library path."""
+    names = sources() if names is None else list(names)
+    paths = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name, path in todo.items():
+        # build beside the target, then rename: a reader never sees a
+        # half-written library
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        out = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            continue
+        os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built at first use and cached per process."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = build_all([name])[name]
+            lib = ctypes.CDLL(path)
+            _libs[name] = lib
+    return lib

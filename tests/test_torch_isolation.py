@@ -1,0 +1,136 @@
+"""The port (distributed_vgg_f_tpu_torch) stands alone: importing every
+module of it pulls in no jax, no flax and nothing of the JAX package
+(distributed_vgg_f_tpu), no source file imports them, and its entry
+points refuse to run without CUDA unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = "distributed_vgg_f_tpu_torch"
+PORT_DIR = os.path.join(REPO, PORT)
+
+
+def forbidden(module: str) -> bool:
+    """jax/flax/the JAX package, by exact name or dotted prefix — never a
+    bare prefix test: the port's own name starts with the JAX package's."""
+    for root in ("jax", "jaxlib", "flax", "distributed_vgg_f_tpu"):
+        if module == root or module.startswith(root + "."):
+            return True
+    return False
+
+
+def _port_modules():
+    mods = []
+    for dirpath, dirnames, files in os.walk(PORT_DIR):
+        dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, f), REPO)[:-3]
+            parts = rel.split(os.sep)
+            if parts[-1] == "__init__":
+                parts = parts[:-1]
+            mods.append(".".join(parts))
+    return sorted(mods)
+
+
+def test_forbidden_predicate_compares_exact_names():
+    assert forbidden("jax") and forbidden("jax.numpy")
+    assert forbidden("flax.linen") and forbidden("distributed_vgg_f_tpu")
+    assert forbidden("distributed_vgg_f_tpu.ops.lrn")
+    assert not forbidden(PORT) and not forbidden(PORT + ".ops.lrn")
+    assert not forbidden("jaxtyping_like") and not forbidden("flaxen")
+
+
+def test_importing_every_port_module_pulls_in_no_jax():
+    mods = _port_modules()
+    assert f"{PORT}.serving.server" in mods and f"{PORT}.ops.lrn_cuda" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    import json
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(mods) <= set(loaded)
+    assert [m for m in loaded if forbidden(m)] == []
+
+
+def test_no_source_file_imports_jax_or_the_jax_package():
+    offenders = []
+    for mod in _port_modules():
+        path = os.path.join(REPO, *mod.split("."))
+        path = os.path.join(path, "__init__.py") if os.path.isdir(path) \
+            else path + ".py"
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            offenders += [(mod, n) for n in names if forbidden(n)]
+    assert offenders == []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_build_engine_refuses_without_cuda(no_cuda):
+    from distributed_vgg_f_tpu_torch.serving.engine import build_engine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine("vggf", 32, 10, (1,), 1)
+
+
+def test_predict_engine_refuses_without_cuda(no_cuda):
+    from distributed_vgg_f_tpu_torch.config import ModelConfig
+    from distributed_vgg_f_tpu_torch.models.registry import build_model
+    from distributed_vgg_f_tpu_torch.serving.engine import PredictEngine
+    model = build_model(ModelConfig(num_classes=10), image_size=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PredictEngine(model_name="vggf", model=model, image_size=32,
+                      num_classes=10, buckets=(1,), max_batch=1)
+
+
+def test_serve_from_params_refuses_without_cuda(no_cuda):
+    from distributed_vgg_f_tpu_torch.config import (DataConfig,
+                                                    ExperimentConfig,
+                                                    ModelConfig,
+                                                    ServingConfig)
+    from distributed_vgg_f_tpu_torch.serving.server import serve_from_params
+    from distributed_vgg_f_tpu_torch.weights import init_params
+    model_cfg = ModelConfig(num_classes=10)
+    cfg = ExperimentConfig(model=model_cfg, data=DataConfig(image_size=32),
+                           serving=ServingConfig(max_batch=1))
+    params = init_params(model_cfg, 0, image_size=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_from_params(cfg, params)
+
+
+def test_explicit_cpu_runs(no_cuda):
+    from distributed_vgg_f_tpu_torch.serving.engine import build_engine
+    engine = build_engine("vggf", 32, 10, (1,), 1, device="cpu",
+                          compute_dtype="float32")
+    probs, bucket = engine.run(np.zeros((1, 32, 32, 3), np.uint8))
+    assert bucket == 1 and np.isfinite(probs).all()
+
+
+def test_unknown_device_is_refused():
+    from distributed_vgg_f_tpu_torch.device import resolve_device
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+    assert resolve_device("cpu") == torch.device("cpu")
