@@ -1,7 +1,8 @@
 """Typed configuration for the port's serving slice.
 
 Own copies of the parts of the JAX package's `config.py` this slice reads:
-`ModelConfig` (without the training-only dropout rate), the `DataConfig`
+`ModelConfig` (without the training-only dropout rate and the model
+overrides no served model needs), the `DataConfig`
 fields serving uses, a `ServingConfig`
 limited to the fields the port honours, `resolve_serving_buckets`, and
 the model/data/serving part of the `vggf_imagenet_dp` preset. The
@@ -12,7 +13,7 @@ them: a field the port would accept and ignore is left out instead.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Sequence
+from typing import Sequence
 
 from distributed_vgg_f_tpu_torch.models.ingest import (IMAGENET_MEAN_RGB,
                                                        IMAGENET_STDDEV_RGB)
@@ -24,8 +25,6 @@ class ModelConfig:
     num_classes: int = 1000            # classifier width (ImageNet-1k default)
     # activations/conv compute dtype; params stay float32
     compute_dtype: str = "bfloat16"
-    # model-specific extras, passed to the model's constructor
-    extra: Mapping[str, Any] = field(default_factory=dict)
 
 
 @dataclass(frozen=True)

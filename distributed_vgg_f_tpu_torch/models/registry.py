@@ -48,7 +48,7 @@ def build_model(cfg: ModelConfig, *, image_size: int = 224) -> nn.Module:
 def _build_vggf(cfg: ModelConfig, image_size: int) -> nn.Module:
     from distributed_vgg_f_tpu_torch.models.vggf import VGGF
     return VGGF(cfg.num_classes, compute_dtype=compute_dtype(cfg),
-                image_size=image_size, **cfg.extra)
+                image_size=image_size)
 
 
 @register("vggf_student")
@@ -58,4 +58,4 @@ def _build_vggf_student(cfg: ModelConfig, image_size: int) -> nn.Module:
     from distributed_vgg_f_tpu_torch.models.vggf import VGGF
     return VGGF(cfg.num_classes, compute_dtype=compute_dtype(cfg),
                 image_size=image_size, stem_features=32, conv_features=128,
-                fc_features=2048, **cfg.extra)
+                fc_features=2048)
