@@ -1,13 +1,17 @@
-"""Typed configuration for the port's serving slice.
+"""Typed configuration of the port's serving and single-device training
+slices.
 
-Own copies of the parts of the JAX package's `config.py` this slice reads:
-`ModelConfig` (without the training-only dropout rate and the model
-overrides no served model needs), the `DataConfig`
-fields serving uses, a `ServingConfig`
-limited to the fields the port honours, `resolve_serving_buckets`, and
-the model/data/serving part of the `vggf_imagenet_dp` preset. The
-admission-controller and tier fields are absent until their slice ports
-them: a field the port would accept and ignore is left out instead.
+Own copies of the parts of the JAX package's `config.py` these slices
+read: `ModelConfig` (without the model overrides no ported model needs),
+`OptimConfig`, `AugmentConfig`, the `DataConfig` fields serving and the
+training step use, `MeshConfig` and `TrainConfig` limited to the fields
+the single-device step and the core loop read, a `ServingConfig` limited
+to the fields the port honours, `resolve_serving_buckets`, the derived
+`scaled_lr` / `steps_per_epoch` / `total_steps`, and the
+`vggf_imagenet_dp` and `vggf_teacher` presets. Fields of later slices
+(checkpoints, eval cadence, preemption, autotune, the admission
+controller, serving tiers) are absent until their slice ports them: a
+field the port would accept and ignore is left out instead.
 """
 
 from __future__ import annotations
@@ -23,20 +27,120 @@ from distributed_vgg_f_tpu_torch.models.ingest import (IMAGENET_MEAN_RGB,
 class ModelConfig:
     name: str = "vggf"                 # key into models.registry
     num_classes: int = 1000            # classifier width (ImageNet-1k default)
+    # FC-head dropout; 0 disables (eval always runs without)
+    dropout_rate: float = 0.5
     # activations/conv compute dtype; params stay float32
     compute_dtype: str = "bfloat16"
 
 
 @dataclass(frozen=True)
+class OptimConfig:
+    base_lr: float = 0.01              # LR at reference batch size, scaled linearly
+    reference_batch_size: int = 256    # batch size base_lr was tuned at
+    momentum: float = 0.9              # SGD momentum coefficient
+    nesterov: bool = False             # Nesterov lookahead instead of classical momentum
+    weight_decay: float = 5e-4         # L2-in-loss (coupled, TF semantics)
+    schedule: str = "step"             # "step" | "cosine" | "constant"
+    # step schedule: multiply LR by `decay_factor` at each boundary (epochs)
+    decay_epochs: Sequence[float] = (30.0, 60.0, 80.0)
+    decay_factor: float = 0.1          # per-boundary LR multiplier
+    warmup_epochs: float = 0.0         # linear LR ramp from 0; 0 = none
+    grad_clip_norm: float = 0.0        # global-norm clip; 0 disables
+
+
+@dataclass(frozen=True)
+class AugmentConfig:
+    """On-device augmentation of the train step (data/augment.py): the
+    flip and mixup the flagship turns on. Crop jitter, cutmix and
+    RandAugment-lite are fields of the reference the port refuses until
+    they are ported (ROADMAP A4). Off by default."""
+    enabled: bool = False
+    hflip: bool = True                 # per-image 50% horizontal flip
+    crop_jitter: int = 0               # not ported: must stay 0
+    mixup_alpha: float = 0.0           # Beta(alpha, alpha) mixup; 0 disables
+    cutmix_alpha: float = 0.0          # not ported: must stay 0
+    rand_ops: int = 0                  # not ported: must stay 0
+
+    def __post_init__(self):
+        if self.crop_jitter < 0:
+            raise ValueError(f"data.augment.crop_jitter must be >= 0, got "
+                             f"{self.crop_jitter}")
+        if self.mixup_alpha < 0 or self.cutmix_alpha < 0:
+            raise ValueError(
+                "data.augment.mixup_alpha and cutmix_alpha must be >= 0, "
+                f"got {self.mixup_alpha}/{self.cutmix_alpha}")
+        if self.rand_ops < 0:
+            raise ValueError(
+                f"data.augment.rand_ops must be >= 0, got {self.rand_ops}")
+
+
+@dataclass(frozen=True)
 class DataConfig:
-    """The data fields serving reads: the payload size and the device
-    finish's normalize constants and output dtype."""
+    """The data fields serving and the training step read: the payload
+    size, the batch and epoch geometry the schedule derives from, the
+    device finish's normalize constants and output dtype, the packed stem
+    layout and the on-device augmentation."""
     image_size: int = 224    # square input resolution (the u8 payload side)
+    global_batch_size: int = 256          # the optimizer's batch
+    num_train_examples: int = 1_281_167   # ImageNet-1k default
     # dtype the device finish emits ("float32" | "bfloat16"); the model
     # casts to its compute dtype downstream either way
     image_dtype: str = "float32"
     mean_rgb: Sequence[float] = IMAGENET_MEAN_RGB
     stddev_rgb: Sequence[float] = IMAGENET_STDDEV_RGB  # see mean_rgb
+    # train batches reach the VGG-F stem 4x4-packed (S/4, S/4, 48), packed
+    # after the augmentation (finish -> augment -> space-to-depth)
+    space_to_depth: bool = False
+    augment: AugmentConfig = field(default_factory=AugmentConfig)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The gradient-exchange fields of the flagship. The port trains on one
+    device, where ZeRO-1/2 and the bucketed exchange have no second shard
+    and reduce to replicated SGD, as the JAX trainer downgrades them on a
+    one-shard mesh. A bfloat16 exchange wire is refused until the exchange
+    is ported (ROADMAP A7)."""
+    shard_opt_state: bool = False
+    shard_gradients: bool = False
+    comm_bucket_mb: float = 0.0
+    reduce_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.reduce_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"mesh.reduce_dtype {self.reduce_dtype!r} not "
+                             "one of ('float32', 'bfloat16')")
+        if self.comm_bucket_mb < 0:
+            raise ValueError(
+                f"mesh.comm_bucket_mb {self.comm_bucket_mb} < 0")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The fields the single-device train step and the core loop read."""
+    epochs: float = 90.0               # training length (fractional allowed)
+    steps: int = 0                     # if > 0 overrides epochs
+    seed: int = 0                      # params, augmentation and dropout
+    log_every: int = 100               # steps between train records
+    # Non-finite step skip: a step whose loss or gradient norm is not
+    # finite leaves params, momentum, the optimizer's count and the EMA
+    # unchanged (the step counter still advances); NonFiniteGuard aborts
+    # after max_nonfinite_steps consecutive skips.
+    skip_nonfinite: bool = True
+    max_nonfinite_steps: int = 10
+    grad_accum_steps: int = 1          # micro-batching: ROADMAP A6, must be 1
+    ema_decay: float = 0.0             # param EMA; 0 disables
+
+    def __post_init__(self):
+        if self.grad_accum_steps < 1:
+            raise ValueError(f"train.grad_accum_steps must be >= 1, got "
+                             f"{self.grad_accum_steps}")
+        if not 0.0 <= self.ema_decay < 1.0:
+            raise ValueError(
+                f"train.ema_decay must be in [0, 1), got {self.ema_decay}")
+        if self.max_nonfinite_steps < 1:
+            raise ValueError(f"train.max_nonfinite_steps must be >= 1, got "
+                             f"{self.max_nonfinite_steps}")
 
 
 def resolve_serving_buckets(buckets: Sequence[int],
@@ -112,24 +216,75 @@ class ServingConfig:
 
 @dataclass(frozen=True)
 class ExperimentConfig:
-    """The model/data/serving part of an experiment preset."""
+    """The config-tree root: one section per subsystem the port reads."""
     name: str = "default"
     model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return max(1, self.data.num_train_examples
+                   // self.data.global_batch_size)
+
+    @property
+    def total_steps(self) -> int:
+        if self.train.steps > 0:
+            return self.train.steps
+        return int(self.train.epochs * self.steps_per_epoch)
+
+    @property
+    def scaled_lr(self) -> float:
+        """Linear LR scaling with the global batch."""
+        return self.optim.base_lr * (self.data.global_batch_size
+                                     / self.optim.reference_batch_size)
 
 
 def _vggf_imagenet_dp() -> ExperimentConfig:
     """The flagship: VGG-F on ImageNet-1k at 224 px, bf16 compute with
-    fp32 params, served on the power-of-two ladder up to 32."""
+    fp32 params, global batch 1024, step LR at 30/60/80 epochs, flips and
+    mixup on the device, the packed stem layout, ZeRO-2 with 4 MB buckets
+    (one shard on one device), served on the power-of-two ladder up to 32.
+    The JAX preset's ingest autotuner and native-decoder wire have no
+    counterpart in the port yet (ROADMAP A8, A14)."""
     return ExperimentConfig(
         name="vggf_imagenet_dp",
         model=ModelConfig(name="vggf", num_classes=1000),
-        data=DataConfig(image_size=224),
+        optim=OptimConfig(base_lr=0.01, reference_batch_size=256,
+                          weight_decay=5e-4,
+                          decay_epochs=(30.0, 60.0, 80.0)),
+        data=DataConfig(image_size=224, global_batch_size=1024,
+                        space_to_depth=True,
+                        augment=AugmentConfig(enabled=True, hflip=True,
+                                              mixup_alpha=0.2)),
+        mesh=MeshConfig(shard_opt_state=True, shard_gradients=True,
+                        comm_bucket_mb=4.0),
+        train=TrainConfig(epochs=90.0),
         serving=ServingConfig())
 
 
-PRESETS = {"vggf_imagenet_dp": _vggf_imagenet_dp}
+def _vggf_teacher() -> ExperimentConfig:
+    """The JAX package's offline generalization preset, at 32 px and 10
+    classes: fp32 compute, dropout 0.2, warmup, clipping. The port's CPU
+    trajectory tests train it (on seeded batches; the teacher-label data
+    set itself is not ported)."""
+    return ExperimentConfig(
+        name="vggf_teacher",
+        model=ModelConfig(name="vggf", num_classes=10,
+                          compute_dtype="float32", dropout_rate=0.2),
+        optim=OptimConfig(base_lr=0.02, reference_batch_size=64,
+                          weight_decay=5e-5, warmup_epochs=1.0,
+                          grad_clip_norm=1.0, decay_epochs=(24.0, 30.0)),
+        data=DataConfig(image_size=32, global_batch_size=64,
+                        num_train_examples=4096),
+        train=TrainConfig(epochs=32.0, log_every=64))
+
+
+PRESETS = {"vggf_imagenet_dp": _vggf_imagenet_dp,
+           "vggf_teacher": _vggf_teacher}
 
 
 def get_config(name: str) -> ExperimentConfig:

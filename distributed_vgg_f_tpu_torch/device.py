@@ -1,8 +1,9 @@
 """Device resolution for the port's entry points.
 
 Every entry point (`serving.engine.build_engine`, `PredictEngine`,
-`serving.server.serve_from_params`) takes ``device="cuda"`` by default and
-resolves it here. Without a CUDA device that raises: no path quietly
+`serving.server.serve_from_params`, `train.trainer.Trainer`,
+`train.step.build_train_step`, `build_eval_step`) takes the CUDA device
+by default and resolves it here. Without a CUDA device that raises: no path quietly
 carries on on the CPU. The CPU runs only when the caller names it.
 """
 

@@ -87,14 +87,16 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's library, built at first use and cached per process."""
+    """The kernel's library, cached per process. The first use builds every
+    kernel whose library is missing (lrn_fwd and lrn_bwd together), so a
+    training step's first backward finds its kernel built."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path = build_all([name])[name]
+            path = build_all()[name]
             lib = ctypes.CDLL(path)
             _libs[name] = lib
     return lib

@@ -1,18 +1,25 @@
-"""VGG-F (CNN-F, Chatfield et al. 2014) — the flagship model, eval only.
+"""VGG-F (CNN-F, Chatfield et al. 2014) — the flagship model.
 
     conv1 64@11x11/4 (VALID) → ReLU → LRN → maxpool 3x3/2
     conv2 256@5x5/1 (SAME)   → ReLU → LRN → maxpool 3x3/2
     conv3 256@3x3/1 (SAME)   → ReLU
     conv4 256@3x3/1 (SAME)   → ReLU
     conv5 256@3x3/1 (SAME)   → ReLU → maxpool 3x3/2
-    flatten (NHWC order) → fc6 4096 → ReLU → fc7 4096 → ReLU → fc8
+    flatten (NHWC order) → fc6 4096 → ReLU → dropout → fc7 4096 → ReLU
+    → dropout → fc8
 
-The counterpart of the JAX package's `models/vggf.py VGGF` at
-`train=False` (dropout is the identity). The public layout is the JAX
-one: the input is NHWC, plain (S, S, 3) or 4x4-packed (S/4, S/4, 48) in
-(dy, dx, c) channel order; a packed input is unpacked and both run the
-plain 11x11/4 stem, which computes the same function as the JAX
-package's space-to-depth stem (a TPU matrix-unit fill trick). Inside,
+The counterpart of the JAX package's `models/vggf.py VGGF`. As there,
+`train=True` applies dropout after the fc6 and fc7 ReLUs and
+`train=False` (the default) does not. Dropout has `nn.Dropout`'s
+semantics — keep with probability 1-p, scale kept values by 1/(1-p) —
+with its bits drawn from the `torch.Generator` the caller passes, so the
+train step can replay a step's mask from (seed, step).
+
+The public layout is the JAX one: the input is NHWC, plain (S, S, 3) or
+4x4-packed (S/4, S/4, 48) in (dy, dx, c) channel order; a packed input
+is unpacked and both run the plain 11x11/4 stem, which computes the same
+function as the JAX package's space-to-depth stem (a TPU matrix-unit fill
+trick). Inside,
 activations are NCHW tensors in `torch.channels_last` memory, so cuDNN
 runs NHWC and the LRN kernel sees contiguous rows of C channels.
 
@@ -76,9 +83,13 @@ class VGGF(nn.Module):
                  lrn_alpha: float = 1e-4, lrn_beta: float = 0.75,
                  # layer widths: the defaults ARE CNN-F; vggf_student halves
                  stem_features: int = 64, conv_features: int = 256,
-                 fc_features: int = 4096):
+                 fc_features: int = 4096, dropout_rate: float = 0.5):
         super().__init__()
+        if not 0.0 <= dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate must be in [0, 1), got "
+                             f"{dropout_rate}")
         self.compute_dtype = compute_dtype
+        self.dropout_rate = float(dropout_rate)
         self.image_size = int(image_size)
         self.lrn_args = (lrn_depth_radius, lrn_bias, lrn_alpha, lrn_beta)
         self.conv1 = _Layer((stem_features, 3, 11, 11), stem_features)
@@ -111,9 +122,21 @@ class VGGF(nn.Module):
         y = lrn(x.permute(0, 2, 3, 1).contiguous(), *self.lrn_args)
         return y.permute(0, 3, 1, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC images (finished, not raw u8) -> fp32 logits."""
+    def _dropout(self, x, generator):
+        p = self.dropout_rate
+        keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+        return x * keep.div_(1.0 - p)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator = None) -> torch.Tensor:
+        """NHWC images (finished, not raw u8) -> fp32 logits. `train=True`
+        turns dropout on, drawing its bits from `generator` (on the
+        input's device), which is then required."""
         reject_raw_uint8(x, "VGGF")
+        dropout = train and self.dropout_rate > 0.0
+        if dropout and generator is None:
+            raise ValueError("VGGF(train=True) draws its dropout bits from "
+                             "an explicit torch.Generator; pass generator=")
         x = x.to(self.compute_dtype)
         if x.shape[-1] == 48:  # 4x4-packed stem input
             x = depth_to_space(x)
@@ -129,5 +152,9 @@ class VGGF(nn.Module):
         x = maxpool_3x3s2_ceil_nchw(x)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         x = F.relu(self._dense(self.fc6, x))
+        if dropout:
+            x = self._dropout(x, generator)
         x = F.relu(self._dense(self.fc7, x))
+        if dropout:
+            x = self._dropout(x, generator)
         return self._dense(self.fc8, x).float()

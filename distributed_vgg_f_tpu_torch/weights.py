@@ -8,7 +8,9 @@ NHWC order, as Flax does.
 
 `load_npz` reads the flat ``'conv1/kernel'`` npz the JAX package's
 `train/distill.py save_params` writes; `init_params` makes a seeded
-lecun-normal tree for runs without a weights file.
+lecun-normal tree for runs without a weights file. `momentum_from_optax`
+maps optax's SGD momentum trace (a param-shaped tree) through the same
+transposes, so a port run can continue a JAX run.
 """
 
 from __future__ import annotations
@@ -57,6 +59,17 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         out[f"{layer}.bias"] = torch.from_numpy(
             np.array(leaves["bias"], copy=True))
     return out
+
+
+def momentum_from_optax(opt_state) -> Dict[str, torch.Tensor]:
+    """optax.sgd's state (numpy leaves, Flax layout) -> the port's momentum
+    buffers keyed like its state_dict: the one element of the state
+    tuple that holds a momentum `trace`, through the params' transposes."""
+    traces = [s for s in opt_state if hasattr(s, "trace")]
+    if len(traces) != 1:
+        raise ValueError(f"expected one momentum trace in the optax state, "
+                         f"found {len(traces)}")
+    return params_from_flax(traces[0].trace)
 
 
 def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:

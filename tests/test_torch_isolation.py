@@ -52,6 +52,9 @@ def test_forbidden_predicate_compares_exact_names():
 def test_importing_every_port_module_pulls_in_no_jax():
     mods = _port_modules()
     assert f"{PORT}.serving.server" in mods and f"{PORT}.ops.lrn_cuda" in mods
+    assert {f"{PORT}.train.trainer", f"{PORT}.train.step",
+            f"{PORT}.data.augment", f"{PORT}.resilience.guard",
+            f"{PORT}.utils.meter"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -119,6 +122,18 @@ def test_serve_from_params_refuses_without_cuda(no_cuda):
     params = init_params(model_cfg, 0, image_size=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_from_params(cfg, params)
+
+
+def test_trainer_and_train_step_refuse_without_cuda(no_cuda):
+    from distributed_vgg_f_tpu_torch.config import get_config
+    from distributed_vgg_f_tpu_torch.train.step import build_train_step
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(get_config("vggf_teacher"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train_step(lambda step: 0.1, 0.0)
+    assert Trainer(get_config("vggf_teacher"), device="cpu").device.type \
+        == "cpu"
 
 
 def test_explicit_cpu_runs(no_cuda):

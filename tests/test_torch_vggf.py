@@ -202,3 +202,46 @@ def test_cpu_forward_launches_no_kernel():
     lrn_cuda.LAUNCHES = 0
     _logits(_port(32, 10, tree), _images(1, 32))
     assert lrn_cuda.LAUNCHES == 0
+
+
+# --------------------------------------------------------------- gradients
+def test_param_grads_match_flax_224px_full_width_fp32():
+    """The one full-width CPU gradient check: batch 1, dropout off, the CE
+    loss's gradient for every parameter, conv1 (through both LRN
+    backwards) included, on the input of the 224 px logits test.
+    Tolerance: atol 2e-5 of the layer's largest gradient plus rtol 1e-4
+    (measured: within 3.1e-6 of the largest gradient in every layer).
+
+    The gradient is discontinuous where a ReLU input is 0, so an input
+    that puts a pre-activation within fp32 rounding of 0 can flip one
+    ReLU between any two fp32 implementations: with the images of seed 8
+    one conv3 unit flips, and the port's fp32 conv1-conv3 gradients then
+    differ from its own fp64 gradients (and from Flax's) by 1-5% of the
+    largest gradient, while conv4-fc8 still agree within 3e-6."""
+    from distributed_vgg_f_tpu.ops.losses import \
+        softmax_cross_entropy as jax_ce
+    from distributed_vgg_f_tpu_torch.ops.losses import \
+        softmax_cross_entropy
+    flax_model, tree = _flax(224, 1000)
+    x = _images(1, 224, seed=1)
+    label = np.array([417], np.int32)
+
+    def loss_fn(p):
+        return jax_ce(flax_model.apply({"params": p}, jnp.asarray(x),
+                                       train=False), jnp.asarray(label))
+
+    want = jax.tree_util.tree_map(np.asarray,
+                                  jax.jit(jax.grad(loss_fn))(tree))
+    model = build_model(ModelConfig(num_classes=1000, dropout_rate=0.0,
+                                    compute_dtype="float32"))
+    model = load_params(model, tree)
+    softmax_cross_entropy(model(torch.from_numpy(x), train=True),
+                          torch.from_numpy(label).long()).backward()
+    got = params_to_flax({k: p.grad for k, p in model.named_parameters()})
+    for layer in want:
+        for leaf in ("kernel", "bias"):
+            w = want[layer][leaf]
+            np.testing.assert_allclose(got[layer][leaf], w, rtol=1e-4,
+                                       atol=2e-5 * np.abs(w).max(),
+                                       err_msg=f"{layer}/{leaf}")
+    assert np.abs(got["conv1"]["kernel"]).max() > 0
