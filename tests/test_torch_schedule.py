@@ -4,8 +4,8 @@ schedule.py) against the JAX package's optax schedules and `optax.sgd`.
 The step, constant and warmup schedules repeat optax's float32
 arithmetic and are held equal; cosine within rtol 1e-6 (numpy's and
 XLA's float32 cos may differ in the last bit). Three SGD updates, plain
-and Nesterov, within 2 fp32 ulp-scale (rtol 1e-6, atol 1e-8): torch may
-fuse p + (-lr)*buf into one multiply-add where XLA rounds twice."""
+and Nesterov, within two fp32 eps (rtol 2.4e-7; measured 1.0e-7): torch
+may fuse p + (-lr)*buf into one multiply-add where XLA rounds twice."""
 
 import dataclasses
 
@@ -113,12 +113,12 @@ def test_three_sgd_updates_match_optax(nesterov):
         opt.step()
     assert schedule(100) > 0
     np.testing.assert_allclose(lin.weight.detach().numpy(),
-                               np.asarray(params["w"]), rtol=1e-6, atol=1e-8)
+                               np.asarray(params["w"]), rtol=2.4e-7, atol=0)
     np.testing.assert_allclose(lin.bias.detach().numpy(),
-                               np.asarray(params["b"]), rtol=1e-6, atol=1e-8)
+                               np.asarray(params["b"]), rtol=2.4e-7, atol=0)
     np.testing.assert_allclose(
         opt.state[lin.weight]["momentum_buffer"].numpy(),
-        np.asarray(state[0].trace["w"]), rtol=1e-6, atol=1e-8)
+        np.asarray(state[0].trace["w"]), rtol=2.4e-7, atol=0)
 
 
 def test_optimizer_has_no_decoupled_weight_decay():
