@@ -584,11 +584,11 @@ def phase_train_parity(tree):
     update_err = {k: _rel_l2(card["updates"][k], cpu["updates"][k])
                   for k in cpu["updates"]}
     loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
-    # fp32 on both sides, sums in another order: ~1e-6 relative. A ReLU
-    # input within rounding of 0 flips between any two fp32
-    # implementations and moves conv1-conv3's gradients by ~1% (relative
-    # L2, measured at batch 1 on the CPU against fp64), so the bound is 2%
-    tol = 2e-2
+    # fp32 on both sides, sums in another order: this batch reads ~2e-6
+    # relative L2 for gradients and ~4e-6 for updates (H100 80GB HBM3,
+    # 700 W). 1e-4 leaves room for another conv algorithm and still fails
+    # a wrong scale or a wrong term in the LRN backward
+    tol = 1e-4
     check(loss_err <= 1e-4, f"loss card {card['loss']} cpu {cpu['loss']}")
     check(max(grad_err.values()) <= tol, f"gradients off: {grad_err}")
     check(max(update_err.values()) <= tol, f"updates off: {update_err}")

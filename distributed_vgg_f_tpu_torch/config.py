@@ -96,23 +96,16 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The gradient-exchange fields of the flagship. The port trains on one
-    device, where ZeRO-1/2 and the bucketed exchange have no second shard
-    and reduce to replicated SGD, as the JAX trainer downgrades them on a
-    one-shard mesh. A bfloat16 exchange wire is refused until the exchange
-    is ported (ROADMAP A7)."""
-    shard_opt_state: bool = False
-    shard_gradients: bool = False
-    comm_bucket_mb: float = 0.0
+    """The one gradient-exchange field the single-device step reads: a
+    bfloat16 exchange wire is refused until the exchange is ported
+    (ROADMAP A7). The flagship's ZeRO-2 and 4 MB bucket settings return
+    with the exchange."""
     reduce_dtype: str = "float32"
 
     def __post_init__(self):
         if self.reduce_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"mesh.reduce_dtype {self.reduce_dtype!r} not "
                              "one of ('float32', 'bfloat16')")
-        if self.comm_bucket_mb < 0:
-            raise ValueError(
-                f"mesh.comm_bucket_mb {self.comm_bucket_mb} < 0")
 
 
 @dataclass(frozen=True)
@@ -246,10 +239,10 @@ class ExperimentConfig:
 def _vggf_imagenet_dp() -> ExperimentConfig:
     """The flagship: VGG-F on ImageNet-1k at 224 px, bf16 compute with
     fp32 params, global batch 1024, step LR at 30/60/80 epochs, flips and
-    mixup on the device, the packed stem layout, ZeRO-2 with 4 MB buckets
-    (one shard on one device), served on the power-of-two ladder up to 32.
-    The JAX preset's ingest autotuner and native-decoder wire have no
-    counterpart in the port yet (ROADMAP A8, A14)."""
+    mixup on the device, the packed stem layout, served on the power-of-two
+    ladder up to 32. The JAX preset's ZeRO-2 with 4 MB buckets, ingest
+    autotuner and native-decoder wire have no counterpart in the port yet
+    (ROADMAP A7, A8, A14)."""
     return ExperimentConfig(
         name="vggf_imagenet_dp",
         model=ModelConfig(name="vggf", num_classes=1000),
@@ -260,8 +253,6 @@ def _vggf_imagenet_dp() -> ExperimentConfig:
                         space_to_depth=True,
                         augment=AugmentConfig(enabled=True, hflip=True,
                                               mixup_alpha=0.2)),
-        mesh=MeshConfig(shard_opt_state=True, shard_gradients=True,
-                        comm_bucket_mb=4.0),
         train=TrainConfig(epochs=90.0),
         serving=ServingConfig())
 

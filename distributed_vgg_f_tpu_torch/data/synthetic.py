@@ -1,9 +1,9 @@
 """Seeded u8 batches — the port's training input until the native decoder
 feed is ported (ROADMAP A8).
 
-Batches are drawn once, in bulk, with numpy from the seed (uniform pixels
-0..255, uniform labels), then cycled: making data counts as set-up, not
-as step time. With `pin=True` they sit in page-locked host memory, so the
+The batch is drawn once, in bulk, with numpy from the seed (uniform pixels
+0..255, uniform labels), then repeated: making data counts as set-up, not
+as step time. With `pin=True` it sits in page-locked host memory, so the
 copy to the card is asynchronous and at full link rate.
 """
 
@@ -16,25 +16,20 @@ import torch
 
 
 class SyntheticU8:
-    """An endless iterator over `distinct` seeded batches of
+    """An endless iterator over one seeded batch of
     ``{"image": (B, S, S, 3) uint8, "label": (B,) int64}`` tensors."""
 
     def __init__(self, batch_size: int, image_size: int, num_classes: int,
-                 seed: int = 0, *, distinct: int = 1, pin: bool = False):
+                 seed: int = 0, *, pin: bool = False):
         rng = np.random.default_rng(seed)
-        self.batches = []
-        for _ in range(int(distinct)):
-            images = torch.from_numpy(rng.integers(
-                0, 256, (batch_size, image_size, image_size, 3),
-                dtype=np.uint8))
-            labels = torch.from_numpy(rng.integers(
-                0, num_classes, (batch_size,), dtype=np.int64))
-            if pin:
-                images, labels = images.pin_memory(), labels.pin_memory()
-            self.batches.append({"image": images, "label": labels})
+        images = torch.from_numpy(rng.integers(
+            0, 256, (batch_size, image_size, image_size, 3), dtype=np.uint8))
+        labels = torch.from_numpy(rng.integers(
+            0, num_classes, (batch_size,), dtype=np.int64))
+        if pin:
+            images, labels = images.pin_memory(), labels.pin_memory()
+        self.batch = {"image": images, "label": labels}
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
-        i = 0
         while True:
-            yield self.batches[i % len(self.batches)]
-            i += 1
+            yield self.batch

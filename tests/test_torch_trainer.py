@@ -68,7 +68,6 @@ def test_each_state_owns_its_model():
 
 def test_flagship_preset_trains_with_augment_and_packed_stem():
     cfg = _small("vggf_imagenet_dp", batch=4, log_every=1)
-    assert cfg.mesh.shard_opt_state and cfg.mesh.comm_bucket_mb == 4.0
     tr = Trainer(cfg, device="cpu")
     assert tr.device_augment is not None
     state = tr.fit(tr.init_state(), SyntheticU8(4, 32, 10), num_steps=2)
@@ -78,7 +77,7 @@ def test_flagship_preset_trains_with_augment_and_packed_stem():
 
 def test_nonfinite_batches_are_counted_then_abort_the_run():
     cfg = _small(log_every=1, max_nonfinite_steps=3)
-    good = SyntheticU8(8, 32, 10).batches[0]
+    good = SyntheticU8(8, 32, 10).batch
     bad = {"image": torch.full((8, 32, 32, 3), float("nan")),
            "label": good["label"]}
     tr = Trainer(cfg, device="cpu")
@@ -145,11 +144,14 @@ def test_meter_rates_with_an_injected_clock():
 
 
 def test_synthetic_batches_are_seeded_and_cycled():
-    a = SyntheticU8(2, 8, 5, seed=3, distinct=2)
-    b = SyntheticU8(2, 8, 5, seed=3, distinct=2)
+    a = SyntheticU8(2, 8, 5, seed=3)
+    b = SyntheticU8(2, 8, 5, seed=3)
+    c = SyntheticU8(2, 8, 5, seed=4)
     it = iter(a)
-    first, second, third = next(it), next(it), next(it)
+    first, second = next(it), next(it)
     assert first["image"].dtype == torch.uint8
-    assert torch.equal(first["image"], b.batches[0]["image"])
-    assert not torch.equal(first["image"], second["image"])
-    assert third is first
+    assert first["image"].shape == (2, 8, 8, 3)
+    assert torch.equal(first["image"], b.batch["image"])
+    assert torch.equal(first["label"], b.batch["label"])
+    assert not torch.equal(first["image"], c.batch["image"])
+    assert second is first
