@@ -39,6 +39,33 @@ Phases, one JSON line each:
             2 backward LRN launches a step), every loss finite and the
             loss falling; then step ms, images/s, peak device memory and
             a torch.profiler breakdown of 3 more steps
+  flash_kernel the flash attention forward, dQ and dK/dV kernels against
+            their plain versions on the card, at ViT-S/16's shapes
+            (T = 197, 6 heads of 64) at batch 32 and 1024, at a ragged
+            shape with a kv_len mask and at a causal one, in bf16 and
+            fp32, with device times of the kernel, the plain version and
+            the library call (SDPA, its autograd backward for dQ and dK/dV
+            together) at ViT's shapes, and the bytes/operations bound
+  vit_model full-width ViT-S/16 (flash layout, bf16, seeded init) through
+            build_engine on the bucket ladder: 12 forward launches per
+            forward, probabilities finite and summing to 1, fp32 and bf16
+            logits held against the CPU forward of the same weights and
+            against the port's head_major layout on the card; forward ms
+            per bucket and a torch.profiler breakdown
+  vit_serve serve_from_params for vit_s16 (flash), concurrent and
+            sequential u8 POSTs and a bad-size POST; launch counts zeroed
+            just before and read just after
+  vit_train_parity one fp32 train step of full-width ViT-S/16 (flash, TF32
+            off, dropout and augment off, batch 2) on the card and on the
+            CPU from the same weights and batch: every gradient and update
+            within 1e-4 relative L2, 12 launches of each flash kernel
+  vit_train Trainer.fit on vit_s16_imagenet with flash at full width and
+            batch 1024 (bf16, dropout, flip, mixup, the non-finite skip;
+            the 5 warmup epochs cut, so the LR is not ~0) for 20 steps on
+            one fixed seeded u8 batch; launch counts zeroed before fit and
+            read after (12 of each flash kernel a step), every loss finite
+            and the loss falling; step ms, images/s, peak device memory
+            and a torch.profiler breakdown of 3 more steps
   isolation no jax, flax or JAX-package module was imported
 then the kernels summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -64,6 +91,8 @@ import torch
 #: "NVIDIA H100 80GB HBM3"; another board needs its own measured pair.
 _BOARD = "H100 80GB HBM3"
 _PEAKS = (3.35e12, 67e12)
+#: dense bf16 tensor-core FLOP/s of the H100 SXM (NVIDIA data sheet)
+_BF16_TENSOR_FLOPS = 989.4e12
 #: cycles of GPU sleep per second of host enqueue time to hide (a clock
 #: above any H100's, so the sleep never ends early)
 _SLEEP_HZ = 2.2e9
@@ -235,6 +264,9 @@ def _trace_breakdown(prof, count, top):
                               if "lrn_fwd" in k) / count,
             "lrn_bwd_us": sum(v for k, v in by_name.items()
                               if "lrn_bwd" in k) / count,
+            "flash_us": {n: sum(v for k, v in by_name.items()
+                                if f"{n}_kernel" in k) / count
+                         for n in ("flash_fwd", "flash_dq", "flash_dkv")},
             "top_us": [[k[:80], v / count] for k, v in ranked]}
 
 
@@ -348,12 +380,98 @@ def phase_model(tree):
     torch.cuda.empty_cache()
 
 
-def _post(port, image, k=5, timeout=120):
+def _post(port, image, k=5, timeout=120, model="vggf"):
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/v1/predict/vggf?k={k}",
+        f"http://127.0.0.1:{port}/v1/predict/{model}?k={k}",
         data=image.tobytes(), method="POST")
     with urllib.request.urlopen(req, timeout=timeout) as r:
         return r.status, json.loads(r.read())
+
+
+def _drive_server(server, model, burst, singles, reg):
+    """Concurrent POSTs of `burst`, then sequential POSTs of `singles`
+    (each must run at bucket 1), then a bad-size POST (must be 400); the
+    server is closed on the way out."""
+    try:
+        results = [None] * len(burst)
+
+        def post(i):
+            try:
+                results[i] = _post(server.port, burst[i], model=model)
+            except urllib.error.HTTPError as e:
+                results[i] = (e.code, json.loads(e.read()))
+
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(burst))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        burst_s = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "burst POSTs hung")
+        statuses = [r[0] if r else None for r in results]
+        check(statuses == [200] * len(burst),
+              f"burst statuses {sorted(set(map(str, statuses)))}")
+        batches = reg.counter_value("serving/batches")
+        check(batches < len(burst),
+              f"{batches} batches for {len(burst)} requests: no batching")
+
+        seq_bodies = []
+        for img in singles:
+            status, body = _post(server.port, img, model=model)
+            check(status == 200 and body["bucket"] == 1,
+                  f"sequential POST {status} bucket {body.get('bucket')}")
+            seq_bodies.append(body)
+
+        try:
+            _post(server.port, np.zeros((8, 8, 3), np.uint8), model=model)
+            bad_status = 200
+        except urllib.error.HTTPError as e:
+            bad_status = e.code
+        check(bad_status == 400, f"bad-size POST answered {bad_status}")
+    finally:
+        server.close()
+    return {"burst_lat": [r[1]["latency_ms"] for r in results],
+            "burst_s": burst_s, "seq_bodies": seq_bodies,
+            "bad_status": bad_status}
+
+
+def _check_served_probs(engine, singles, seq_bodies):
+    """Each sequential answer against engine.run of the same image: the
+    same top-5 classes and probabilities within 1e-6 (same image, same
+    bucket, same card: equal up to cuDNN's choice of algorithm between
+    calls). Returns (latencies, max error)."""
+    seq_lat, seq_err = [], 0.0
+    for img, body in zip(singles, seq_bodies):
+        seq_lat.append(body["latency_ms"])
+        probs, _ = engine.run(img[None])
+        order = np.argsort(probs[0])[::-1][:5]
+        check([r["class"] for r in body["top_k"]] == order.tolist(),
+              "served top-5 classes differ from engine.run")
+        for rec in body["top_k"]:
+            seq_err = max(seq_err,
+                          abs(rec["prob"] - float(probs[0][rec["class"]])))
+    check(seq_err <= 1e-6, f"served probs off engine.run by {seq_err}")
+    return seq_lat, seq_err
+
+
+def _serve_record(reg, burst, singles, drive, seq_lat, seq_err, start_s,
+                  engine, forwards):
+    batches = reg.counter_value("serving/batches")
+    return dict(
+        requests=len(burst) + len(singles) + 1, burst=len(burst),
+        burst_all_200=True, batches=batches,
+        batch_images=reg.counter_value("serving/batch_images"),
+        padded_images=reg.counter_value("serving/padded_images"),
+        burst_wall_s=drive["burst_s"],
+        burst_rps=len(burst) / drive["burst_s"],
+        burst_latency_ms={"p50": float(np.percentile(drive["burst_lat"], 50)),
+                          "p99": float(np.percentile(drive["burst_lat"],
+                                                     99))},
+        sequential_latency_ms=seq_lat, sequential_max_prob_err=seq_err,
+        bad_size_status=drive["bad_status"], server_start_s=start_s,
+        warmup_forwards=len(engine.compile_log), forwards=forwards)
 
 
 def phase_serve(tree):
@@ -375,47 +493,7 @@ def phase_serve(tree):
     server = serve_from_params(cfg, tree, device="cuda")
     start_s = time.perf_counter() - t_start
     engine = server.engine("vggf")
-    try:
-        results = [None] * len(burst)
-
-        def post(i):
-            try:
-                results[i] = _post(server.port, burst[i])
-            except urllib.error.HTTPError as e:
-                results[i] = (e.code, json.loads(e.read()))
-
-        threads = [threading.Thread(target=post, args=(i,))
-                   for i in range(len(burst))]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        burst_s = time.perf_counter() - t0
-        check(not any(t.is_alive() for t in threads), "burst POSTs hung")
-        statuses = [r[0] if r else None for r in results]
-        check(statuses == [200] * len(burst),
-              f"burst statuses {sorted(set(map(str, statuses)))}")
-        batches = reg.counter_value("serving/batches")
-        check(batches < len(burst),
-              f"{batches} batches for {len(burst)} requests: no batching")
-        burst_lat = [r[1]["latency_ms"] for r in results]
-
-        seq_bodies = []
-        for img in singles:
-            status, body = _post(server.port, img)
-            check(status == 200 and body["bucket"] == 1,
-                  f"sequential POST {status} bucket {body.get('bucket')}")
-            seq_bodies.append(body)
-
-        try:
-            _post(server.port, np.zeros((8, 8, 3), np.uint8))
-            bad_status = 200
-        except urllib.error.HTTPError as e:
-            bad_status = e.code
-        check(bad_status == 400, f"bad-size POST answered {bad_status}")
-    finally:
-        server.close()
+    drive = _drive_server(server, "vggf", burst, singles, reg)
     # the main path's counts, read before any direct engine.run below
     torch.cuda.synchronize()
     launches = lrn_cuda.LAUNCHES
@@ -425,31 +503,10 @@ def phase_serve(tree):
     check(launches == 2 * forwards,
           f"{launches} LRN launches for {len(engine.compile_log)} warmup "
           f"and {batches} served forwards, expected 2 per forward")
-
-    seq_lat, seq_err = [], 0.0
-    for img, body in zip(singles, seq_bodies):
-        seq_lat.append(body["latency_ms"])
-        probs, _ = engine.run(img[None])
-        order = np.argsort(probs[0])[::-1][:5]
-        check([r["class"] for r in body["top_k"]] == order.tolist(),
-              "served top-5 classes differ from engine.run")
-        for rec in body["top_k"]:
-            seq_err = max(seq_err,
-                          abs(rec["prob"] - float(probs[0][rec["class"]])))
-    # same image, same bucket, same card: equal up to cuDNN's choice of
-    # algorithm between calls
-    check(seq_err <= 1e-6, f"served probs off engine.run by {seq_err}")
-    emit("serve", requests=len(burst) + len(singles) + 1,
-         burst=len(burst), burst_all_200=True,
-         batches=batches,
-         batch_images=reg.counter_value("serving/batch_images"),
-         padded_images=reg.counter_value("serving/padded_images"),
-         burst_wall_s=burst_s, burst_rps=len(burst) / burst_s,
-         burst_latency_ms={"p50": float(np.percentile(burst_lat, 50)),
-                           "p99": float(np.percentile(burst_lat, 99))},
-         sequential_latency_ms=seq_lat, sequential_max_prob_err=seq_err,
-         bad_size_status=bad_status, server_start_s=start_s,
-         warmup_forwards=len(engine.compile_log), forwards=forwards,
+    seq_lat, seq_err = _check_served_probs(engine, singles,
+                                           drive["seq_bodies"])
+    emit("serve", **_serve_record(reg, burst, singles, drive, seq_lat,
+                                  seq_err, start_s, engine, forwards),
          lrn_launches=launches)
     return launches
 
@@ -617,6 +674,7 @@ def _profile_train(trainer, state, batch, steps=3):
             "device_idle_share": t["idle_share"],
             "lrn_fwd_us_per_step": t["lrn_fwd_us"],
             "lrn_bwd_us_per_step": t["lrn_bwd_us"],
+            "flash_us_per_step": t["flash_us"],
             "top_device_us_per_step": t["top_us"]}
 
 
@@ -686,6 +744,477 @@ def phase_train():
     return launches
 
 
+# ------------------------------------------------------------- ViT phases
+#: ViT-S/16's attention on the card: T = 197 tokens, 6 heads of 64
+_VIT_T, _VIT_H, _VIT_D = 197, 6, 64
+_FLASH = {"attention_layout": "flash"}
+_FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def _flash_counts():
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    return {"fwd": flash_cuda.FWD_LAUNCHES, "dq": flash_cuda.DQ_LAUNCHES,
+            "dkv": flash_cuda.DKV_LAUNCHES}
+
+
+def _zero_flash_counts():
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    flash_cuda.FWD_LAUNCHES = flash_cuda.DQ_LAUNCHES = 0
+    flash_cuda.DKV_LAUNCHES = 0
+
+
+def flash_bound_ms(kind, b, t, h, d, itemsize, causal, kv_len, peaks):
+    """Least time for one flash kernel on (B, T, H, D): each input read
+    once and each output written once (lse and delta as one fp32 a row)
+    at the memory rate, against the products' FLOPs over this run's live
+    (query, key) pairs at the peak for the inputs' type (bf16 tensor
+    cores; fp32 off them)."""
+    bw, fp32_flops = peaks
+    n = b * t * h * d * itemsize
+    rows = b * h * t * 4
+    live = sum(min(i + 1, kv_len) if causal else kv_len for i in range(t))
+    pairs = b * h * live
+    moved, products = {"flash_fwd": (4 * n + rows, 2),
+                       "flash_dq": (5 * n + 2 * rows, 3),
+                       "flash_dkv": (6 * n + 2 * rows, 4)}[kind]
+    flops = products * 2 * d * pairs
+    peak = _BF16_TENSOR_FLOPS if itemsize == 2 else fp32_flops
+    bytes_ms, ops_ms = moved / bw * 1e3, flops / peak * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                          "operations")
+
+
+def phase_flash_kernel(peaks):
+    """Flash forward, dQ and dK/dV kernels vs their plain versions on the
+    card; returns the records."""
+    import torch.nn.functional as F
+
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import (
+        attention_delta, attention_dkv, attention_dq, attention_fwd)
+    from distributed_vgg_f_tpu_torch.ops.flash_cuda import (flash_dkv_cuda,
+                                                            flash_dq_cuda,
+                                                            flash_fwd_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def inputs(b, t, h, d, dtype, causal, kv_len):
+        # q, k and v as the model passes them: slices of one QKV output
+        q, k, v = torch.randn(b, t, 3, h, d, generator=gen,
+                              device="cuda").to(dtype).unbind(2)
+        do = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
+        o, lse = flash_fwd_cuda(q, k, v, causal=causal, kv_len=kv_len)
+        return q, k, v, do, lse, attention_delta(do, o)
+
+    def sdpa_bwd(s):
+        # the library yardstick of both backward kernels: autograd of
+        # SDPA, its forward graph built outside the timed window
+        qr, kr, vr = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in s[:3])
+        o = F.scaled_dot_product_attention(qr, kr, vr)
+        return lambda: torch.autograd.grad(o, (qr, kr, vr),
+                                           s[3].transpose(1, 2),
+                                           retain_graph=True)
+
+    cases = [((1024, _VIT_T, _VIT_H, _VIT_D), False, None, "vit_train"),
+             ((32, _VIT_T, _VIT_H, _VIT_D), False, None, "vit_serve"),
+             ((3, 77, 2, 32), False, 50, "ragged"),
+             ((2, 300, 3, 64), True, 250, "causal")]
+    records = []
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        for (b, t, h, d), causal, kv_len, site in cases:
+            kw = {"causal": causal, "kv_len": kv_len}
+            q, k, v, do, _, _ = inputs(b, t, h, d, dtype, causal, kv_len)
+            o, lse = flash_fwd_cuda(q, k, v, **kw)
+            o_ref, lse_ref = attention_fwd(q, k, v, **kw)
+            delta = attention_delta(do, o_ref)
+            got = {"flash_fwd": (o, lse),
+                   "flash_dq": (flash_dq_cuda(q, k, v, do, lse_ref, delta,
+                                              **kw),),
+                   "flash_dkv": flash_dkv_cuda(q, k, v, do, lse_ref, delta,
+                                               **kw)}
+            want = {"flash_fwd": (o_ref, lse_ref),
+                    "flash_dq": (attention_dq(q, k, v, do, lse_ref, delta,
+                                              **kw),),
+                    "flash_dkv": attention_dkv(q, k, v, do, lse_ref, delta,
+                                               **kw)}
+            torch.cuda.synchronize()
+            if kv_len is not None:
+                dk, dv = got["flash_dkv"]
+                check(bool((dk[:, kv_len:] == 0).all()
+                           and (dv[:, kv_len:] == 0).all()),
+                      f"padding keys got a gradient at {site}")
+            recs = {}
+            for name in _FLASH_KERNELS:
+                err = 0.0
+                for i, (g, w) in enumerate(zip(got[name], want[name])):
+                    g, w = g.float(), w.float()
+                    e = float((g - w).abs().max())
+                    # lse (the forward's second output) is fp32 in both
+                    bound = (1e-5 if i == 1 and name == "flash_fwd"
+                             else tol) * float(w.abs().max())
+                    check(bool(torch.isfinite(g).all()) and e <= bound,
+                          f"{name} off its plain version by {e} at {site} "
+                          f"{dtype} (allowed {bound})")
+                    err = max(err, e)
+                recs[name] = {"name": name, "site": site,
+                              "shape": [b, t, h, d],
+                              "dtype": str(dtype).replace("torch.", ""),
+                              "causal": causal, "kv_len": kv_len,
+                              "tol_of_max": tol, "max_abs_err": err}
+            del q, k, v, do, o, lse, o_ref, lse_ref, delta, got, want
+            if site.startswith("vit"):
+                sets = [inputs(b, t, h, d, dtype, causal, kv_len)
+                        for _ in range(40 if b == 32 else 3)]
+                calls = [sdpa_bwd(x) for x in sets]
+                lib_bwd = device_ms(lambda c: c(), calls)
+                del calls
+                timed = {
+                    "flash_fwd": (lambda x: flash_fwd_cuda(*x[:3]),
+                                  lambda x: attention_fwd(*x[:3]),
+                                  lambda x: F.scaled_dot_product_attention(
+                                      *(y.transpose(1, 2) for y in x[:3]))),
+                    "flash_dq": (lambda x: flash_dq_cuda(*x),
+                                 lambda x: attention_dq(*x), None),
+                    "flash_dkv": (lambda x: flash_dkv_cuda(*x),
+                                  lambda x: attention_dkv(*x), None)}
+                for name, (kern, plain, lib) in timed.items():
+                    rec = recs[name]
+                    rec["ms"] = device_ms(kern, sets)
+                    rec["plain_ms"] = device_ms(plain, sets)
+                    rec["library_ms"] = (device_ms(lib, sets) if lib
+                                         else lib_bwd)
+                    rec["library"] = ("F.scaled_dot_product_attention"
+                                      if lib else "autograd backward of "
+                                      "F.scaled_dot_product_attention (dQ, "
+                                      "dK and dV together)")
+                    rec["bound_ms"], rec["bound_by"] = flash_bound_ms(
+                        name, b, t, h, d, dtype.itemsize, causal,
+                        t if kv_len is None else kv_len, peaks)
+                del sets
+            for rec in recs.values():
+                records.append(rec)
+                emit("flash_kernel", **rec)
+            torch.cuda.empty_cache()
+    return records
+
+
+def _tree_size(tree):
+    """Number of values in a nested param tree."""
+    return int(sum(_tree_size(v) if isinstance(v, dict) else v.size
+                   for v in tree.values()))
+
+
+def _vit_cfg():
+    """vit_s16_imagenet with the flash layout."""
+    import dataclasses
+
+    from distributed_vgg_f_tpu_torch.config import get_config
+    cfg = get_config("vit_s16_imagenet")
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, extra=dict(_FLASH)))
+
+
+def phase_vit_model(tree):
+    """Full-width ViT-S/16 through build_engine with the flash layout on
+    the ladder; logits against the CPU forward of the same weights and
+    against the head_major layout on the card."""
+    import dataclasses
+
+    from distributed_vgg_f_tpu_torch.models.registry import build_model
+    from distributed_vgg_f_tpu_torch.serving.engine import build_engine
+    from distributed_vgg_f_tpu_torch.weights import load_params
+    cfg = _vit_cfg()
+    size, classes = cfg.data.image_size, cfg.model.num_classes
+    depth = 12
+    # seed 0: the same weights as `tree` (init_params with seed 0)
+    engine = build_engine("vit_s16", size, classes, cfg.serving.buckets,
+                          cfg.serving.max_batch, device="cuda",
+                          compute_dtype=cfg.model.compute_dtype, seed=0,
+                          extra=_FLASH)
+    _zero_flash_counts()
+    engine.warmup()
+    torch.cuda.synchronize()
+    check(_flash_counts() == {"fwd": depth * len(engine.buckets), "dq": 0,
+                              "dkv": 0},
+          f"warmup of {len(engine.buckets)} buckets: flash launches "
+          f"{_flash_counts()}, expected {depth} forward per forward")
+    rng = np.random.default_rng(4)
+    imgs = rng.integers(0, 256, (32, size, size, 3)).astype(np.uint8)
+    before = _flash_counts()["fwd"]
+    probs, bucket = engine.run(imgs)
+    check(_flash_counts()["fwd"] == before + depth,
+          f"one forward, not {depth} flash launches")
+    check(probs.shape == (32, classes) and bucket == 32,
+          f"probs {probs.shape} bucket {bucket}")
+    check(bool(np.isfinite(probs).all()), "non-finite probabilities")
+    sums_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+    check(sums_err <= 1e-3, f"probabilities sum off 1 by {sums_err}")
+    forward_ms = {}
+    for b in engine.buckets:
+        ts = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            engine.run(imgs[:b])
+            ts.append((time.perf_counter() - t0) * 1e3)
+        forward_ms[str(b)] = statistics.median(ts)
+
+    x = torch.from_numpy(((imgs[:2].astype(np.float32)
+                           - np.asarray(cfg.data.mean_rgb, np.float32))
+                          * (np.float32(1.0) / np.asarray(
+                              cfg.data.stddev_rgb, np.float32))))
+
+    def logits(dtype, layout, dev):
+        model_cfg = dataclasses.replace(cfg.model, compute_dtype=dtype,
+                                        extra={"attention_layout": layout})
+        model = load_params(build_model(model_cfg, image_size=size),
+                            tree).to(dev).eval()
+        with torch.no_grad():
+            return model(x.to(dev)).cpu().numpy()
+
+    ref = logits("float32", "flash", "cpu")
+    got32 = logits("float32", "flash", "cuda")
+    got16 = logits("bfloat16", "flash", "cuda")
+    head32 = logits("float32", "head_major", "cuda")
+    head16 = logits("bfloat16", "head_major", "cuda")
+    scale = float(np.abs(ref).max())
+    errs = {"fp32_vs_cpu": float(np.abs(got32 - ref).max()),
+            "bf16_vs_cpu": float(np.abs(got16 - ref).max()),
+            "fp32_vs_head_major": float(np.abs(got32 - head32).max()),
+            "bf16_vs_head_major": float(np.abs(got16 - head16).max())}
+    # fp32 with TF32 off: sums in another order than the CPU (1e-3, the
+    # VGG-F bound); bf16: every activation rounded to 8 mantissa bits
+    # through 12 blocks (2e-2 of the largest logit). Flash against
+    # head_major on the card in fp32: the same function summed in another
+    # order (1e-4); in bf16 the two round at different points (head_major
+    # scales q and keeps its scores in bf16)
+    check(np.allclose(got32, ref, rtol=1e-3, atol=1e-3),
+          f"fp32 card logits off the CPU by {errs['fp32_vs_cpu']}")
+    check(np.allclose(got16, ref, rtol=2e-2, atol=2e-2 * scale),
+          f"bf16 card logits off the CPU fp32 by {errs['bf16_vs_cpu']}")
+    check(np.allclose(got32, head32, rtol=1e-4, atol=1e-4),
+          f"fp32 flash off head_major by {errs['fp32_vs_head_major']}")
+    check(np.allclose(got16, head16, rtol=2e-2, atol=2e-2 * scale),
+          f"bf16 flash off head_major by {errs['bf16_vs_head_major']}")
+    profile = {}
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    for b in (1, 32):
+        for _ in range(3):
+            engine.run(imgs[:b])
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                engine.run(imgs[:b])
+            torch.cuda.synchronize()
+        t = _trace_breakdown(prof, 5, top=12)
+        profile[str(b)] = {
+            "window_us_per_forward": t["window_us"],
+            "device_busy_us_per_forward": t["busy_us"],
+            "device_idle_share": t["idle_share"],
+            "flash_fwd_us_per_forward": t["flash_us"]["flash_fwd"],
+            "top_device_us_per_forward": t["top_us"]}
+    emit("vit_model", model="vit_s16", attention_layout="flash",
+         image_size=size, num_classes=classes, depth=depth,
+         compute_dtype=cfg.model.compute_dtype,
+         buckets=list(engine.buckets),
+         warmup_s={str(b): s for b, s in sorted(engine.compile_log.items())},
+         flash_fwd_launches_per_forward=depth, probs_sum_max_err=sums_err,
+         forward_ms=forward_ms,
+         images_per_s={b: int(b) / (ms / 1e3)
+                       for b, ms in forward_ms.items()},
+         ref_max_abs_logit=scale, max_abs_err=errs, profile=profile,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del engine
+    torch.cuda.empty_cache()
+
+
+def phase_vit_serve(tree):
+    """The ViT serving path: serve_from_params with the flash layout,
+    driven over HTTP."""
+    from distributed_vgg_f_tpu_torch import telemetry
+    from distributed_vgg_f_tpu_torch.serving.server import serve_from_params
+    cfg = _vit_cfg()
+    size = cfg.data.image_size
+    reg = telemetry.get_registry()
+    reg.reset()
+    rng = np.random.default_rng(5)
+    burst = rng.integers(0, 256, (32, size, size, 3)).astype(np.uint8)
+    singles = rng.integers(0, 256, (4, size, size, 3)).astype(np.uint8)
+    _zero_flash_counts()
+    t_start = time.perf_counter()
+    server = serve_from_params(cfg, tree, device="cuda")
+    start_s = time.perf_counter() - t_start
+    engine = server.engine("vit_s16")
+    drive = _drive_server(server, "vit_s16", burst, singles, reg)
+    torch.cuda.synchronize()
+    launches = _flash_counts()
+    forwards = len(engine.compile_log) + reg.counter_value("serving/batches")
+    check(launches["fwd"] > 0, "the ViT serving path never launched the "
+          "flash forward kernel")
+    check(launches == {"fwd": 12 * forwards, "dq": 0, "dkv": 0},
+          f"flash launches {launches} for {forwards} forwards, expected 12 "
+          "forward launches per forward and no backward")
+    seq_lat, seq_err = _check_served_probs(engine, singles,
+                                           drive["seq_bodies"])
+    emit("vit_serve", model="vit_s16", attention_layout="flash",
+         **_serve_record(reg, burst, singles, drive, seq_lat, seq_err,
+                         start_s, engine, forwards),
+         flash_launches=launches)
+    del server, engine
+    torch.cuda.empty_cache()
+    return launches["fwd"]
+
+
+def phase_vit_train_parity(tree):
+    """One fp32 train step of full-width ViT-S/16 (flash) on the card and
+    on the CPU from the same weights and batch."""
+    import dataclasses
+
+    from distributed_vgg_f_tpu_torch.data.device_ingest import \
+        make_device_finish
+    from distributed_vgg_f_tpu_torch.models.registry import build_model
+    from distributed_vgg_f_tpu_torch.train.schedule import build_optimizer
+    from distributed_vgg_f_tpu_torch.train.state import TrainState
+    from distributed_vgg_f_tpu_torch.train.step import build_train_step
+    from distributed_vgg_f_tpu_torch.weights import load_params
+    cfg = _vit_cfg()
+    size = cfg.data.image_size
+    model_cfg = dataclasses.replace(cfg.model, compute_dtype="float32",
+                                    dropout_rate=0.0)
+    rng = np.random.default_rng(6)
+    batch = {"image": rng.integers(0, 256, (2, size, size, 3), np.uint8),
+             "label": rng.integers(0, cfg.model.num_classes, (2,))}
+    finish = make_device_finish(cfg.data.mean_rgb, cfg.data.stddev_rgb)
+    # the update runs at the schedule's peak (past the 5 warmup epochs,
+    # whose first update has LR 0), scaled from 1e-3 to 1.0: at 1e-3 the
+    # updates of the LayerNorm scales (parameters of 1.0) fall to the
+    # fp32 resolution of the parameters, so p1 - p0 would measure rounding
+    warmup = int(cfg.optim.warmup_epochs * cfg.steps_per_epoch)
+    lr_scale = 1e3
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = load_params(build_model(model_cfg, image_size=size),
+                            tree).to(dev)
+        p0 = {k: p.detach().cpu().clone()
+              for k, p in model.named_parameters()}
+        opt, schedule = build_optimizer(cfg, model.parameters(),
+                                        lr_scale=lr_scale)
+        state = TrainState.create(model, opt)
+        state.opt_count = warmup
+        step = build_train_step(schedule, cfg.optim.weight_decay,
+                                skip_nonfinite=True, device_finish=finish,
+                                device=dev)
+        _zero_flash_counts()
+        state, metrics = step(state, batch, 0)
+        torch.cuda.synchronize()
+        out[dev] = {
+            "loss": float(metrics["loss"]), "lr": schedule(warmup),
+            "grads": {k: None if p.grad is None else p.grad.cpu()
+                      for k, p in model.named_parameters()},
+            "updates": {k: p.detach().cpu() - p0[k]
+                        for k, p in model.named_parameters()},
+            "launches": _flash_counts()}
+        del model, opt, state
+    torch.cuda.empty_cache()
+    cpu, card = out["cpu"], out["cuda"]
+    check(card["launches"] == {"fwd": 12, "dq": 12, "dkv": 12}
+          and cpu["launches"] == {"fwd": 0, "dq": 0, "dkv": 0},
+          f"flash launches card {card['launches']} cpu {cpu['launches']}")
+    check(all(g is not None for g in card["grads"].values()),
+          "a parameter got no gradient on the card")
+    for k in ("cls", "pos_embed", "patch_embed.weight",
+              "block0.attn.qkv.weight"):
+        check(float(card["grads"][k].abs().max()) > 0,
+              f"{k} got a zero gradient on the card")
+    grad_err = {k: _rel_l2(card["grads"][k], cpu["grads"][k])
+                for k in cpu["grads"]}
+    update_err = {k: _rel_l2(card["updates"][k], cpu["updates"][k])
+                  for k in cpu["updates"]}
+    loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    # fp32 on both sides with TF32 off, sums in another order; 1e-4 fails
+    # a wrong scale, mask or term in any of the three kernels
+    tol = 1e-4
+    worst = lambda errs: max(errs.items(), key=lambda kv: kv[1])  # noqa
+    emit("vit_train_parity", batch=2, image_size=size, dtype="float32",
+         tf32=False, lr=card["lr"], loss_card=card["loss"],
+         loss_cpu=cpu["loss"], loss_rel_err=loss_err, tolerance_rel_l2=tol,
+         grad_rel_l2_max=worst(grad_err), update_rel_l2_max=worst(update_err),
+         grad_rel_l2=grad_err, update_rel_l2=update_err,
+         card_flash_launches=card["launches"])
+    check(card["lr"] > 0, f"the step ran at LR {card['lr']}")
+    check(loss_err <= 1e-4, f"loss card {card['loss']} cpu {cpu['loss']}")
+    check(max(grad_err.values()) <= tol, f"gradients off: {worst(grad_err)}")
+    check(max(update_err.values()) <= tol,
+          f"updates off: {worst(update_err)}")
+
+
+def phase_vit_train():
+    """The ViT training path: Trainer.fit on vit_s16_imagenet with the
+    flash layout at full width and batch 1024 for 20 steps on one fixed
+    seeded u8 batch."""
+    import dataclasses
+
+    from distributed_vgg_f_tpu_torch.data.synthetic import SyntheticU8
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    cfg = _vit_cfg()
+    steps = 20
+    # cut: the preset's 5 warmup epochs start the LR at 0 and keep it
+    # below 4e-6 for 20 steps; without them the cosine starts at its peak
+    cfg = dataclasses.replace(
+        cfg, optim=dataclasses.replace(cfg.optim, warmup_epochs=0.0),
+        train=dataclasses.replace(cfg.train, log_every=1, seed=0))
+    b, size = cfg.data.global_batch_size, cfg.data.image_size
+    data = SyntheticU8(b, size, cfg.model.num_classes, seed=0, pin=True)
+    stamps = []
+    trainer = Trainer(cfg, log=lambda event, rec: stamps.append(
+        time.perf_counter()))
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, data, num_steps=steps)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    recs = [r for r in trainer.records if r["event"] == "train"]
+    losses = [r["loss"] for r in recs]
+    stamps.insert(0, t0)
+    step_ms = [(t1 - t0_) * 1e3 for t0_, t1 in zip(stamps, stamps[1:])]
+    median_ms = statistics.median(step_ms[4:])
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    profile = _profile_train(trainer, state, next(iter(data)))
+    emit("vit_train", config=cfg.name, attention_layout="flash",
+         image_size=size, batch=b, num_classes=cfg.model.num_classes,
+         compute_dtype=cfg.model.compute_dtype,
+         dropout_rate=cfg.model.dropout_rate,
+         augment={"hflip": cfg.data.augment.hflip,
+                  "mixup_alpha": cfg.data.augment.mixup_alpha},
+         schedule=cfg.optim.schedule, warmup_epochs=cfg.optim.warmup_epochs,
+         skip_nonfinite=cfg.train.skip_nonfinite, steps=steps,
+         wall_s=wall_s, first_step_ms=step_ms[0],
+         step_ms_median=median_ms, step_ms=step_ms,
+         images_per_s=b / (median_ms / 1e3),
+         meter_images_per_sec=recs[-1]["images_per_sec"],
+         peak_memory_bytes=peak, losses=losses,
+         grad_norms=[r["grad_norm"] for r in recs],
+         loss_first5_mean=first, loss_last5_mean=last,
+         flash_launches=launches, profile=profile)
+    check(state.step == steps + profile["steps"] and len(recs) == steps,
+          f"{state.step} steps, {len(recs)} records")
+    check(launches == {"fwd": 12 * steps, "dq": 12 * steps,
+                       "dkv": 12 * steps},
+          f"flash launches {launches} over {steps} steps, expected 12 of "
+          "each kernel a step")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(all(r["bad_step"] == 0.0 for r in recs), "a step was skipped")
+    check(last < first, f"loss did not fall on a fixed batch: mean of the "
+          f"first 5 steps {first}, of the last 5 {last}")
+    del trainer, state, data
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_isolation():
     bad = sorted(m for m in sys.modules
                  if any(m == r or m.startswith(r + ".")
@@ -718,7 +1247,8 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
          peaks={"board": _BOARD, "bytes_per_s": peaks[0],
-                "fp32_flops": peaks[1]},
+                "fp32_flops": peaks[1],
+                "bf16_tensor_flops": _BF16_TENSOR_FLOPS},
          tf32={"matmul": False, "cudnn": False})
 
     t0 = time.perf_counter()
@@ -741,6 +1271,17 @@ def main() -> int:
     phase_train_parity(tree)
     del tree
     train_launches = phase_train()
+
+    flash_records = phase_flash_kernel(peaks)
+    t0 = time.perf_counter()
+    vit_tree = init_params(_vit_cfg().model, 0, image_size=224)
+    emit("init", model="vit_s16", seconds=time.perf_counter() - t0, seed=0,
+         params=_tree_size(vit_tree))
+    phase_vit_model(vit_tree)
+    vit_serve_launches = phase_vit_serve(vit_tree)
+    phase_vit_train_parity(vit_tree)
+    del vit_tree
+    vit_train_launches = phase_vit_train()
     phase_isolation()
 
     def summary(name, source, replaces, recs, key, value, launches,
@@ -762,6 +1303,25 @@ def main() -> int:
             "work": work + ": " + ", ".join(str(tuple(r["shape"]))
                                            for r in main)}
 
+    def flash_summary(name, line, launches, by_path):
+        # one layer's launch in bf16 at the training batch
+        main = [r for r in flash_records if r["name"] == name
+                and r["site"] == "vit_train" and r["dtype"] == "bfloat16"]
+        check(len(main) == 1, f"{name}: {len(main)} timed records")
+        rec = main[0]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"distributed_vgg_f_tpu_torch/csrc/{name}.cu",
+            "replaces": f"distributed_vgg_f_tpu/ops/flash_attention.py{line}",
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in flash_records
+                               if r["name"] == name),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            "work": "one attention layer of ViT-S/16 in bf16 at batch 1024: "
+                    f"(B, T, H, D) = {tuple(rec['shape'])}"}
+
     print(json.dumps({"kernels": [
         summary("lrn_fwd", "distributed_vgg_f_tpu_torch/csrc/lrn_fwd.cu",
                 "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records,
@@ -773,6 +1333,15 @@ def main() -> int:
                 "batch", 1024, train_launches["bwd"],
                 {"serve": 0, "train": train_launches["bwd"]},
                 "both LRN sites of one bf16 training step at batch 1024"),
+        flash_summary("flash_fwd", ":211", vit_serve_launches
+                      + vit_train_launches["fwd"],
+                      {"vit_serve": vit_serve_launches,
+                       "vit_train": vit_train_launches["fwd"]}),
+        flash_summary("flash_dq", ":292", vit_train_launches["dq"],
+                      {"vit_serve": 0, "vit_train": vit_train_launches["dq"]}),
+        flash_summary("flash_dkv", ":365", vit_train_launches["dkv"],
+                      {"vit_serve": 0,
+                       "vit_train": vit_train_launches["dkv"]}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

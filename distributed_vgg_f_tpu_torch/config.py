@@ -2,13 +2,14 @@
 slices.
 
 Own copies of the parts of the JAX package's `config.py` these slices
-read: `ModelConfig` (without the model overrides no ported model needs),
-`OptimConfig`, `AugmentConfig`, the `DataConfig` fields serving and the
-training step use, `MeshConfig` and `TrainConfig` limited to the fields
-the single-device step and the core loop read, a `ServingConfig` limited
-to the fields the port honours, `resolve_serving_buckets`, the derived
+read: `ModelConfig` (with its `extra` overrides), `OptimConfig`,
+`AugmentConfig`, the `DataConfig` fields serving and the training step
+use, `MeshConfig` and `TrainConfig` limited to the fields the
+single-device step and the core loop read, a `ServingConfig` limited to
+the fields the port honours, `resolve_serving_buckets`, the derived
 `scaled_lr` / `steps_per_epoch` / `total_steps`, and the
-`vggf_imagenet_dp` and `vggf_teacher` presets. Fields of later slices
+`vggf_imagenet_dp`, `vggf_teacher` and `vit_s16_imagenet` presets.
+Fields of later slices
 (checkpoints, eval cadence, preemption, autotune, the admission
 controller, serving tiers) are absent until their slice ports them: a
 field the port would accept and ignore is left out instead.
@@ -16,8 +17,8 @@ field the port would accept and ignore is left out instead.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Sequence
+from dataclasses import dataclass, field, replace
+from typing import Any, Mapping, Sequence
 
 from distributed_vgg_f_tpu_torch.models.ingest import (IMAGENET_MEAN_RGB,
                                                        IMAGENET_STDDEV_RGB)
@@ -31,6 +32,9 @@ class ModelConfig:
     dropout_rate: float = 0.5
     # activations/conv compute dtype; params stay float32
     compute_dtype: str = "bfloat16"
+    # model-specific keyword overrides (e.g. ViT widths, depth and
+    # attention_layout), passed to the model's constructor
+    extra: Mapping[str, Any] = field(default_factory=dict)
 
 
 @dataclass(frozen=True)
@@ -274,8 +278,29 @@ def _vggf_teacher() -> ExperimentConfig:
         train=TrainConfig(epochs=32.0, log_every=64))
 
 
+def _vit_s16_imagenet() -> ExperimentConfig:
+    """ViT-S/16 on ImageNet-1k: the flagship's data (batch 1024, flips and
+    mixup on the device) without the packed stem, dropout 0.1 (attention
+    weights: 0), SGD with momentum at 1e-3 per 1024 images on a cosine
+    schedule after 5 warmup epochs, 300 epochs. The attention layout is
+    the model's default, head_major, as in the JAX preset; the flash path
+    passes ``extra={"attention_layout": "flash"}``."""
+    base = _vggf_imagenet_dp()
+    return ExperimentConfig(
+        name="vit_s16_imagenet",
+        model=ModelConfig(name="vit_s16", num_classes=1000,
+                          dropout_rate=0.1),
+        optim=OptimConfig(base_lr=1e-3, reference_batch_size=1024,
+                          momentum=0.9, weight_decay=1e-4,
+                          schedule="cosine", warmup_epochs=5.0),
+        data=replace(base.data, space_to_depth=False),
+        train=TrainConfig(epochs=300.0),
+        serving=base.serving)
+
+
 PRESETS = {"vggf_imagenet_dp": _vggf_imagenet_dp,
-           "vggf_teacher": _vggf_teacher}
+           "vggf_teacher": _vggf_teacher,
+           "vit_s16_imagenet": _vit_s16_imagenet}
 
 
 def get_config(name: str) -> ExperimentConfig:

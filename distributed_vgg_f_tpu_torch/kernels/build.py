@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
 into ``build/kernels/<name>-<hash>.so`` at the root of the checkout, with a
 plain C interface that the wrappers call through ctypes. The hash covers
-the source and the flags, so an edited source builds anew and an unchanged
-one is reused. `build_all` starts one nvcc per source, all at once.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew and an unchanged one is reused. `build_all`
+starts one nvcc per source, all at once.
 
 Importing this module needs no nvcc: only a build does, and without one it
 raises.
@@ -48,9 +49,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -88,8 +91,8 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel's library, cached per process. The first use builds every
-    kernel whose library is missing (lrn_fwd and lrn_bwd together), so a
-    training step's first backward finds its kernel built."""
+    kernel whose library is missing (all of csrc/ together), so a training
+    step's first backward finds its kernels built."""
     lib = _libs.get(name)
     if lib is not None:
         return lib

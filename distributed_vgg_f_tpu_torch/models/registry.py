@@ -59,3 +59,14 @@ def _build_vggf_student(cfg: ModelConfig, image_size: int) -> nn.Module:
     return VGGF(cfg.num_classes, compute_dtype=compute_dtype(cfg),
                 image_size=image_size, stem_features=32, conv_features=128,
                 fc_features=2048, dropout_rate=cfg.dropout_rate)
+
+
+@register("vit_s16")
+def _build_vit_s16(cfg: ModelConfig, image_size: int) -> nn.Module:
+    # `cfg.extra` carries ViT's overrides: hidden_dim, depth, num_heads,
+    # mlp_dim, patch_size, attention_layout, attention_dropout_rate;
+    # `image_size` sizes pos_embed
+    from distributed_vgg_f_tpu_torch.models.vit import ViT
+    return ViT(cfg.num_classes, compute_dtype=compute_dtype(cfg),
+               image_size=image_size, dropout_rate=cfg.dropout_rate,
+               **cfg.extra)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -138,15 +138,18 @@ def build_engine(model_name: str, image_size: int, num_classes: int,
                  buckets: Sequence[int] = (), max_batch: int = 32,
                  weights: str = "", *, device="cuda",
                  compute_dtype: str = "bfloat16",
-                 seed: int = 0) -> PredictEngine:
+                 seed: int = 0,
+                 extra: Optional[Mapping[str, Any]] = None) -> PredictEngine:
     """An engine over the weights npz (the flat 'layer/leaf' file the JAX
-    package's distill writes) or, without one, seeded lecun-normal init."""
+    package's distill writes) or, without one, the seeded Flax init.
+    `extra` is the model's `ModelConfig.extra` (for ViT: widths, depth
+    and `attention_layout`, e.g. ``{"attention_layout": "flash"}``)."""
     from distributed_vgg_f_tpu_torch.models.registry import build_model
     from distributed_vgg_f_tpu_torch.weights import (init_params, load_npz,
                                                       load_params)
     dev = resolve_device(device)
     cfg = ModelConfig(name=model_name, num_classes=num_classes,
-                      compute_dtype=compute_dtype)
+                      compute_dtype=compute_dtype, extra=dict(extra or {}))
     model = build_model(cfg, image_size=image_size)
     tree = load_npz(weights) if weights \
         else init_params(cfg, seed, image_size=image_size)

@@ -328,8 +328,9 @@ def _reply(req: BaseHTTPRequestHandler, status: int, payload: dict,
 def serve_from_params(cfg, params, *, device="cuda",
                       start: bool = True) -> PredictServer:
     """One engine over `params` (a Flax param tree, e.g. from
-    weights.load_npz or weights.init_params) for `cfg.model`, routed under
-    the model's name, behind a server configured by `cfg.serving`."""
+    weights.load_npz or weights.init_params) for `cfg.model` (its `extra`
+    included, e.g. ViT's attention layout), routed under the model's name,
+    behind a server configured by `cfg.serving`."""
     from distributed_vgg_f_tpu_torch.device import resolve_device
     from distributed_vgg_f_tpu_torch.models.registry import build_model
     from distributed_vgg_f_tpu_torch.weights import load_params

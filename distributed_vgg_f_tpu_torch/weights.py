@@ -1,22 +1,31 @@
 """Weight bridge between the Flax param tree and the port's state_dict.
 
-The Flax tree holds ``{layer: {"kernel", "bias"}}`` with conv kernels
-HWIO and dense kernels (in, out); the port holds ``layer.weight`` OIHW or
-(out, in) and ``layer.bias``. Both directions are transposes, so the round
-trip is bitwise. fc6 needs no row permutation: the port flattens pool5 in
-NHWC order, as Flax does.
+The Flax tree nests ``{layer: {"kernel", "bias"}}`` (``"scale"`` and
+``"bias"`` for a LayerNorm) under module names, with raw parameters
+(ViT's ``cls`` and ``pos_embed``) as arrays of their own; the port's
+state_dict names the same leaves ``block0.attn.qkv.weight`` and so on.
+Each leaf maps by a transpose or a reshape, so the round trip is bitwise:
+
+- conv kernels HWIO <-> OIHW; dense kernels (in, out) <-> (out, in);
+- ViT's fused ``qkv`` kernel (D, 3, H, hd) <-> (3*H*hd, D) and its bias
+  (3, H, hd) <-> flat; the ``out`` kernel (H, hd, D) <-> (D, H*hd);
+- LayerNorm ``scale`` <-> ``weight``; raw parameters as they are.
+
+The way back needs the head count H (`params_to_flax(num_heads=...)`).
+VGG-F's fc6 needs no row permutation: the port flattens pool5 in NHWC
+order, as Flax does.
 
 `load_npz` reads the flat ``'conv1/kernel'`` npz the JAX package's
-`train/distill.py save_params` writes; `init_params` makes a seeded
-lecun-normal tree for runs without a weights file. `momentum_from_optax`
-maps optax's SGD momentum trace (a param-shaped tree) through the same
-transposes, so a port run can continue a JAX run.
+`train/distill.py save_params` writes; `init_params` makes a seeded tree
+with the Flax initializers for runs without a weights file.
+`momentum_from_optax` maps optax's SGD momentum trace (a param-shaped
+tree) through the same maps, so a port run can continue a JAX run.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,45 +35,88 @@ from distributed_vgg_f_tpu_torch.config import ModelConfig
 #: stddev correction of a normal truncated at two standard deviations
 #: (the lecun_normal initializer's truncated_normal variance scaling)
 _TRUNC_STD = 0.87962566103423978
+#: Flax leaf names of a layer; any other array is a raw parameter
+_LAYER_LEAVES = ("kernel", "bias", "scale")
 
 
-def _to_torch_layout(kernel: np.ndarray) -> np.ndarray:
-    if kernel.ndim == 4:       # HWIO -> OIHW
-        return kernel.transpose(3, 2, 0, 1)
-    if kernel.ndim == 2:       # (in, out) -> (out, in)
-        return kernel.T
-    raise ValueError(f"kernel of rank {kernel.ndim}: expected a conv (4) or "
-                     "dense (2) kernel")
+def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()
+          ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _walk(value, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(value)
 
 
-def _to_flax_layout(weight: np.ndarray) -> np.ndarray:
-    if weight.ndim == 4:       # OIHW -> HWIO
-        return weight.transpose(2, 3, 1, 0)
-    if weight.ndim == 2:
-        return weight.T
-    raise ValueError(f"weight of rank {weight.ndim}: expected a conv (4) or "
-                     "dense (2) weight")
+def _leaf_from_flax(path: Tuple[str, ...], arr: np.ndarray
+                    ) -> Tuple[str, np.ndarray]:
+    """One Flax leaf -> (state_dict key, array in the port's layout)."""
+    *layer, leaf = path
+    if not layer or leaf not in _LAYER_LEAVES:
+        return ".".join(path), np.array(arr, copy=True)
+    name = ".".join(layer)
+    if leaf == "scale":
+        return f"{name}.weight", np.array(arr, copy=True)
+    if leaf == "bias":
+        return f"{name}.bias", np.array(arr.reshape(-1), copy=True)
+    if layer[-1] == "qkv":        # (D, 3, H, hd) -> (3*H*hd, D)
+        out = arr.reshape(arr.shape[0], -1).T
+    elif layer[-1] == "out" and arr.ndim == 3:   # (H, hd, D) -> (D, H*hd)
+        out = arr.reshape(-1, arr.shape[-1]).T
+    elif arr.ndim == 4:           # HWIO -> OIHW
+        out = arr.transpose(3, 2, 0, 1)
+    elif arr.ndim == 2:           # (in, out) -> (out, in)
+        out = arr.T
+    else:
+        raise ValueError(f"kernel {'/'.join(path)} of rank {arr.ndim}: "
+                         "expected a conv (4), dense (2), qkv or out kernel")
+    return f"{name}.weight", np.ascontiguousarray(out)
+
+
+def _leaf_to_flax(key: str, arr: np.ndarray, num_heads: Optional[int]
+                  ) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """One state_dict entry -> (Flax path, array in the Flax layout)."""
+    layer, _, leaf = key.rpartition(".")
+    if not layer or leaf not in ("weight", "bias"):
+        return tuple(key.split(".")), np.array(arr, copy=True)
+    path = tuple(layer.split("."))
+    if num_heads is None and (path[-1] == "qkv" or (path[-1] == "out"
+                                                    and leaf == "weight")):
+        raise ValueError(f"{key}: mapping ViT's fused attention leaves to "
+                         "Flax needs num_heads")
+    if leaf == "bias":
+        if path[-1] == "qkv":     # flat -> (3, H, hd)
+            arr = arr.reshape(3, num_heads, -1)
+        return path + ("bias",), np.array(arr, copy=True)
+    if arr.ndim == 1:             # LayerNorm
+        return path + ("scale",), np.array(arr, copy=True)
+    if path[-1] == "qkv":         # (3*H*hd, D) -> (D, 3, H, hd)
+        out = arr.T.reshape(arr.shape[1], 3, num_heads, -1)
+    elif path[-1] == "out":       # (D, H*hd) -> (H, hd, D)
+        out = arr.T.reshape(num_heads, -1, arr.shape[0])
+    elif arr.ndim == 4:           # OIHW -> HWIO
+        out = arr.transpose(2, 3, 1, 0)
+    elif arr.ndim == 2:
+        out = arr.T
+    else:
+        raise ValueError(f"weight {key} of rank {arr.ndim}: expected a "
+                         "conv (4), dense (2) or LayerNorm (1) weight")
+    return path + ("kernel",), np.ascontiguousarray(out)
 
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax param tree (numpy leaves) -> the port's state_dict."""
+    """Flax param tree (numpy leaves, nested) -> the port's state_dict."""
     out: Dict[str, torch.Tensor] = {}
-    for layer, leaves in tree.items():
-        if set(leaves) != {"kernel", "bias"}:
-            raise ValueError(f"layer {layer!r} has leaves {sorted(leaves)}; "
-                             "expected kernel and bias")
-        kernel = _to_torch_layout(np.asarray(leaves["kernel"]))
-        out[f"{layer}.weight"] = torch.from_numpy(
-            np.ascontiguousarray(kernel))
-        out[f"{layer}.bias"] = torch.from_numpy(
-            np.array(leaves["bias"], copy=True))
+    for path, arr in _walk(tree):
+        key, value = _leaf_from_flax(path, arr)
+        out[key] = torch.from_numpy(value)
     return out
 
 
 def momentum_from_optax(opt_state) -> Dict[str, torch.Tensor]:
     """optax.sgd's state (numpy leaves, Flax layout) -> the port's momentum
     buffers keyed like its state_dict: the one element of the state
-    tuple that holds a momentum `trace`, through the params' transposes."""
+    tuple that holds a momentum `trace`, through the params' maps."""
     traces = [s for s in opt_state if hasattr(s, "trace")]
     if len(traces) != 1:
         raise ValueError(f"expected one momentum trace in the optax state, "
@@ -72,19 +124,18 @@ def momentum_from_optax(opt_state) -> Dict[str, torch.Tensor]:
     return params_from_flax(traces[0].trace)
 
 
-def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
-    """The port's state_dict -> Flax param tree of numpy arrays."""
+def params_to_flax(state_dict: Mapping[str, torch.Tensor], *,
+                   num_heads: Optional[int] = None) -> dict:
+    """The port's state_dict -> nested Flax param tree of numpy arrays.
+    `num_heads` is needed for ViT's fused qkv and out leaves."""
     tree: dict = {}
     for key, value in state_dict.items():
-        layer, _, leaf = key.rpartition(".")
-        arr = value.detach().cpu().numpy()
-        if leaf == "weight":
-            tree.setdefault(layer, {})["kernel"] = np.ascontiguousarray(
-                _to_flax_layout(arr))
-        elif leaf == "bias":
-            tree.setdefault(layer, {})["bias"] = arr.copy()
-        else:
-            raise ValueError(f"unexpected state_dict key {key!r}")
+        path, arr = _leaf_to_flax(key, value.detach().cpu().numpy(),
+                                  num_heads)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = arr
     return tree
 
 
@@ -103,26 +154,38 @@ def load_npz(path: str) -> dict:
 
 def init_params(model_cfg: ModelConfig, seed: int, *,
                 image_size: int = 224) -> dict:
-    """Seeded Flax param tree for `model_cfg` at `image_size`: lecun-normal
-    kernels (normal truncated at two standard deviations, stddev
-    sqrt(1/fan_in) corrected for the truncation) and zero biases, drawn
-    layer by layer from one `torch.Generator`."""
+    """Seeded Flax param tree for `model_cfg` at `image_size`, drawn leaf
+    by leaf from one `torch.Generator` with the Flax initializers:
+    lecun-normal kernels (normal truncated at two standard deviations,
+    stddev sqrt(1/fan_in) corrected for the truncation, fan_in over the
+    contracted axes), zero biases, LayerNorm scales of one, a zero cls
+    token and a normal(0.02) position embedding."""
     from distributed_vgg_f_tpu_torch.models.registry import build_model
     model = build_model(model_cfg, image_size=image_size)
+    num_heads = getattr(model, "num_heads", None)
     gen = torch.Generator().manual_seed(int(seed))
     tree: dict = {}
     for name, param in model.named_parameters():
-        layer, _, leaf = name.rpartition(".")
-        if leaf == "bias":
-            tree.setdefault(layer, {})["bias"] = np.zeros(
-                tuple(param.shape), np.float32)
-            continue
-        shape = _to_flax_layout(np.empty(tuple(param.shape), np.uint8)).shape
-        std = math.sqrt(1.0 / math.prod(shape[:-1])) / _TRUNC_STD
-        kernel = torch.empty(shape, dtype=torch.float32)
-        torch.nn.init.trunc_normal_(kernel, 0.0, std, -2.0 * std, 2.0 * std,
-                                    generator=gen)
-        tree.setdefault(layer, {})["kernel"] = kernel.numpy()
+        path, like = _leaf_to_flax(name, np.empty(tuple(param.shape),
+                                                  np.uint8), num_heads)
+        leaf = path[-1]
+        if leaf in ("bias", "cls"):
+            value = np.zeros(like.shape, np.float32)
+        elif leaf == "scale":
+            value = np.ones(like.shape, np.float32)
+        elif leaf == "pos_embed":
+            value = (torch.randn(like.shape, generator=gen)
+                     * 0.02).numpy()
+        else:
+            std = math.sqrt(1.0 / math.prod(param.shape[1:])) / _TRUNC_STD
+            kernel = torch.empty(like.shape, dtype=torch.float32)
+            torch.nn.init.trunc_normal_(kernel, 0.0, std, -2.0 * std,
+                                        2.0 * std, generator=gen)
+            value = kernel.numpy()
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[leaf] = value
     return tree
 
 

@@ -1,6 +1,7 @@
-"""The port on the card: the LRN kernel against its plain version at the
-main path's shapes, and the VGG-F forward through the kernel against the
-same forward on the CPU. Every test here needs a CUDA device and skips
+"""The port on the card: the LRN and flash attention kernels against their
+plain versions at the main paths' shapes, and the VGG-F forward and the
+VGG-F and ViT train steps through the kernels against the same on the
+CPU. Every test here needs a CUDA device and skips
 without one; the file imports only the port, so it runs where JAX is not
 installed:
 
@@ -16,7 +17,14 @@ The backward kernel vs the plain backward: the same, with atol 1e-5 in
 fp32 (dx is a difference of two terms). Model on the card vs the CPU in
 fp32 with TF32 off: rtol/atol 1e-4, for logits, for one train step's
 parameter gradients (narrow model, 32 px) and for the updated
-parameters."""
+parameters.
+
+Flash kernels vs their plain versions: max error within 1e-5 of the
+largest reference value in fp32 (the kernels sum in 64-key tiles with an
+online rescale, the plain versions whole rows at once), 1e-2 in bf16 (one
+bf16 ulp of an element is at most 3.9e-3 of the largest), lse within
+1e-5 in both. A narrow ViT's fp32 train step through the flash kernels:
+every gradient and update within 1e-4 relative L2 of the CPU step."""
 
 import numpy as np
 import pytest
@@ -170,3 +178,143 @@ def test_card_train_step_gives_conv1_the_cpu_gradient(cuda_device):
                                    atol=1e-4)
         torch.testing.assert_close(params[k], out["cpu"][1][k], rtol=1e-4,
                                    atol=1e-4)
+
+
+# ------------------------------------------------------------ flash kernels
+def _flash_case(device, b, t, h, d, dtype, strided, seed=0):
+    """q, k, v (slices of one (B, T, 3, H, D) tensor when `strided`, as
+    the model passes them), dO, and the plain forward's o and lse."""
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import \
+        attention_delta, attention_fwd
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if strided:
+        q, k, v = torch.randn(b, t, 3, h, d, generator=gen,
+                              device=device).to(dtype).unbind(2)
+    else:
+        q, k, v = (torch.randn(b, t, h, d, generator=gen,
+                               device=device).to(dtype) for _ in range(3))
+    do = torch.randn(b, t, h, d, generator=gen, device=device).to(dtype)
+    return q, k, v, do, attention_fwd, attention_delta
+
+
+def _close(got, want, tol):
+    """max |got - want| <= tol * max |want| (per-output scale: bf16 results
+    may differ by one ulp of the element, fp32 by summation order)."""
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d,causal,kv_len,strided", [
+    (4, 197, 6, 64, False, None, True),     # ViT's shape, from the QKV output
+    (2, 197, 6, 64, True, None, True),
+    (3, 77, 2, 32, False, 50, False),       # ragged tiles and padding keys
+    (2, 130, 3, 128, True, 100, False)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_flash_kernels_match_plain_on_card(cuda_device, b, t, h, d, causal,
+                                           kv_len, strided, dtype, tol):
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import (
+        attention_dkv, attention_dq)
+    q, k, v, do, fwd, delta_of = _flash_case(cuda_device, b, t, h, d, dtype,
+                                             strided)
+    kw = {"causal": causal, "kv_len": kv_len}
+    before = (flash_cuda.FWD_LAUNCHES, flash_cuda.DQ_LAUNCHES,
+              flash_cuda.DKV_LAUNCHES)
+    o, lse = flash_cuda.flash_fwd_cuda(q, k, v, **kw)
+    o_ref, lse_ref = fwd(q, k, v, **kw)
+    delta = delta_of(do, o_ref)
+    dq = flash_cuda.flash_dq_cuda(q, k, v, do, lse_ref, delta, **kw)
+    dk, dv = flash_cuda.flash_dkv_cuda(q, k, v, do, lse_ref, delta, **kw)
+    torch.cuda.synchronize()
+    assert (flash_cuda.FWD_LAUNCHES, flash_cuda.DQ_LAUNCHES,
+            flash_cuda.DKV_LAUNCHES) == tuple(n + 1 for n in before)
+    dk_ref, dv_ref = attention_dkv(q, k, v, do, lse_ref, delta, **kw)
+    _close(o, o_ref, tol)
+    _close(lse, lse_ref, 1e-5)
+    _close(dq, attention_dq(q, k, v, do, lse_ref, delta, **kw), tol)
+    _close(dk, dk_ref, tol)
+    _close(dv, dv_ref, tol)
+    if kv_len is not None:
+        assert (dk[:, kv_len:] == 0).all() and (dv[:, kv_len:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_what_they_do_not_take(cuda_device):
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    q = torch.randn(1, 8, 2, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_cuda.flash_fwd_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dim"):
+        x = q[..., :48]
+        flash_cuda.flash_fwd_cuda(x, x, x)
+    with pytest.raises(ValueError, match="contiguous head axis"):
+        x = q.transpose(1, 3).contiguous().transpose(1, 3)
+        flash_cuda.flash_fwd_cuda(x, x, x)
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_cuda.flash_fwd_cuda(q, q, q, kv_len=9)
+    lse = torch.zeros(1, 2, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="dO must be"):
+        flash_cuda.flash_dq_cuda(q, q, q, q.bfloat16(), lse, lse)
+
+
+@pytest.mark.cuda
+def test_card_vit_train_step_matches_cpu(cuda_device):
+    """One fp32 train step of a ViT through the flash layout (hidden 128,
+    2 heads of 64, depth 2, 224 px: 197 tokens) on the card and on the
+    CPU from the same weights and batch: every gradient and update within
+    1e-4 relative L2, and each flash kernel launched once a block."""
+    from distributed_vgg_f_tpu_torch.config import get_config
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    from distributed_vgg_f_tpu_torch.train.schedule import build_optimizer
+    from distributed_vgg_f_tpu_torch.train.state import TrainState
+    from distributed_vgg_f_tpu_torch.train.step import build_train_step
+    cfg = get_config("vit_s16_imagenet")
+    model_cfg = ModelConfig(name="vit_s16", num_classes=10,
+                            compute_dtype="float32", dropout_rate=0.0,
+                            extra=dict(hidden_dim=128, depth=2, num_heads=2,
+                                       mlp_dim=256,
+                                       attention_layout="flash"))
+    tree = init_params(model_cfg, 0, image_size=224)
+    rng = np.random.default_rng(8)
+    batch = {"image": rng.standard_normal((2, 224, 224, 3)).astype(
+        np.float32), "label": rng.integers(0, 10, (2,))}
+    out = {}
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            model = load_params(build_model(model_cfg, image_size=224),
+                                tree).to(dev)
+            p0 = {k: p.detach().cpu().clone()
+                  for k, p in model.named_parameters()}
+            opt, schedule = build_optimizer(cfg, model.parameters())
+            state = TrainState.create(model, opt)
+            state.opt_count = 10000  # past the warmup's LR-0 first update
+            step = build_train_step(schedule, cfg.optim.weight_decay,
+                                    device=dev)
+            flash_cuda.FWD_LAUNCHES = flash_cuda.DQ_LAUNCHES = 0
+            flash_cuda.DKV_LAUNCHES = 0
+            state, _ = step(state, batch, 0)
+            torch.cuda.synchronize()
+            out[dev] = ({k: p.grad.cpu() for k, p in
+                         model.named_parameters()},
+                        {k: p.detach().cpu() - p0[k] for k, p in
+                         model.named_parameters()},
+                        (flash_cuda.FWD_LAUNCHES, flash_cuda.DQ_LAUNCHES,
+                         flash_cuda.DKV_LAUNCHES))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    assert out["cpu"][2] == (0, 0, 0) and out["cuda"][2] == (2, 2, 2)
+    for i in (0, 1):
+        for k, want in out["cpu"][i].items():
+            got = out["cuda"][i][k]
+            err = float((got - want).double().norm()
+                        / max(float(want.double().norm()), 1e-30))
+            assert err <= 1e-4, (k, err)

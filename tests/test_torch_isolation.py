@@ -54,7 +54,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
     assert f"{PORT}.serving.server" in mods and f"{PORT}.ops.lrn_cuda" in mods
     assert {f"{PORT}.train.trainer", f"{PORT}.train.step",
             f"{PORT}.data.augment", f"{PORT}.resilience.guard",
-            f"{PORT}.utils.meter"} <= set(mods)
+            f"{PORT}.utils.meter", f"{PORT}.models.vit",
+            f"{PORT}.ops.flash_attention", f"{PORT}.ops.flash_cuda"} \
+        <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

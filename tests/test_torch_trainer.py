@@ -106,7 +106,8 @@ def test_trainer_refuses_without_cuda(monkeypatch):
         Trainer(_small())
 
 
-@pytest.mark.parametrize("name", ["vggf_imagenet_dp", "vggf_teacher"])
+@pytest.mark.parametrize("name", ["vggf_imagenet_dp", "vggf_teacher",
+                                  "vit_s16_imagenet"])
 def test_presets_match_the_jax_presets(name):
     """Every field the port's config keeps has the JAX preset's value, and
     the derived LR and step counts agree."""
