@@ -75,6 +75,7 @@ before doing anything.
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -264,8 +265,11 @@ def _trace_breakdown(prof, count, top):
                               if "lrn_fwd" in k) / count,
             "lrn_bwd_us": sum(v for k, v in by_name.items()
                               if "lrn_bwd" in k) / count,
-            "flash_us": {n: sum(v for k, v in by_name.items()
-                                if f"{n}_kernel" in k) / count
+            # the port's (anonymous namespace)::flash_fwd_kernel (fp32) and
+            # flash_fwd_mma_kernel (bf16), not PyTorch's own flash kernels
+            "flash_us": {n: sum(v for k, v in by_name.items() if re.search(
+                                rf"namespace\)::{n}(_mma)?_kernel", k))
+                         / count
                          for n in ("flash_fwd", "flash_dq", "flash_dkv")},
             "top_us": [[k[:80], v / count] for k, v in ranked]}
 

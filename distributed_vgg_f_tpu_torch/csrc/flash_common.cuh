@@ -1,17 +1,16 @@
 // Shared pieces of the flash attention kernels (flash_fwd.cu, flash_dq.cu,
 // flash_dkv.cu), for Hopper (sm_90a).
 //
-// Every kernel works on square tiles of kTile rows of one (batch, head):
-// a block of kThreads = 256 threads is a 16 x 16 grid, thread (ty, tx)
+// Every kernel works on square tiles of kTile rows of one (batch, head),
+// at head dim D = 32 or 64. The fp32 versions run on the CUDA cores: a
+// block of kThreads = 256 threads is a 16 x 16 grid, thread (ty, tx)
 // owning rows ty*4 .. ty*4+3 of a tile and columns tx + 16*j (j < 4) of a
 // tile x tile product, or columns tx + 16*j (j < D/16) of a tile x D one.
 // Tiles live in shared memory as fp32 with a row stride of D+1 (or
 // kTile+1), so the column reads of one half-warp hit 16 distinct banks and
 // the two half-warps of a warp read either the same word or distinct
-// banks. Products are fp32 fused multiply-adds on CUDA cores; a bf16
-// operand is widened exactly, and the products that the JAX kernels take
-// in the operand dtype (p before P.V and P^T.dO, dS before dS.K and
-// dS^T.Q) are rounded to it first (round_to).
+// banks. Products are fp32 fused multiply-adds. The bf16 versions run on
+// the tensor cores (below).
 //
 // q, k and v are (B, T, H, D) with a contiguous D axis and any strides
 // over (B, T, H): the model passes the three slices of its fused QKV
@@ -32,28 +31,6 @@ namespace flash {
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// v rounded to T's precision, as fp32.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-
 // Element strides of a (B, T, H, D) tensor whose D axis is contiguous.
 struct Strides {
   long long b, t, h;
@@ -67,16 +44,16 @@ __host__ __device__ __forceinline__ Strides dense_strides(int T, int H,
 
 // Rows row0 .. row0+kTile-1 of x for one (b, h) at `base` into dst
 // (kTile x (D+1) fp32); rows at or past T read as zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ x,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ x,
                                           long long base, Strides s,
                                           int row0, int T_len) {
   for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
     const int r = idx / D;
     const int d = idx % D;
     const int t = row0 + r;
-    dst[r * (D + 1) + d] =
-        t < T_len ? to_f32(x[base + t * s.t + d]) : 0.0f;
+    dst[r * (D + 1) + d] = t < T_len ? x[base + t * s.t + d] : 0.0f;
   }
 }
 
@@ -163,6 +140,138 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core versions: mma.sync m16n8k16 with bf16
+// operands and fp32 accumulators. A block of kWarps = 4 warps owns a
+// kTile = 64-row tile, 16 rows a warp. Tiles live in shared memory as bf16
+// with a row stride of (columns + 8), so the 32 lanes' fragment reads hit
+// 32 distinct banks. Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), with
+// g = lane / 4 and t = lane % 4:
+//   A (16 x 16, row-major): reg0 (g, 2t..2t+1), reg1 (g+8, 2t..), reg2
+//     (g, 2t+8..), reg3 (g+8, 2t+8..)
+//   B (16 x 8, element (k, n)): reg0 (k = 2t..2t+1, n = g), reg1
+//     (k = 2t+8.., n = g), read from a matrix stored as [n][k]
+//   C (16 x 8, fp32): c0, c1 at (g, 2t..2t+1), c2, c3 at (g+8, 2t..)
+// A C tile pair of 16 x 16 fp32 scores converts in registers to the A
+// fragment of the next product (p or dS rounded to bf16, as the JAX
+// kernels cast them), so P and dS never go through shared memory.
+constexpr int kWarps = 4;
+constexpr int kMmaThreads = 32 * kWarps;
+
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two fp32 values rounded to bf16 and packed, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi)))
+          << 16);
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Whether every row of these tensors starts on 16 bytes (pointers and
+// (B, T, H) strides), so a tile loads as 16-byte vectors.
+inline bool rows_aligned16(Strides s, const void* a, const void* b,
+                           const void* c, const void* d = nullptr) {
+  const auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return s.b % 8 == 0 && s.t % 8 == 0 && s.h % 8 == 0 && al(a) && al(b) &&
+         al(c) && (d == nullptr || al(d));
+}
+
+// Rows row0 .. row0+kTile-1 of x for one (b, h) at `base` into sm as bf16:
+// row-major [row][d] with stride D+8, or transposed [d][row] with stride
+// kTile+8; rows at or past T read as zeros. `vec`: rows start on 16
+// bytes, so each thread moves 8 values at a time.
+template <int D, bool kTransposed>
+__device__ __forceinline__ void load_tile_bf16(
+    uint16_t* sm, const __nv_bfloat16* __restrict__ x, long long base,
+    Strides s, int row0, int T_len, bool vec) {
+  if (vec) {
+    for (int idx = threadIdx.x; idx < kTile * D / 8; idx += kMmaThreads) {
+      const int r = idx / (D / 8);
+      const int d = (idx % (D / 8)) * 8;
+      const int t = row0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (t < T_len) {
+        v = *reinterpret_cast<const uint4*>(x + base + t * s.t + d);
+      }
+      if (kTransposed) {
+        const uint16_t* e = reinterpret_cast<const uint16_t*>(&v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sm[(d + j) * (kTile + 8) + r] = e[j];
+      } else {
+        *reinterpret_cast<uint4*>(sm + r * (D + 8) + d) = v;
+      }
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < kTile * D; idx += kMmaThreads) {
+    const int r = idx / D;
+    const int d = idx % D;
+    const int t = row0 + r;
+    const uint16_t v = t < T_len ? __bfloat16_as_ushort(x[base + t * s.t + d])
+                                 : static_cast<uint16_t>(0);
+    if (kTransposed) {
+      sm[d * (kTile + 8) + r] = v;
+    } else {
+      sm[r * (D + 8) + d] = v;
+    }
+  }
+}
+
+// A fragment of rows r0..r0+15, columns k0..k0+15 of a row-major tile.
+template <int kStride>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint16_t* sm,
+                                       int r0, int k0, int lane) {
+  const uint16_t* p = sm + (r0 + lane / 4) * kStride + k0 + 2 * (lane % 4);
+  a[0] = ld_pair(p);
+  a[1] = ld_pair(p + 8 * kStride);
+  a[2] = ld_pair(p + 8);
+  a[3] = ld_pair(p + 8 * kStride + 8);
+}
+
+// B fragment (k0..k0+15) x (n0..n0+7) of a matrix stored as [n][k].
+template <int kStride>
+__device__ __forceinline__ void load_b(uint32_t (&b)[2], const uint16_t* sm,
+                                       int n0, int k0, int lane) {
+  const uint16_t* p = sm + (n0 + lane / 4) * kStride + k0 + 2 * (lane % 4);
+  b[0] = ld_pair(p);
+  b[1] = ld_pair(p + 8);
+}
+
+// The A fragment of columns 16*kk .. 16*kk+15 of a 16 x 64 fp32 C tile row
+// (held as 8 C fragments of 8 columns), rounded to bf16.
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4],
+                                       const float (&c)[8][4], int kk) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// Reductions over the 4 lanes of a quad (the lanes holding one C row).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 }  // namespace flash

@@ -14,8 +14,9 @@
 //
 // Bound: device-memory bytes (q, k, v and dO read and dk and dv written,
 // 12*D bytes a row in bf16, against 8*T*D FLOP a row: ~131 FLOP a byte at
-// T = 197, below the card's ~295). The products run on CUDA cores in fp32
-// (later work moves them to the tensor cores).
+// T = 197, below the card's ~295). At head dim 32 or 64, bf16 runs the
+// products on the tensor cores (flash_dkv_mma_kernel), fp32 on the CUDA
+// cores (flash_dkv_kernel).
 //
 // Design: the transposed loop of the dQ kernel, as the TPU kernel runs
 // the transposed grid. A block owns kTile key rows of one (b, h): their k
@@ -35,13 +36,15 @@ namespace {
 using flash::kThreads;
 using flash::kTile;
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int T_len, flash::Strides s,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int T_len, flash::Strides s,
                      int causal, int kv_len, float scale) {
   extern __shared__ float smem[];
   float* Ks = smem;                   // kTile x (D+1)
@@ -68,14 +71,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < D / 16; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
   }
   if (k0 < kv_len) {
-    flash::load_tile<T, D>(Ks, k, base, s, k0, T_len);
-    flash::load_tile<T, D>(Vs, v, base, s, k0, T_len);
+    flash::load_tile<D>(Ks, k, base, s, k0, T_len);
+    flash::load_tile<D>(Vs, v, base, s, k0, T_len);
     // causal: query rows before k0 see none of these keys
     const int q_start = causal ? k0 : 0;
     for (int q0 = q_start; q0 < T_len; q0 += kTile) {
       __syncthreads();  // the last tile's readers of Qs, dOs and Ts are done
-      flash::load_tile<T, D>(Qs, q, base, s, q0, T_len);
-      flash::load_tile<T, D>(dOs, dout, dbase, ds_, q0, T_len);
+      flash::load_tile<D>(Qs, q, base, s, q0, T_len);
+      flash::load_tile<D>(dOs, dout, dbase, ds_, q0, T_len);
       if (threadIdx.x < kTile) {
         const int row = q0 + threadIdx.x;
         const long long at = static_cast<long long>(bh) * T_len + row;
@@ -98,7 +101,7 @@ __global__ void __launch_bounds__(kThreads)
               qp < T_len && kp < kv_len && (!causal || kp <= qp);
           const float p = live ? expf(st[i][j] * scale - lse_s[c]) : 0.0f;
           ds[i][j] = p * (ds[i][j] - delta_s[c]);
-          Ts[(ty * 4 + i) * (kTile + 1) + c] = flash::round_to<T>(p);
+          Ts[(ty * 4 + i) * (kTile + 1) + c] = (p);
         }
       }
       __syncthreads();
@@ -109,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           Ts[(ty * 4 + i) * (kTile + 1) + tx + 16 * j] =
-              flash::round_to<T>(ds[i][j]);
+              (ds[i][j]);
         }
       }
       __syncthreads();
@@ -124,13 +127,160 @@ __global__ void __launch_bounds__(kThreads)
     const long long at = dbase + row * ds_.t;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
-      dk[at + tx + 16 * j] = flash::from_f32<T>(scale * dk_acc[i][j]);
-      dv[at + tx + 16 * j] = flash::from_f32<T>(dv_acc[i][j]);
+      dk[at + tx + 16 * j] = (scale * dk_acc[i][j]);
+      dv[at + tx + 16 * j] = (dv_acc[i][j]);
     }
   }
 }
 
-template <typename T, int D>
+// The bf16 version of the same function, on the tensor cores: a
+// block of 4 warps owns kTile key rows, 16 a warp, with k's and v's
+// fragments and dk, dv in registers. Each Q tile is staged in shared
+// memory as bf16 — q and dO row-major (for S^T = K Q^T and dP^T = V dO^T)
+// and transposed (for dK += dS^T Q and dV += P^T dO) — and P^T and dS^T go
+// to their products as fragments rounded to bf16.
+template <int D>
+__global__ void __launch_bounds__(flash::kMmaThreads)
+    flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int H, int T_len,
+                         flash::Strides s, int causal, int kv_len,
+                         float scale, bool vec) {
+  __shared__ __align__(16) uint16_t Qs[kTile * (D + 8)];   // K first
+  __shared__ __align__(16) uint16_t dOs[kTile * (D + 8)];  // V first
+  __shared__ __align__(16) uint16_t Qt[D * (kTile + 8)];
+  __shared__ __align__(16) uint16_t dOt[D * (kTile + 8)];
+  __shared__ float lse_s[kTile], delta_s[kTile];
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;
+  const int g = lane / 4;
+  const int tq = lane % 4;
+  const int k0 = blockIdx.x * kTile;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const long long base = b * s.b + h * s.h;
+  const flash::Strides ds_ = flash::dense_strides(T_len, H, D);
+  const long long dbase = b * ds_.b + h * ds_.h;
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
+  }
+  if (k0 < kv_len) {
+    flash::load_tile_bf16<D, false>(Qs, k, base, s, k0, T_len, vec);
+    flash::load_tile_bf16<D, false>(dOs, v, base, s, k0, T_len, vec);
+    __syncthreads();
+    uint32_t ka[D / 16][4], va[D / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      flash::load_a<D + 8>(ka[ks], Qs, r0, 16 * ks, lane);
+      flash::load_a<D + 8>(va[ks], dOs, r0, 16 * ks, lane);
+    }
+    const int q_start = causal ? k0 : 0;
+    for (int q0 = q_start; q0 < T_len; q0 += kTile) {
+      __syncthreads();  // fragments loaded; the last tile's readers are done
+      flash::load_tile_bf16<D, false>(Qs, q, base, s, q0, T_len, vec);
+      flash::load_tile_bf16<D, true>(Qt, q, base, s, q0, T_len, vec);
+      flash::load_tile_bf16<D, false>(dOs, dout, dbase, ds_, q0, T_len, vec);
+      flash::load_tile_bf16<D, true>(dOt, dout, dbase, ds_, q0, T_len, vec);
+      if (threadIdx.x < kTile) {
+        const int row = q0 + threadIdx.x;
+        const long long at = static_cast<long long>(bh) * T_len + row;
+        lse_s[threadIdx.x] = row < T_len ? lse[at] : 0.0f;
+        delta_s[threadIdx.x] = row < T_len ? delta[at] : 0.0f;
+      }
+      __syncthreads();
+      // rows of these C tiles are keys, columns queries; no mask when
+      // every pair is live and no query is past T
+      const bool mask = k0 + kTile > kv_len || q0 + kTile > T_len ||
+                        (causal && k0 + kTile - 1 > q0);
+      float pt[8][4], dst[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pt[nt][e] = dst[nt][e] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          uint32_t bf[2];
+          flash::load_b<D + 8>(bf, Qs, 8 * nt, 16 * ks, lane);
+          flash::mma_16816(pt[nt], ka[ks], bf);
+          flash::load_b<D + 8>(bf, dOs, 8 * nt, 16 * ks, lane);
+          flash::mma_16816(dst[nt], va[ks], bf);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + r0 + g + 8 * (e >> 1);
+          const int c = 8 * nt + 2 * tq + (e & 1);
+          const int qp = q0 + c;
+          const bool live = !mask || (qp < T_len && kp < kv_len &&
+                                      (!causal || kp <= qp));
+          const float p =
+              live ? __expf(pt[nt][e] * scale - lse_s[c]) : 0.0f;
+          pt[nt][e] = p;
+          dst[nt][e] = p * (dst[nt][e] - delta_s[c]);  // dS^T
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t pa[4], sa[4];
+        flash::c_to_a(pa, pt, kk);
+        flash::c_to_a(sa, dst, kk);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          uint32_t bf[2];
+          flash::load_b<kTile + 8>(bf, dOt, 8 * n, 16 * kk, lane);
+          flash::mma_16816(dv_acc[n], pa, bf);
+          flash::load_b<kTile + 8>(bf, Qt, 8 * n, 16 * kk, lane);
+          flash::mma_16816(dk_acc[n], sa, bf);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + r0 + g + 8 * i;
+    if (row >= T_len) continue;
+    const long long at = dbase + row * ds_.t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        dk[at + 8 * n + 2 * tq + j] =
+            __float2bfloat16(scale * dk_acc[n][2 * i + j]);
+        dv[at + 8 * n + 2 * tq + j] = __float2bfloat16(dv_acc[n][2 * i + j]);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dk, void* dv, int B, int T_len, int H,
+                       flash::Strides s, int causal, int kv_len, float scale,
+                       cudaStream_t stream) {
+  const dim3 grid((T_len + kTile - 1) / kTile, B * H);
+  flash_dkv_mma_kernel<D><<<grid, flash::kMmaThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
+      T_len, s, causal, kv_len, scale,
+      flash::rows_aligned16(s, q, k, v, dout));
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dk, void* dv, int B, int T_len, int H,
@@ -138,36 +288,40 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
   constexpr size_t smem = flash::smem_bytes<D>(4, 1, 2);
   static const cudaError_t opt_in =
-      flash::allow_smem(flash_dkv_kernel<T, D>, smem);
+      flash::allow_smem(flash_dkv_kernel<D>, smem);
   if (opt_in != cudaSuccess) return opt_in;
   const dim3 grid((T_len + kTile - 1) / kTile, B * H);
-  flash_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, T_len, s, causal, kv_len,
-      scale);
+  flash_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), H, T_len, s,
+      causal, kv_len, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     const void* dout, const float* lse, const float* delta,
-                     void* dk, void* dv, int B, int T_len, int H,
-                     flash::Strides s, int causal, int kv_len, float scale,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, s,
-                           causal, kv_len, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, s,
-                           causal, kv_len, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H,
-                            s, causal, kv_len, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+// fp32 on the CUDA cores, bf16 on the tensor cores; D = 32 or 64.
+cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
+                     const void* v, const void* dout, const float* lse,
+                     const float* delta, void* dk, void* dv, int B,
+                     int T_len, int H, flash::Strides s, int causal,
+                     int kv_len, float scale, cudaStream_t stream) {
+  if (dtype == 0 && D == 32) {
+    return launch<32>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, s,
+                      causal, kv_len, scale, stream);
   }
+  if (dtype == 0 && D == 64) {
+    return launch<64>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, s,
+                      causal, kv_len, scale, stream);
+  }
+  if (dtype == 1 && D == 32) {
+    return launch_mma<32>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, s,
+                          causal, kv_len, scale, stream);
+  }
+  if (dtype == 1 && D == 64) {
+    return launch_mma<64>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, s,
+                          causal, kv_len, scale, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -184,16 +338,9 @@ extern "C" int dvggf_flash_dkv(const void* q, const void* k, const void* v,
   if (B < 1 || T_len < 1 || H < 1 || kv_len < 1 || kv_len > T_len) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const flash::Strides s{sb, st, sh};
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = dispatch<float>(D, q, k, v, dout, lse, delta, dk, dv, B, T_len, H,
-                          s, causal, kv_len, scale, cs);
-  } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dk, dv, B,
-                                  T_len, H, s, causal, kv_len, scale, cs);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(dtype, D, q, k, v, dout, lse, delta, dk,
+                                   dv, B, T_len, H,
+                                   flash::Strides{sb, st, sh}, causal,
+                                   kv_len, scale,
+                                   static_cast<cudaStream_t>(stream)));
 }

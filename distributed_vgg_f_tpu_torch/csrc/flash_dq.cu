@@ -13,8 +13,9 @@
 //
 // Bound: device-memory bytes (q, k, v and dO read and dq written, 10*D
 // bytes a row in bf16, against 6*T*D FLOP a row: ~118 FLOP a byte at
-// T = 197, below the card's ~295). The products run on CUDA cores in fp32 (later work moves
-// them to the tensor cores).
+// T = 197, below the card's ~295). At head dim 32 or 64, bf16 runs the
+// products on the tensor cores (flash_dq_mma_kernel), fp32 on the CUDA
+// cores (flash_dq_kernel).
 //
 // Design: the TPU kernel's sequential KV grid axis, with dq accumulated in
 // scratch, becomes a loop inside the block. A block owns kTile query rows
@@ -35,12 +36,14 @@ namespace {
 using flash::kThreads;
 using flash::kTile;
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int T_len, flash::Strides s, int causal,
                     int kv_len, float scale) {
   extern __shared__ float smem[];
@@ -58,8 +61,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long base = b * s.b + h * s.h;
   const flash::Strides ds_ = flash::dense_strides(T_len, H, D);
   const long long dbase = b * ds_.b + h * ds_.h;
-  flash::load_tile<T, D>(Qs, q, base, s, q0, T_len);
-  flash::load_tile<T, D>(dOs, dout, dbase, ds_, q0, T_len);
+  flash::load_tile<D>(Qs, q, base, s, q0, T_len);
+  flash::load_tile<D>(dOs, dout, dbase, ds_, q0, T_len);
 
   float row_lse[4], row_delta[4], acc[4][D / 16];
 #pragma unroll
@@ -74,8 +77,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k_end = causal ? min(kv_len, q0 + kTile) : kv_len;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the last tile's readers of Ks, Vs and dSs are done
-    flash::load_tile<T, D>(Ks, k, base, s, k0, T_len);
-    flash::load_tile<T, D>(Vs, v, base, s, k0, T_len);
+    flash::load_tile<D>(Ks, k, base, s, k0, T_len);
+    flash::load_tile<D>(Vs, v, base, s, k0, T_len);
     __syncthreads();
     float sc[4][4], dp[4][4];
     flash::dot_tile<D>(sc, Qs, Ks, ty, tx);
@@ -90,7 +93,7 @@ __global__ void __launch_bounds__(kThreads)
             qp < T_len && kp < kv_len && (!causal || kp <= qp);
         const float p = live ? expf(sc[i][j] * scale - row_lse[i]) : 0.0f;
         dSs[(ty * 4 + i) * (kTile + 1) + tx + 16 * j] =
-            flash::round_to<T>(p * (dp[i][j] - row_delta[i]));
+            (p * (dp[i][j] - row_delta[i]));
       }
     }
     __syncthreads();
@@ -104,47 +107,187 @@ __global__ void __launch_bounds__(kThreads)
     const long long at = dbase + row * ds_.t;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
-      dq[at + tx + 16 * j] = flash::from_f32<T>(scale * acc[i][j]);
+      dq[at + tx + 16 * j] = (scale * acc[i][j]);
     }
   }
 }
 
-template <typename T, int D>
+// The bf16 version of the same function, on the tensor cores: a
+// block of 4 warps owns kTile query rows, 16 a warp, with q's and dO's
+// fragments, lse, delta and dq in registers. Each K/V tile is staged in
+// shared memory as bf16 — K row-major (for S = Q K^T) and transposed (for
+// dQ += dS K), V row-major (for dP = dO V^T) — and dS goes to the dQ
+// product as a fragment rounded to bf16.
+template <int D>
+__global__ void __launch_bounds__(flash::kMmaThreads)
+    flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int H, int T_len,
+                        flash::Strides s, int causal, int kv_len,
+                        float scale, bool vec) {
+  __shared__ __align__(16) uint16_t Qs[kTile * (D + 8)];   // then K
+  __shared__ __align__(16) uint16_t dOs[kTile * (D + 8)];  // then V
+  __shared__ __align__(16) uint16_t Kt[D * (kTile + 8)];
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;
+  const int g = lane / 4;
+  const int tq = lane % 4;
+  const int q0 = blockIdx.x * kTile;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const long long base = b * s.b + h * s.h;
+  const flash::Strides ds_ = flash::dense_strides(T_len, H, D);
+  const long long dbase = b * ds_.b + h * ds_.h;
+  flash::load_tile_bf16<D, false>(Qs, q, base, s, q0, T_len, vec);
+  flash::load_tile_bf16<D, false>(dOs, dout, dbase, ds_, q0, T_len, vec);
+  __syncthreads();
+  uint32_t qa[D / 16][4], da[D / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    flash::load_a<D + 8>(qa[ks], Qs, r0, 16 * ks, lane);
+    flash::load_a<D + 8>(da[ks], dOs, r0, 16 * ks, lane);
+  }
+  float row_lse[2], row_delta[2], acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    const long long at = static_cast<long long>(bh) * T_len + row;
+    row_lse[i] = row < T_len ? lse[at] : 0.0f;
+    row_delta[i] = row < T_len ? delta[at] : 0.0f;
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  }
+  uint16_t* Ks = Qs;
+  uint16_t* Vs = dOs;
+  const int k_end = causal ? min(kv_len, q0 + kTile) : kv_len;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    __syncthreads();  // fragments loaded; the last tile's readers are done
+    flash::load_tile_bf16<D, false>(Ks, k, base, s, k0, T_len, vec);
+    flash::load_tile_bf16<D, true>(Kt, k, base, s, k0, T_len, vec);
+    flash::load_tile_bf16<D, false>(Vs, v, base, s, k0, T_len, vec);
+    __syncthreads();
+    // no mask when every key is live for every row and no row is past T
+    const bool mask = k0 + kTile > kv_len || q0 + kTile > T_len ||
+                      (causal && k0 + kTile - 1 > q0);
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        uint32_t bf[2];
+        flash::load_b<D + 8>(bf, Ks, 8 * nt, 16 * ks, lane);
+        flash::mma_16816(sc[nt], qa[ks], bf);
+        flash::load_b<D + 8>(bf, Vs, 8 * nt, 16 * ks, lane);
+        flash::mma_16816(dp[nt], da[ks], bf);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int qp = q0 + r0 + g + 8 * i;
+        const int kp = k0 + 8 * nt + 2 * tq + (e & 1);
+        const bool live = !mask || (qp < T_len && kp < kv_len &&
+                                    (!causal || kp <= qp));
+        const float p =
+            live ? __expf(sc[nt][e] * scale - row_lse[i]) : 0.0f;
+        sc[nt][e] = p * (dp[nt][e] - row_delta[i]);  // dS
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t sa[4];
+      flash::c_to_a(sa, sc, kk);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        uint32_t bf[2];
+        flash::load_b<kTile + 8>(bf, Kt, 8 * n, 16 * kk, lane);
+        flash::mma_16816(acc[n], sa, bf);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    if (row >= T_len) continue;
+    const long long at = dbase + row * ds_.t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        dq[at + 8 * n + 2 * tq + j] =
+            __float2bfloat16(scale * acc[n][2 * i + j]);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dq, int B, int T_len, int H, flash::Strides s,
+                       int causal, int kv_len, float scale,
+                       cudaStream_t stream) {
+  const dim3 grid((T_len + kTile - 1) / kTile, B * H);
+  flash_dq_mma_kernel<D><<<grid, flash::kMmaThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta,
+      static_cast<__nv_bfloat16*>(dq), H, T_len, s, causal, kv_len, scale,
+      flash::rows_aligned16(s, q, k, v, dout));
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dq, int B, int T_len, int H, flash::Strides s,
                    int causal, int kv_len, float scale, cudaStream_t stream) {
   constexpr size_t smem = flash::smem_bytes<D>(4, 1, 0);
   static const cudaError_t opt_in =
-      flash::allow_smem(flash_dq_kernel<T, D>, smem);
+      flash::allow_smem(flash_dq_kernel<D>, smem);
   if (opt_in != cudaSuccess) return opt_in;
   const dim3 grid((T_len + kTile - 1) / kTile, B * H);
-  flash_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), H, T_len, s, causal, kv_len, scale);
+  flash_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), H, T_len, s, causal, kv_len, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     const void* dout, const float* lse, const float* delta,
-                     void* dq, int B, int T_len, int H, flash::Strides s,
-                     int causal, int kv_len, float scale,
+// fp32 on the CUDA cores, bf16 on the tensor cores; D = 32 or 64.
+cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
+                     const void* v, const void* dout, const float* lse,
+                     const float* delta, void* dq, int B, int T_len, int H,
+                     flash::Strides s, int causal, int kv_len, float scale,
                      cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, dout, lse, delta, dq, B, T_len, H, s,
-                           causal, kv_len, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dq, B, T_len, H, s,
-                           causal, kv_len, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dq, B, T_len, H, s,
-                            causal, kv_len, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+  if (dtype == 0 && D == 32) {
+    return launch<32>(q, k, v, dout, lse, delta, dq, B, T_len, H, s, causal,
+                      kv_len, scale, stream);
   }
+  if (dtype == 0 && D == 64) {
+    return launch<64>(q, k, v, dout, lse, delta, dq, B, T_len, H, s, causal,
+                      kv_len, scale, stream);
+  }
+  if (dtype == 1 && D == 32) {
+    return launch_mma<32>(q, k, v, dout, lse, delta, dq, B, T_len, H, s,
+                          causal, kv_len, scale, stream);
+  }
+  if (dtype == 1 && D == 64) {
+    return launch_mma<64>(q, k, v, dout, lse, delta, dq, B, T_len, H, s,
+                          causal, kv_len, scale, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -161,16 +304,8 @@ extern "C" int dvggf_flash_dq(const void* q, const void* k, const void* v,
   if (B < 1 || T_len < 1 || H < 1 || kv_len < 1 || kv_len > T_len) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const flash::Strides s{sb, st, sh};
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    err = dispatch<float>(D, q, k, v, dout, lse, delta, dq, B, T_len, H, s,
-                          causal, kv_len, scale, cs);
-  } else if (dtype == 1) {
-    err = dispatch<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dq, B, T_len,
-                                  H, s, causal, kv_len, scale, cs);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(dtype, D, q, k, v, dout, lse, delta, dq,
+                                   B, T_len, H, flash::Strides{sb, st, sh},
+                                   causal, kv_len, scale,
+                                   static_cast<cudaStream_t>(stream)));
 }

@@ -243,7 +243,6 @@ class ViT(nn.Module):
             raise ValueError(f"image_size {image_size} is not a multiple "
                              f"of patch_size {patch_size}")
         self.compute_dtype = compute_dtype
-        self.image_size = int(image_size)
         self.num_heads = int(num_heads)
         self.dropout_rate = float(dropout_rate)
         self.attention_dropout_rate = float(attention_dropout_rate)

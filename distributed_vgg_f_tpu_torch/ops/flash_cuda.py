@@ -9,14 +9,14 @@ and compute the functions of the plain versions in ops/flash_attention.py
 
 Bound: device-memory bytes. At ViT's T = 197 and D = 64 each function
 does 100-150 FLOP per byte it must move, below the H100's ~295 bf16
-tensor-core FLOP a byte. The kernels' own limit today is the fp32 FMA
-rate: they run their products on CUDA cores (tensor-core mma, wgmma and
-TMA are later work). Where the TPU kernels carry (acc, m, l) or the
-gradient sums in scratch along a sequential grid axis, a block here owns
-a 64-row tile of one (b, h) and loops over the other operand's tiles
-itself, staging them through shared memory; the (T, T) scores live only
-in registers and shared memory. Keys at or past `kv_len` and rows past T
-are masked inside the kernels, so T = 197 needs no padding copy.
+tensor-core FLOP a byte. bf16 runs the products on the tensor cores
+(mma.sync, fp32 accumulators), fp32 on the CUDA cores. Where the TPU
+kernels carry (acc, m, l) or the gradient sums in scratch along a
+sequential grid axis, a block here owns a 64-row tile of one (b, h) and
+loops over the other operand's tiles itself, staging them through shared
+memory; the (T, T) scores live only in registers and shared memory. Keys at or past `kv_len` and rows
+past T are masked inside the kernels, so T = 197 needs no padding copy.
+TMA, wgmma and a persistent grid are later work.
 
 q, k and v are (B, T, H, D) with a contiguous D axis and any strides over
 (B, T, H) — the model passes the three slices of its fused QKV output
@@ -25,7 +25,7 @@ contiguous; o, dq, dk and dv come out contiguous (B, T, H, D); lse and
 delta are contiguous (B, H, T) fp32.
 
 Each wrapper checks device, dtype (float32 or bfloat16, one for all
-operands), shape, head dim (32, 64 or 128) and layout, raises on anything
+operands), shape, head dim (32 or 64) and layout, raises on anything
 else, returns the kernel's CUDA error as an exception, and never falls
 back to the plain version. `FWD_LAUNCHES`, `DQ_LAUNCHES` and
 `DKV_LAUNCHES` count launches; nothing else touches them.
@@ -49,10 +49,8 @@ DKV_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are instantiated for
-HEAD_DIMS = (32, 64, 128)
-#: rows of a tile (kTile in csrc/flash_common.cuh) and the grid's limit
-#: on its second axis (B * H)
-_TILE = 64
+HEAD_DIMS = (32, 64)
+#: the grid's limit on its second axis (B * H)
 _MAX_GRID_Y = 65535
 
 _P = ctypes.c_void_p
@@ -73,7 +71,7 @@ def _entry(name: str, argtypes):
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               causal: bool, kv_len: int) -> int:
+               kv_len: int) -> int:
     """Raise on q, k, v the kernels do not take; returns kv_len."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
@@ -137,7 +135,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(o (B, T, H, D) in q's dtype, lse (B, H, T) fp32) on the current
     stream. Same semantics as ops.flash_attention.attention_fwd."""
     global FWD_LAUNCHES
-    kv_len = _check_qkv(q, k, v, causal, kv_len)
+    kv_len = _check_qkv(q, k, v, kv_len)
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -156,7 +154,7 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = False,
     """dQ (B, T, H, D) in q's dtype on the current stream. Same semantics
     as ops.flash_attention.attention_dq."""
     global DQ_LAUNCHES
-    kv_len = _check_qkv(q, k, v, causal, kv_len)
+    kv_len = _check_qkv(q, k, v, kv_len)
     _check_dense("dO", do, q.shape, q.dtype, q.device)
     _check_rows(lse, delta, q)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -176,7 +174,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = False,
     """(dK, dV), each (B, T, H, D) in q's dtype, on the current stream.
     Same semantics as ops.flash_attention.attention_dkv."""
     global DKV_LAUNCHES
-    kv_len = _check_qkv(q, k, v, causal, kv_len)
+    kv_len = _check_qkv(q, k, v, kv_len)
     _check_dense("dO", do, q.shape, q.dtype, q.device)
     _check_rows(lse, delta, q)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -181,20 +181,27 @@ def test_card_train_step_gives_conv1_the_cpu_gradient(cuda_device):
 
 
 # ------------------------------------------------------------ flash kernels
-def _flash_case(device, b, t, h, d, dtype, strided, seed=0):
-    """q, k, v (slices of one (B, T, 3, H, D) tensor when `strided`, as
-    the model passes them), dO, and the plain forward's o and lse."""
+def _flash_case(device, b, t, h, d, dtype, layout, seed=0):
+    """q, k, v and dO in `layout`: "qkv" (q, k, v slices of one
+    (B, T, 3, H, D) tensor, as the model passes them), "dense", or
+    "misaligned" (each tensor one element into its storage, so no row
+    starts on 16 bytes); and the plain forward and delta."""
     from distributed_vgg_f_tpu_torch.ops.flash_attention import \
         attention_delta, attention_fwd
     gen = torch.Generator(device=device).manual_seed(seed)
-    if strided:
-        q, k, v = torch.randn(b, t, 3, h, d, generator=gen,
-                              device=device).to(dtype).unbind(2)
+
+    def draw(*shape):
+        n = int(np.prod(shape))
+        if layout == "misaligned":
+            buf = torch.randn(n + 1, generator=gen, device=device)
+            return buf.to(dtype)[1:].view(*shape)
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    if layout == "qkv":
+        q, k, v = draw(b, t, 3, h, d).unbind(2)
     else:
-        q, k, v = (torch.randn(b, t, h, d, generator=gen,
-                               device=device).to(dtype) for _ in range(3))
-    do = torch.randn(b, t, h, d, generator=gen, device=device).to(dtype)
-    return q, k, v, do, attention_fwd, attention_delta
+        q, k, v = (draw(b, t, h, d) for _ in range(3))
+    return q, k, v, draw(b, t, h, d), attention_fwd, attention_delta
 
 
 def _close(got, want, tol):
@@ -207,20 +214,21 @@ def _close(got, want, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t,h,d,causal,kv_len,strided", [
-    (4, 197, 6, 64, False, None, True),     # ViT's shape, from the QKV output
-    (2, 197, 6, 64, True, None, True),
-    (3, 77, 2, 32, False, 50, False),       # ragged tiles and padding keys
-    (2, 130, 3, 128, True, 100, False)])
+@pytest.mark.parametrize("b,t,h,d,causal,kv_len,layout", [
+    (4, 197, 6, 64, False, None, "qkv"),    # ViT's shape, from the QKV output
+    (2, 197, 6, 64, True, None, "qkv"),
+    (3, 77, 2, 32, False, 50, "dense"),     # ragged tiles and padding keys
+    (2, 130, 3, 64, True, 100, "dense"),
+    (2, 100, 2, 64, True, 90, "misaligned")])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_flash_kernels_match_plain_on_card(cuda_device, b, t, h, d, causal,
-                                           kv_len, strided, dtype, tol):
+                                           kv_len, layout, dtype, tol):
     from distributed_vgg_f_tpu_torch.ops import flash_cuda
     from distributed_vgg_f_tpu_torch.ops.flash_attention import (
         attention_dkv, attention_dq)
     q, k, v, do, fwd, delta_of = _flash_case(cuda_device, b, t, h, d, dtype,
-                                             strided)
+                                             layout)
     kw = {"causal": causal, "kv_len": kv_len}
     before = (flash_cuda.FWD_LAUNCHES, flash_cuda.DQ_LAUNCHES,
               flash_cuda.DKV_LAUNCHES)
