@@ -109,7 +109,8 @@ def test_kernel_modules_import_without_nvcc():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["0", "['lrn_bwd',", "'lrn_fwd']"]
+    assert out.stdout.split() == ["0", "['flash_dkv',", "'flash_dq',",
+                                  "'flash_fwd',", "'lrn_bwd',", "'lrn_fwd']"]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
