@@ -66,6 +66,35 @@ Phases, one JSON line each:
             read after (12 of each flash kernel a step), every loss finite
             and the loss falling; step ms, images/s, peak device memory
             and a torch.profiler breakdown of 3 more steps
+  flash_causal the flash forward, dQ and dK/dV kernels with causal=True
+            at (4, T, 6, 64), T = 2048 and 8192 (ViT-S/16's heads at the
+            long lengths of benchmarks/flash_attention_bench.py), in bf16
+            and fp32, against their plain versions, with device times of
+            the kernel, the plain version and causal SDPA, and the bound
+            over the causal live pairs: the counterpart of the JAX
+            package's jagged causal kernels is the kernels' causal loop
+            bound
+  ring_kernel the three ring block kernels (fold, dQ step, dK/dV step)
+            against their plain versions at the offsets the ranks of a
+            4-rank ring see at the local shape (4, 2048, 6, 64) — a past
+            block, the diagonal, a block wholly in the future (left
+            untouched) — and at the ragged local length 197 with a
+            block-local kv_len and a partly masked block, in bf16 and fp32;
+            device times against the bound for a past and a diagonal block
+  ring_flash (a) initialize_distributed on a one-rank NCCL group, then
+            ring_flash_attention, ring_self_attention and
+            ulysses_self_attention (flash) at (4, 8192, 6, 64) bf16, causal
+            and not, forward and backward, each held against
+            flash_self_attention, launch counts zeroed just before each
+            path and read just after; (b) the 4-rank ring's kernel work
+            chained on the one card exactly as the ring chains it: each
+            rank's folds in ring order with its offsets, then the backward
+            steps with the dK/dV accumulators travelling with their block,
+            held against flash_self_attention at T = 8192 (bf16 and fp32),
+            with each rank's kernel ms. (a) runs the real exchange at n = 1
+            because NCCL puts no two ranks on one card and gloo sends no
+            CUDA tensors; (b) is what puts n > 1 offsets through the
+            kernels
   isolation no jax, flax or JAX-package module was imported
 then the kernels summary line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script
@@ -788,9 +817,13 @@ def flash_bound_ms(kind, b, t, h, d, itemsize, causal, kv_len, peaks):
                                                           "operations")
 
 
-def phase_flash_kernel(peaks):
-    """Flash forward, dQ and dK/dV kernels vs their plain versions on the
-    card; returns the records."""
+def _flash_phase(phase, cases, peaks, seed):
+    """The flash forward, dQ and dK/dV kernels against their plain
+    versions on the card, in bf16 and fp32, for `cases` of (site,
+    (B, T, H, D), causal, kv_len, input sets to time over; 0: check
+    only); timed cases also get the device times of the plain version
+    and the library call (SDPA, its autograd backward for dQ and dK/dV
+    together) and the bytes/operations bound. Returns the records."""
     import torch.nn.functional as F
 
     from distributed_vgg_f_tpu_torch.ops.flash_attention import (
@@ -798,35 +831,35 @@ def phase_flash_kernel(peaks):
     from distributed_vgg_f_tpu_torch.ops.flash_cuda import (flash_dkv_cuda,
                                                             flash_dq_cuda,
                                                             flash_fwd_cuda)
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
-    def inputs(b, t, h, d, dtype, causal, kv_len):
+    def inputs(b, t, h, d, dtype, kw):
         # q, k and v as the model passes them: slices of one QKV output
         q, k, v = torch.randn(b, t, 3, h, d, generator=gen,
                               device="cuda").to(dtype).unbind(2)
         do = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
-        o, lse = flash_fwd_cuda(q, k, v, causal=causal, kv_len=kv_len)
+        o, lse = flash_fwd_cuda(q, k, v, **kw)
         return q, k, v, do, lse, attention_delta(do, o)
 
-    def sdpa_bwd(s):
+    def sdpa(x, causal):
+        return F.scaled_dot_product_attention(
+            *(y.transpose(1, 2) for y in x[:3]), is_causal=causal)
+
+    def sdpa_bwd(x, causal):
         # the library yardstick of both backward kernels: autograd of
         # SDPA, its forward graph built outside the timed window
-        qr, kr, vr = (x.detach().transpose(1, 2).requires_grad_()
-                      for x in s[:3])
-        o = F.scaled_dot_product_attention(qr, kr, vr)
+        qr, kr, vr = (y.detach().transpose(1, 2).requires_grad_()
+                      for y in x[:3])
+        o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
         return lambda: torch.autograd.grad(o, (qr, kr, vr),
-                                           s[3].transpose(1, 2),
+                                           x[3].transpose(1, 2),
                                            retain_graph=True)
 
-    cases = [((1024, _VIT_T, _VIT_H, _VIT_D), False, None, "vit_train"),
-             ((32, _VIT_T, _VIT_H, _VIT_D), False, None, "vit_serve"),
-             ((3, 77, 2, 32), False, 50, "ragged"),
-             ((2, 300, 3, 64), True, 250, "causal")]
     records = []
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
-        for (b, t, h, d), causal, kv_len, site in cases:
+        for site, (b, t, h, d), causal, kv_len, n_sets in cases:
             kw = {"causal": causal, "kv_len": kv_len}
-            q, k, v, do, _, _ = inputs(b, t, h, d, dtype, causal, kv_len)
+            q, k, v, do, _, _ = inputs(b, t, h, d, dtype, kw)
             o, lse = flash_fwd_cuda(q, k, v, **kw)
             o_ref, lse_ref = attention_fwd(q, k, v, **kw)
             delta = attention_delta(do, o_ref)
@@ -848,57 +881,70 @@ def phase_flash_kernel(peaks):
                       f"padding keys got a gradient at {site}")
             recs = {}
             for name in _FLASH_KERNELS:
-                err = 0.0
+                err = rel = 0.0
                 for i, (g, w) in enumerate(zip(got[name], want[name])):
                     g, w = g.float(), w.float()
                     e = float((g - w).abs().max())
+                    scale = float(w.abs().max())
                     # lse (the forward's second output) is fp32 in both
                     bound = (1e-5 if i == 1 and name == "flash_fwd"
-                             else tol) * float(w.abs().max())
+                             else tol) * scale
                     check(bool(torch.isfinite(g).all()) and e <= bound,
                           f"{name} off its plain version by {e} at {site} "
                           f"{dtype} (allowed {bound})")
-                    err = max(err, e)
+                    err, rel = max(err, e), max(rel, e / scale)
                 recs[name] = {"name": name, "site": site,
                               "shape": [b, t, h, d],
                               "dtype": str(dtype).replace("torch.", ""),
                               "causal": causal, "kv_len": kv_len,
-                              "tol_of_max": tol, "max_abs_err": err}
+                              "tol_of_max": tol, "max_abs_err": err,
+                              "max_rel_err": rel}
             del q, k, v, do, o, lse, o_ref, lse_ref, delta, got, want
-            if site.startswith("vit"):
-                sets = [inputs(b, t, h, d, dtype, causal, kv_len)
-                        for _ in range(40 if b == 32 else 3)]
-                calls = [sdpa_bwd(x) for x in sets]
+            torch.cuda.empty_cache()
+            if n_sets:
+                sets = [inputs(b, t, h, d, dtype, kw) for _ in range(n_sets)]
+                calls = [sdpa_bwd(x, causal) for x in sets]
                 lib_bwd = device_ms(lambda c: c(), calls)
                 del calls
                 timed = {
-                    "flash_fwd": (lambda x: flash_fwd_cuda(*x[:3]),
-                                  lambda x: attention_fwd(*x[:3]),
-                                  lambda x: F.scaled_dot_product_attention(
-                                      *(y.transpose(1, 2) for y in x[:3]))),
-                    "flash_dq": (lambda x: flash_dq_cuda(*x),
-                                 lambda x: attention_dq(*x), None),
-                    "flash_dkv": (lambda x: flash_dkv_cuda(*x),
-                                  lambda x: attention_dkv(*x), None)}
+                    "flash_fwd": (lambda x: flash_fwd_cuda(*x[:3], **kw),
+                                  lambda x: attention_fwd(*x[:3], **kw),
+                                  lambda x: sdpa(x, causal)),
+                    "flash_dq": (lambda x: flash_dq_cuda(*x, **kw),
+                                 lambda x: attention_dq(*x, **kw), None),
+                    "flash_dkv": (lambda x: flash_dkv_cuda(*x, **kw),
+                                  lambda x: attention_dkv(*x, **kw), None)}
+                sdpa_name = ("F.scaled_dot_product_attention"
+                             + ("(is_causal=True)" if causal else ""))
                 for name, (kern, plain, lib) in timed.items():
                     rec = recs[name]
                     rec["ms"] = device_ms(kern, sets)
                     rec["plain_ms"] = device_ms(plain, sets)
                     rec["library_ms"] = (device_ms(lib, sets) if lib
                                          else lib_bwd)
-                    rec["library"] = ("F.scaled_dot_product_attention"
-                                      if lib else "autograd backward of "
-                                      "F.scaled_dot_product_attention (dQ, "
-                                      "dK and dV together)")
+                    rec["library"] = (sdpa_name if lib else
+                                      f"autograd backward of {sdpa_name} "
+                                      "(dQ, dK and dV together)")
                     rec["bound_ms"], rec["bound_by"] = flash_bound_ms(
                         name, b, t, h, d, dtype.itemsize, causal,
                         t if kv_len is None else kv_len, peaks)
                 del sets
             for rec in recs.values():
                 records.append(rec)
-                emit("flash_kernel", **rec)
+                emit(phase, **rec)
             torch.cuda.empty_cache()
     return records
+
+
+def phase_flash_kernel(peaks):
+    """Flash forward, dQ and dK/dV kernels vs their plain versions on the
+    card at ViT-S/16's shapes, a ragged and a causal one; returns the
+    records."""
+    return _flash_phase("flash_kernel", [
+        ("vit_train", (1024, _VIT_T, _VIT_H, _VIT_D), False, None, 3),
+        ("vit_serve", (32, _VIT_T, _VIT_H, _VIT_D), False, None, 40),
+        ("ragged", (3, 77, 2, 32), False, 50, 0),
+        ("causal", (2, 300, 3, 64), True, 250, 0)], peaks, seed=3)
 
 
 def _tree_size(tree):
@@ -1219,6 +1265,424 @@ def phase_vit_train():
     return launches
 
 
+# --------------------------------------------- causal flash at long T
+#: ViT-S/16's heads at the long-context lengths of the repo's flash
+#: benchmark (benchmarks/flash_attention_bench.py): batch 4, T to 8192
+_LONG_B, _LONG_TS = 4, (2048, 8192)
+
+
+def phase_flash_causal(peaks):
+    """The flash kernels with causal=True at T = 2048 and 8192 (where the
+    JAX package's "auto" picks its jagged grids on the TPU), against
+    their plain versions, timed against causal SDPA and the bound over
+    the causal live pairs; returns the records (rows 4, 7 and 8 of
+    PERF.md's kernel table)."""
+    return _flash_phase("flash_causal", [
+        (f"causal_{t}", (_LONG_B, t, _VIT_H, _VIT_D), True, None, 2)
+        for t in _LONG_TS], peaks, seed=11)
+
+
+# ------------------------------------------------------ ring block kernels
+_BLOCK_KERNELS = ("flash_block_fwd", "flash_block_dq", "flash_block_dkv")
+
+
+def _block_counts():
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    return {"block_fwd": flash_cuda.BLOCK_FWD_LAUNCHES,
+            "block_dq": flash_cuda.BLOCK_DQ_LAUNCHES,
+            "block_dkv": flash_cuda.BLOCK_DKV_LAUNCHES}
+
+
+def _zero_block_counts():
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    flash_cuda.BLOCK_FWD_LAUNCHES = flash_cuda.BLOCK_DQ_LAUNCHES = 0
+    flash_cuda.BLOCK_DKV_LAUNCHES = 0
+
+
+def block_bound_ms(kind, bh, tq, tk, d, itemsize, q_off, k_off, causal,
+                   kv_len, peaks):
+    """Least time for one ring block step: each input read once (q, k, v,
+    and dO, lse and delta in the backward), the fp32 state or accumulators
+    read and written once, at the memory rate, against the products' FLOPs
+    over this step's live (query, key) pairs at the peak for the inputs'
+    type."""
+    bw, fp32_flops = peaks
+    q_bytes, kv_bytes = bh * tq * d * itemsize, bh * tk * d * itemsize
+    rows = bh * tq * 4
+    live = sum(min(kv_len, max(0, q_off + i - k_off + 1)) if causal
+               else kv_len for i in range(tq))
+    pairs = bh * live
+    moved, products = {
+        # q, k, v; acc (fp32) and m, l in and out
+        "flash_block_fwd": (q_bytes + 2 * kv_bytes + 2 * bh * tq * d * 4
+                            + 4 * rows, 2),
+        # q, k, v, dO, lse, delta; dq (fp32) in and out
+        "flash_block_dq": (2 * q_bytes + 2 * kv_bytes + 2 * rows
+                           + 2 * bh * tq * d * 4, 3),
+        # q, k, v, dO, lse, delta; dk and dv (fp32) in and out
+        "flash_block_dkv": (2 * q_bytes + 2 * kv_bytes + 2 * rows
+                            + 4 * bh * tk * d * 4, 4)}[kind]
+    flops = products * 2 * d * pairs
+    peak = _BF16_TENSOR_FLOPS if itemsize == 2 else fp32_flops
+    bytes_ms, ops_ms = moved / bw * 1e3, flops / peak * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                          "operations")
+
+
+def phase_ring_kernel(peaks):
+    """The three ring block kernels against their plain versions at the
+    offsets the ranks of a 4-rank ring see (a past block, the diagonal, a
+    block wholly in the future) at the local shape (4, 2048, 6, 64) of
+    (4, 8192, 6, 64), and at the ragged local length 197 with a
+    block-local kv_len and a partly masked block; returns the records."""
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import (
+        block_grads_plain, block_update_plain)
+    from distributed_vgg_f_tpu_torch.ops.flash_cuda import (
+        flash_block_dkv_cuda, flash_block_dq_cuda, flash_block_fwd_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    t_loc = _LONG_TS[-1] // 4
+    # (site, (B, T_loc, H, D), q_off, k_off, causal, kv_len, timed)
+    cases = [("past", (_LONG_B, t_loc, _VIT_H, _VIT_D), 2 * t_loc, 0, False,
+              None, True),
+             ("past_causal", (_LONG_B, t_loc, _VIT_H, _VIT_D), 2 * t_loc, 0,
+              True, None, False),
+             ("diagonal", (_LONG_B, t_loc, _VIT_H, _VIT_D), 2 * t_loc,
+              2 * t_loc, True, None, True),
+             ("future", (_LONG_B, t_loc, _VIT_H, _VIT_D), t_loc, 2 * t_loc,
+              True, None, False),
+             ("ragged_diagonal", (2, 197, _VIT_H, _VIT_D), 394, 394, True,
+              180, False),
+             ("ragged_partial", (2, 197, _VIT_H, _VIT_D), 197, 147, True,
+              180, False),
+             ("ragged_past", (2, 197, _VIT_H, _VIT_D), 394, 0, False, 180,
+              False)]
+
+    def inputs(bh, t, d, dtype, kv_len):
+        f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                   device="cuda")
+        x = {"q": f(bh, t, d).to(dtype), "k": f(bh, t, d).to(dtype),
+             "v": f(bh, t, d).to(dtype), "do": f(bh, t, d).to(dtype),
+             "acc": f(bh, t, d), "m": f(bh, t, 1),
+             "l": f(bh, t, 1).abs() + 0.5, "lse": f(bh, t, 1) + 3.0,
+             "delta": f(bh, t, 1), "dq": f(bh, t, d), "dk": f(bh, t, d),
+             "dv": f(bh, t, d)}
+        # rows that have seen nothing yet; padded keys' accumulators at 0
+        x["acc"][:, :5], x["m"][:, :5], x["l"][:, :5] = 0.0, -math.inf, 0.0
+        x["dk"][:, kv_len:], x["dv"][:, kv_len:] = 0.0, 0.0
+        return x
+
+    records = []
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        for site, (b, t, h, d), q_off, k_off, causal, kv_len, timed \
+                in cases:
+            bh, kv_len = b * h, t if kv_len is None else kv_len
+            kw = {"q_off": q_off, "k_off": k_off, "causal": causal,
+                  "kv_len": kv_len}
+            x = inputs(bh, t, d, dtype, kv_len)
+            args_f = [x[k] for k in ("q", "k", "v", "acc", "m", "l")]
+            args_g = [x[k] for k in ("q", "k", "v", "do", "lse", "delta",
+                                     "dq", "dk", "dv")]
+            want_f = block_update_plain(*args_f, **kw)
+            want_g = block_grads_plain(*args_g, **kw)
+            got_f = [y.clone() for y in args_f[3:]]
+            got_g = [y.clone() for y in args_g[6:]]
+            flash_block_fwd_cuda(*args_f[:3], *got_f, **kw)
+            flash_block_dq_cuda(*args_g[:6], got_g[0], **kw)
+            flash_block_dkv_cuda(*args_g[:6], *got_g[1:], **kw)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, got, want in (("flash_block_fwd", got_f, want_f),
+                                    ("flash_block_dq", got_g[:1],
+                                     want_g[:1]),
+                                    ("flash_block_dkv", got_g[1:],
+                                     want_g[1:])):
+                err = rel = 0.0
+                for i, (g, w) in enumerate(zip(got, want)):
+                    m_row = name == "flash_block_fwd" and i == 1
+                    if m_row:
+                        # m: -inf where nothing was ever live, in both
+                        check(torch.equal(torch.isneginf(g),
+                                          torch.isneginf(w)),
+                              f"m's -inf rows differ at {site}")
+                        g, w = g.clamp_min(-1e30), w.clamp_min(-1e30)
+                        bound = 1e-5
+                    else:
+                        bound = tol * float(w.abs().max())
+                    e = float((g - w).abs().max())
+                    check(bool(torch.isfinite(g).all()) and e <= bound,
+                          f"{name} off its plain version by {e} at {site} "
+                          f"{dtype} (allowed {bound})")
+                    err = max(err, e)
+                    if not m_row:   # m's error is held absolutely
+                        rel = max(rel, e / float(w.abs().max()))
+                errs[name] = (err, rel)
+            check(bool((got_g[1][:, kv_len:] == 0).all()
+                       and (got_g[2][:, kv_len:] == 0).all()),
+                  f"padded keys got a gradient at {site}")
+            if site == "future":
+                check(all(torch.equal(g, y) for g, y in
+                          zip(got_f + got_g, args_f[3:] + args_g[6:])),
+                      "a block wholly in the future changed the state")
+            del got_f, got_g, want_f, want_g
+            recs = {name: {"name": name, "site": site,
+                           "shape": [b, t, h, d], "bh": bh,
+                           "q_off": q_off, "k_off": k_off, "causal": causal,
+                           "kv_len": kv_len,
+                           "dtype": str(dtype).replace("torch.", ""),
+                           "tol_of_max": tol, "max_abs_err": errs[name][0],
+                           "max_rel_err": errs[name][1]}
+                    for name in _BLOCK_KERNELS}
+            if timed:
+                sets = [inputs(bh, t, d, dtype, kv_len) for _ in range(8)]
+                fns = {
+                    "flash_block_fwd": (
+                        lambda y: flash_block_fwd_cuda(
+                            y["q"], y["k"], y["v"], y["acc"], y["m"],
+                            y["l"], **kw),
+                        lambda y: block_update_plain(
+                            y["q"], y["k"], y["v"], y["acc"], y["m"],
+                            y["l"], **kw)),
+                    "flash_block_dq": (
+                        lambda y: flash_block_dq_cuda(
+                            *(y[k] for k in ("q", "k", "v", "do", "lse",
+                                             "delta", "dq")), **kw),
+                        lambda y: block_grads_plain(
+                            *(y[k] for k in ("q", "k", "v", "do", "lse",
+                                             "delta", "dq", "dk", "dv")),
+                            **kw)),
+                    "flash_block_dkv": (
+                        lambda y: flash_block_dkv_cuda(
+                            *(y[k] for k in ("q", "k", "v", "do", "lse",
+                                             "delta", "dk", "dv")), **kw),
+                        None)}
+                plain_grads = None
+                for name, (kern, plain) in fns.items():
+                    rec = recs[name]
+                    rec["ms"] = device_ms(kern, sets)
+                    if plain is not None:
+                        plain_grads = device_ms(plain, sets[:2], windows=3)
+                        rec["plain_ms"] = plain_grads
+                    else:
+                        rec["plain_ms"] = plain_grads
+                    rec["plain"] = ("block_update_plain"
+                                    if name == "flash_block_fwd" else
+                                    "block_grads_plain (dq, dk and dv "
+                                    "together)")
+                    rec["library_ms"] = None
+                    rec["library"] = ("none: no single PyTorch call folds "
+                                      "a block into carried softmax state "
+                                      "or accumulates into carried "
+                                      "gradients")
+                    rec["bound_ms"], rec["bound_by"] = block_bound_ms(
+                        name, bh, t, t, d, dtype.itemsize, q_off, k_off,
+                        causal, kv_len, peaks)
+                del sets
+            for rec in recs.values():
+                records.append(rec)
+                emit("ring_kernel", **rec)
+            del x, args_f, args_g
+            torch.cuda.empty_cache()
+    return records
+
+
+# ------------------------------------------------- sequence-parallel paths
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _all_counts():
+    return {**_flash_counts(), **_block_counts()}
+
+
+def _zero_all_counts():
+    _zero_flash_counts()
+    _zero_block_counts()
+
+
+def _held(got, want, tol, what):
+    """|got - want| <= tol + tol * |want| elementwise (the JAX ring tests'
+    assert_allclose with rtol = atol = tol); returns the max error."""
+    got, want = got.float(), want.float()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{what}: shape {tuple(got.shape)} or non-finite values")
+    err = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= tol + tol * want.abs()).all())
+    check(ok, f"{what} off flash_self_attention by {err} (rtol = atol = "
+          f"{tol})")
+    return err
+
+
+def phase_ring_flash():
+    """(a) The port's own entry points over a one-rank NCCL group:
+    ring_flash_attention, ring_self_attention and ulysses_self_attention
+    (flash) at (4, 8192, 6, 64) bf16, causal and not, forward and
+    backward, each held against flash_self_attention, with the launches of
+    each path alone. (b) The 4-rank ring's kernel work chained on the one
+    card in ring order: each rank's folds with its offsets, then the
+    backward steps with the dK/dV accumulators travelling with their
+    block, held against flash_self_attention at T = 8192, with each
+    rank's kernel ms. Returns the launches by path."""
+    import torch.distributed as dist
+
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import (
+        flash_block_grads, flash_block_update, flash_self_attention)
+    from distributed_vgg_f_tpu_torch.parallel.distributed import \
+        initialize_distributed
+    from distributed_vgg_f_tpu_torch.parallel.ring_attention import \
+        ring_self_attention
+    from distributed_vgg_f_tpu_torch.parallel.ring_flash import \
+        ring_flash_attention
+    from distributed_vgg_f_tpu_torch.parallel.ulysses import \
+        ulysses_self_attention
+    b, t, h, d = _LONG_B, _LONG_TS[-1], _VIT_H, _VIT_D
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def draw(dtype):
+        return [torch.randn(b, t, h, d, generator=gen, device="cuda").to(
+            dtype) for _ in range(4)]   # q, k, v and the output cotangent
+
+    def fwd_bwd(fn, q, k, v, w, causal):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*xs, causal=causal)
+        out.backward(w)
+        torch.cuda.synchronize()
+        return [out.detach(), *(x.grad for x in xs)]
+
+    # (a) a one-rank NCCL group: NCCL puts no two ranks on one card
+    t0 = time.perf_counter()
+    up = initialize_distributed(f"localhost:{_free_port()}", 1, 0,
+                                device="cuda")
+    check(up and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "initialize_distributed did not start a one-rank NCCL group")
+    init_s = time.perf_counter() - t0
+    entries = {"ring_flash": ring_flash_attention,
+               "ring_einsum": ring_self_attention,
+               "ulysses_flash": lambda *a, **kw: ulysses_self_attention(
+                   *a, kernel="flash", **kw)}
+    # the launches each path must make at n = 1
+    expect = {"ring_flash": {"block_fwd": 1, "block_dq": 1, "block_dkv": 1},
+              "ring_einsum": {},
+              "ulysses_flash": {"fwd": 1, "dq": 1, "dkv": 1}}
+    tol = 3e-2
+    by_path = {}
+    q, k, v, w = draw(torch.bfloat16)
+    try:
+        for causal in (False, True):
+            want = fwd_bwd(flash_self_attention, q, k, v, w, causal)
+            for path, fn in entries.items():
+                key = f"{path}_causal" if causal else path
+                torch.cuda.synchronize()
+                _zero_all_counts()
+                t1 = time.perf_counter()
+                got = fwd_bwd(fn, q, k, v, w, causal)
+                wall_ms = (time.perf_counter() - t1) * 1e3
+                counts = _all_counts()
+                by_path[key] = counts
+                errs = [_held(g, r, tol, f"{key} {name}") for g, r, name
+                        in zip(got, want, ("out", "dq", "dk", "dv"))]
+                emit("ring_flash", part="a", path=key, world=1,
+                     backend="nccl", shape=[b, t, h, d], dtype="bfloat16",
+                     causal=causal, launches=counts,
+                     max_abs_err=dict(zip(("out", "dq", "dk", "dv"), errs)),
+                     rtol_atol=tol, fwd_bwd_wall_ms=wall_ms,
+                     init_s=init_s)
+                check(counts == {**{c: 0 for c in counts}, **expect[path]},
+                      f"{key} launches {counts}, expected {expect[path]}")
+                del got
+                torch.cuda.empty_cache()
+            del want
+    finally:
+        dist.destroy_process_group()
+
+    # (b) the 4-rank ring's kernel work, chained on the one card
+    n, t_loc = 4, t // 4
+    for dtype, (fwd_tol, grad_tol) in ((torch.bfloat16, (3e-2, 3e-2)),
+                                       (torch.float32, (2e-5, 5e-5))):
+        q, k, v, w = draw(dtype)
+        rows = lambda x, r: x[:, r * t_loc:(r + 1) * t_loc].permute(  # noqa
+            0, 2, 1, 3).reshape(b * h, t_loc, d).contiguous()
+        for causal in (False, True):
+            want = fwd_bwd(flash_self_attention, q, k, v, w, causal)
+            qs, ks, vs, ws = ([rows(x, r) for r in range(n)]
+                              for x in (q, k, v, w))
+            live = lambda r, s: not (causal and ((r - s) % n) * t_loc  # noqa
+                                     > r * t_loc + t_loc - 1)
+            torch.cuda.synchronize()
+            _zero_block_counts()
+            fwd_ms, outs, lses = [], [], []
+            for r in range(n):
+                acc = torch.zeros(b * h, t_loc, d, device="cuda")
+                m = torch.full((b * h, t_loc, 1), -math.inf, device="cuda")
+                l = torch.zeros(b * h, t_loc, 1, device="cuda")
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for s in range(n):
+                    src = (r - s) % n
+                    if live(r, s):
+                        flash_block_update(qs[r], ks[src], vs[src], acc, m, l,
+                                           q_off=r * t_loc,
+                                           k_off=src * t_loc, causal=causal)
+                end.record()
+                end.synchronize()
+                fwd_ms.append(start.elapsed_time(end))
+                outs.append((acc / l).to(dtype))
+                lses.append(m + torch.log(l))
+            deltas = [(ws[r].float() * outs[r].float()).sum(-1, keepdim=True)
+                      for r in range(n)]
+            dq = [torch.zeros(b * h, t_loc, d, device="cuda")
+                  for _ in range(n)]
+            dk = [torch.zeros_like(x) for x in dq]   # by block owner
+            dv = [torch.zeros_like(x) for x in dq]
+            bwd_ms = [0.0] * n
+            for s in range(n):
+                for r in range(n):
+                    src = (r - s) % n
+                    if not live(r, s):
+                        continue
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    flash_block_grads(qs[r], ks[src], vs[src], ws[r],
+                                      lses[r], deltas[r], dq[r], dk[src],
+                                      dv[src], q_off=r * t_loc,
+                                      k_off=src * t_loc, causal=causal)
+                    end.record()
+                    end.synchronize()
+                    bwd_ms[r] += start.elapsed_time(end)
+            counts = _block_counts()
+            join = lambda xs: torch.cat(  # noqa: E731
+                [x.reshape(b, h, t_loc, d).permute(0, 2, 1, 3) for x in xs],
+                dim=1)
+            got = [join(outs), join(dq).to(dtype), join(dk).to(dtype),
+                   join(dv).to(dtype)]
+            errs = [_held(g, r_, fwd_tol if i == 0 else grad_tol,
+                          f"4-rank chain {dtype} causal={causal} {name}")
+                    for i, (g, r_, name) in enumerate(
+                        zip(got, want, ("out", "dq", "dk", "dv")))]
+            steps = sum(live(r, s) for r in range(n) for s in range(n))
+            key = "ring4_chained_causal" if causal else "ring4_chained"
+            if dtype == torch.bfloat16:
+                by_path[key] = counts
+            emit("ring_flash", part="b", path=key, world=n,
+                 shape=[b, t, h, d], local_shape=[b, t_loc, h, d],
+                 dtype=str(dtype).replace("torch.", ""), causal=causal,
+                 launches=counts, live_steps=steps,
+                 rank_fwd_ms=fwd_ms, rank_bwd_ms=bwd_ms,
+                 max_abs_err=dict(zip(("out", "dq", "dk", "dv"), errs)),
+                 rtol_atol=[fwd_tol, grad_tol])
+            check(counts == {"block_fwd": steps, "block_dq": steps,
+                             "block_dkv": steps},
+                  f"4-rank chain launches {counts}, expected {steps} each")
+            del want, got, qs, ks, vs, ws, outs, lses, deltas, dq, dk, dv
+            torch.cuda.empty_cache()
+        del q, k, v, w
+    return by_path
+
+
 def phase_isolation():
     bad = sorted(m for m in sys.modules
                  if any(m == r or m.startswith(r + ".")
@@ -1286,6 +1750,9 @@ def main() -> int:
     phase_vit_train_parity(vit_tree)
     del vit_tree
     vit_train_launches = phase_vit_train()
+    causal_records = phase_flash_causal(peaks)
+    ring_records = phase_ring_kernel(peaks)
+    sp = phase_ring_flash()
     phase_isolation()
 
     def summary(name, source, replaces, recs, key, value, launches,
@@ -1307,7 +1774,7 @@ def main() -> int:
             "work": work + ": " + ", ".join(str(tuple(r["shape"]))
                                            for r in main)}
 
-    def flash_summary(name, line, launches, by_path):
+    def flash_summary(name, line, by_path):
         # one layer's launch in bf16 at the training batch
         main = [r for r in flash_records if r["name"] == name
                 and r["site"] == "vit_train" and r["dtype"] == "bfloat16"]
@@ -1317,7 +1784,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"distributed_vgg_f_tpu_torch/csrc/{name}.cu",
             "replaces": f"distributed_vgg_f_tpu/ops/flash_attention.py{line}",
-            "launches": launches, "launches_by_path": by_path,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in flash_records
                                if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
@@ -1325,6 +1792,57 @@ def main() -> int:
             "library_ms": rec["library_ms"],
             "work": "one attention layer of ViT-S/16 in bf16 at batch 1024: "
                     f"(B, T, H, D) = {tuple(rec['shape'])}"}
+
+    def jagged_summary(kernel, line, key):
+        # the causal loop bound of the flash kernel, in bf16 at T = 8192
+        main = [r for r in causal_records if r["name"] == kernel
+                and r["site"] == f"causal_{_LONG_TS[-1]}"
+                and r["dtype"] == "bfloat16"]
+        check(len(main) == 1, f"{kernel} causal: {len(main)} records")
+        rec = main[0]
+        by_path = {"ulysses_flash_causal": sp["ulysses_flash_causal"][key]}
+        return {
+            "name": f"{kernel}_jagged",
+            "route": "cuda",
+            "source": f"distributed_vgg_f_tpu_torch/csrc/{kernel}.cu",
+            "replaces": f"distributed_vgg_f_tpu/ops/flash_attention.py{line}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in causal_records
+                               if r["name"] == kernel),
+            "max_rel_err": max(r["max_rel_err"] for r in causal_records
+                               if r["name"] == kernel),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            "work": "causal attention over ViT-S/16's heads in bf16 at "
+                    f"(B, T, H, D) = {tuple(rec['shape'])}: the causal loop "
+                    "bound of the rectangular kernel"}
+
+    def block_summary(name, line, key):
+        # a fully live (past) block of the 4-rank ring's local shape, bf16
+        main = [r for r in ring_records if r["name"] == name
+                and r["site"] == "past" and r["dtype"] == "bfloat16"]
+        check(len(main) == 1, f"{name}: {len(main)} timed records")
+        rec = main[0]
+        by_path = {p: sp[p][key] for p in ("ring_flash", "ring_flash_causal")}
+        return {
+            "name": name, "route": "cuda",
+            "source": f"distributed_vgg_f_tpu_torch/csrc/{name}.cu",
+            "replaces": f"distributed_vgg_f_tpu/ops/flash_attention.py{line}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_chained_4rank": {
+                p: sp[p][key] for p in ("ring4_chained",
+                                        "ring4_chained_causal")},
+            "max_abs_err": max(r["max_abs_err"] for r in ring_records
+                               if r["name"] == name),
+            "max_rel_err": max(r["max_rel_err"] for r in ring_records
+                               if r["name"] == name),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None,
+            "work": "one ring step over a fully live block in bf16 at the "
+                    "4-rank ring's local (B, T_loc, H, D) = "
+                    f"{tuple(rec['shape'])}"}
 
     print(json.dumps({"kernels": [
         summary("lrn_fwd", "distributed_vgg_f_tpu_torch/csrc/lrn_fwd.cu",
@@ -1337,15 +1855,23 @@ def main() -> int:
                 "batch", 1024, train_launches["bwd"],
                 {"serve": 0, "train": train_launches["bwd"]},
                 "both LRN sites of one bf16 training step at batch 1024"),
-        flash_summary("flash_fwd", ":211", vit_serve_launches
-                      + vit_train_launches["fwd"],
+        flash_summary("flash_fwd", ":211",
                       {"vit_serve": vit_serve_launches,
-                       "vit_train": vit_train_launches["fwd"]}),
-        flash_summary("flash_dq", ":292", vit_train_launches["dq"],
-                      {"vit_serve": 0, "vit_train": vit_train_launches["dq"]}),
-        flash_summary("flash_dkv", ":365", vit_train_launches["dkv"],
+                       "vit_train": vit_train_launches["fwd"],
+                       "ulysses_flash": sp["ulysses_flash"]["fwd"]}),
+        flash_summary("flash_dq", ":292",
+                      {"vit_serve": 0, "vit_train": vit_train_launches["dq"],
+                       "ulysses_flash": sp["ulysses_flash"]["dq"]}),
+        flash_summary("flash_dkv", ":365",
                       {"vit_serve": 0,
-                       "vit_train": vit_train_launches["dkv"]}),
+                       "vit_train": vit_train_launches["dkv"],
+                       "ulysses_flash": sp["ulysses_flash"]["dkv"]}),
+        jagged_summary("flash_fwd", ":240", "fwd"),
+        jagged_summary("flash_dq", ":319", "dq"),
+        jagged_summary("flash_dkv", ":396", "dkv"),
+        block_summary("flash_block_fwd", ":639", "block_fwd"),
+        block_summary("flash_block_dq", ":724", "block_dq"),
+        block_summary("flash_block_dkv", ":761", "block_dkv"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -274,4 +274,38 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// ---------------------------------------------------------------------------
+// The ring block kernels (flash_block_fwd.cu, flash_block_dq.cu,
+// flash_block_dkv.cu) take q and dO as (B*H, Tq, D) and the visiting block's
+// k and v as (B*H, Tk, D), all contiguous: one (b, h) is `bh` with stride
+// T*D. Causal masking is by global position — local query row i sits at
+// q_off + i, local key j at k_off + j — and keys at or past the block-local
+// kv_len are padding.
+__host__ __device__ __forceinline__ Strides rows_strides(int T_len, int D) {
+  return Strides{static_cast<long long>(T_len) * D, D, 0};
+}
+
+// Whether local query row qi attends to local key kj of the visiting block
+// (rows at or past Tq are the caller's to mask).
+__device__ __forceinline__ bool block_live(int qi, int kj, int q_off,
+                                           int k_off, int causal,
+                                           int kv_len) {
+  return kj < kv_len && (!causal || k_off + kj <= q_off + qi);
+}
+
+// One past the last key that any of the query rows q0 .. q0+kTile-1 may
+// see; <= 0 when none may.
+__device__ __forceinline__ int block_key_end(int q0, int Tq, int q_off,
+                                             int k_off, int causal,
+                                             int kv_len) {
+  return causal ? min(kv_len, q_off + min(q0 + kTile, Tq) - k_off) : kv_len;
+}
+
+// The first kTile-aligned query tile holding a row that may see key k0.
+__device__ __forceinline__ int block_query_start(int k0, int q_off, int k_off,
+                                                 int causal) {
+  const int first = k_off + k0 - q_off;  // local row at key k0's position
+  return causal && first > 0 ? first / kTile * kTile : 0;
+}
+
 }  // namespace flash

@@ -27,6 +27,19 @@ and keys at or past `kv_len` never attended to. A masked pair gets
 p = 0, so masked keys get exactly zero dK and dV. The JAX function pads
 T = 197 to 256 for its TPU blocks and masks the tail; the kernels and the
 plain versions mask keys past T themselves, which is the same function.
+
+The ring block functions `flash_block_update` and `flash_block_grads`
+(the JAX functions of the same names, whose TPU kernels are
+`_ring_fwd_kernel`, `_ring_dq_kernel` and `_ring_dkv_kernel`) fold one
+visiting K/V block into state the caller carries from call to call, in
+the JAX layout (B*H, T, D): the online-softmax state (acc, m, l) in the
+forward; dQ and the travelling dK/dV accumulators in the backward; all
+fp32. Causal masking is by global position (q_off + row >= k_off + col),
+and keys of the visiting block at or past the block-local `kv_len` are
+padding. Their plain versions, `block_update_plain` and
+`block_grads_plain`, are whole-block formulas with the same rounding
+points; for CUDA tensors the functions launch the Hopper kernels
+(ops/flash_cuda.py), which update the state in place.
 """
 
 from __future__ import annotations
@@ -167,13 +180,37 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+#: the JAX function's `causal_skip` values
+CAUSAL_SKIPS = ("auto", "mxu", "dma")
+
+
 def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = False,
-                         kv_len: Optional[int] = None) -> torch.Tensor:
+                         kv_len: Optional[int] = None,
+                         causal_skip: str = "auto") -> torch.Tensor:
     """Exact self-attention, (B, T, H, D) in and out; the (T, T) scores
     never reach device memory on the card. `kv_len` marks the first
     `kv_len` keys as real and the rest as padding: never attended to,
-    with exactly zero gradient."""
+    with exactly zero gradient.
+
+    `causal_skip` takes the JAX function's values and checks them as it
+    does: unknown values raise, and "dma" raises without causal=True. On
+    the TPU it picks between the rectangular grids ("mxu") and the jagged
+    grids that visit only the live lower-triangular tile pairs ("dma"),
+    "auto" switching at a token count measured on a TPU v5e. Here all
+    three run the same Hopper kernels: their causal loop bound already
+    skips every tile above the diagonal, so no masked tile is read, which
+    is what the jagged grids exist for, with the same numerics. The TPU
+    threshold is not carried over. The JAX function's `block_q` and
+    `block_k` (TPU block sizes) and `interpret` (the Pallas interpreter)
+    are not ported: the kernels' 64-row tiles are fixed, and on the CPU
+    the plain versions run."""
+    if causal_skip not in CAUSAL_SKIPS:
+        raise ValueError(f"causal_skip {causal_skip!r} not one of "
+                         f"{CAUSAL_SKIPS}")
+    if causal_skip == "dma" and not causal:
+        raise ValueError("causal_skip='dma' only applies to causal "
+                         "attention: drop it or set causal=True")
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q/k/v must share one (B, T, H, D) shape, got "
                          f"{tuple(q.shape)} {tuple(k.shape)} "
@@ -183,3 +220,129 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kv_len {kv_len} outside [1, {t}]")
     return FlashAttentionFunction.apply(q, k, v, bool(causal),
                                         t if kv_len is None else int(kv_len))
+
+
+# ------------------------------------------------------- ring block steps
+def _block_live(tq: int, tk: int, q_off: int, k_off: int, causal: bool,
+                kv_len: int, device) -> torch.Tensor:
+    """(Tq, Tk) mask of the live (local query, visiting key) pairs."""
+    kloc = torch.arange(tk, device=device)
+    live = (kloc < kv_len)[None, :].expand(tq, tk)
+    if causal:
+        qpos = torch.arange(tq, device=device) + q_off
+        live = live & (qpos[:, None] >= (kloc + k_off)[None, :])
+    return live
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32 (fp64 stays fp64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def block_update_plain(q, k_blk, v_blk, acc, m, l, *, q_off: int,
+                       k_off: int, causal: bool, kv_len: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain fold of one K/V block into (acc, m, l); returns new tensors.
+    A row with no live key so far keeps m = -inf and rescales with 0 in
+    its place, so -inf - -inf never occurs."""
+    tq, d = q.shape[1], q.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    live = _block_live(tq, k_blk.shape[1], q_off, k_off, causal, kv_len,
+                       q.device)
+    s = torch.matmul(_wide(q), _wide(k_blk).transpose(-1, -2)) * scale
+    s = torch.where(live, s, torch.full((), -math.inf, dtype=s.dtype,
+                                        device=s.device))
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    m_use = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)
+    corr = torch.exp(m - m_use)
+    p = torch.exp(s - m_use)
+    l_new = l * corr + p.sum(dim=-1, keepdim=True)
+    acc_new = acc * corr + torch.matmul(_rounded(p, v_blk.dtype),
+                                        _wide(v_blk))
+    return acc_new, m_new, l_new
+
+
+def block_grads_plain(q, k_blk, v_blk, do, lse, delta, dq, dk_blk, dv_blk,
+                      *, q_off: int, k_off: int, causal: bool, kv_len: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward step: (dq, dk_blk, dv_blk) plus this block's
+    contributions, as new tensors. Masked pairs get p = 0, so padded
+    keys add exactly zero to their dK and dV rows."""
+    tq, d = q.shape[1], q.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    live = _block_live(tq, k_blk.shape[1], q_off, k_off, causal, kv_len,
+                       q.device)
+    s = torch.matmul(_wide(q), _wide(k_blk).transpose(-1, -2)) * scale
+    p = torch.where(live, torch.exp(s - lse),
+                    torch.zeros((), dtype=s.dtype, device=s.device))
+    dp = torch.matmul(_wide(do), _wide(v_blk).transpose(-1, -2))
+    ds = p * (dp - delta)
+    dq_new = dq + scale * torch.matmul(_rounded(ds, k_blk.dtype),
+                                       _wide(k_blk))
+    dk_new = dk_blk + scale * torch.matmul(
+        _rounded(ds, q.dtype).transpose(-1, -2), _wide(q))
+    dv_new = dv_blk + torch.matmul(_rounded(p, do.dtype).transpose(-1, -2),
+                                   _wide(do))
+    return dq_new, dk_new, dv_new
+
+
+def _check_block_args(q, k_blk, v_blk, kv_len):
+    if q.dim() != 3 or k_blk.dim() != 3 or k_blk.shape != v_blk.shape \
+            or k_blk.shape[0] != q.shape[0] or k_blk.shape[2] != q.shape[2]:
+        raise ValueError(f"q (B*H, Tq, D) and k_blk, v_blk (B*H, Tk, D) "
+                         f"expected, got {tuple(q.shape)} "
+                         f"{tuple(k_blk.shape)} {tuple(v_blk.shape)}")
+    tk = k_blk.shape[1]
+    kv_len = tk if kv_len is None else int(kv_len)
+    if not 1 <= kv_len <= tk:
+        raise ValueError(f"kv_len {kv_len} outside [1, {tk}]")
+    return kv_len
+
+
+def flash_block_update(q, k_blk, v_blk, acc, m, l, *, q_off: int,
+                       k_off: int, causal: bool,
+                       kv_len: Optional[int] = None):
+    """Fold one K/V block into the online-softmax state (the JAX function
+    of the same name). q: (B*H, Tq, D); k_blk, v_blk: (B*H, Tk, D); acc:
+    (B*H, Tq, D) fp32; m, l: (B*H, Tq, 1) fp32. q_off and k_off are the
+    global positions of query row 0 and key 0. Updates acc, m and l in
+    place and returns them; finish with out = acc / l, lse = m + log l.
+    CUDA tensors run the kernel (csrc/flash_block_fwd.cu), CPU tensors
+    `block_update_plain`."""
+    kv_len = _check_block_args(q, k_blk, v_blk, kv_len)
+    if q.is_cuda:
+        flash_cuda.flash_block_fwd_cuda(q, k_blk, v_blk, acc, m, l,
+                                        q_off=q_off, k_off=k_off,
+                                        causal=causal, kv_len=kv_len)
+        return acc, m, l
+    new = block_update_plain(q, k_blk, v_blk, acc, m, l, q_off=q_off,
+                             k_off=k_off, causal=causal, kv_len=kv_len)
+    for x, y in zip((acc, m, l), new):
+        x.copy_(y)
+    return acc, m, l
+
+
+def flash_block_grads(q, k_blk, v_blk, do, lse, delta, dq, dk_blk, dv_blk,
+                      *, q_off: int, k_off: int, causal: bool,
+                      kv_len: Optional[int] = None):
+    """One ring step of the backward (the JAX function of the same name):
+    adds this block's contribution to dq (the local rows) and to the
+    visiting block's dk_blk and dv_blk, which travel the ring with it.
+    do: (B*H, Tq, D) in q's dtype; lse, delta: (B*H, Tq, 1) fp32; dq,
+    dk_blk, dv_blk fp32. Updates dq, dk_blk and dv_blk in place and
+    returns them. CUDA tensors run the kernels (csrc/flash_block_dq.cu,
+    csrc/flash_block_dkv.cu), CPU tensors `block_grads_plain`."""
+    kv_len = _check_block_args(q, k_blk, v_blk, kv_len)
+    kw = {"q_off": q_off, "k_off": k_off, "causal": causal,
+          "kv_len": kv_len}
+    if q.is_cuda:
+        flash_cuda.flash_block_dq_cuda(q, k_blk, v_blk, do, lse, delta, dq,
+                                       **kw)
+        flash_cuda.flash_block_dkv_cuda(q, k_blk, v_blk, do, lse, delta,
+                                        dk_blk, dv_blk, **kw)
+        return dq, dk_blk, dv_blk
+    new = block_grads_plain(q, k_blk, v_blk, do, lse, delta, dq, dk_blk,
+                            dv_blk, **kw)
+    for x, y in zip((dq, dk_blk, dv_blk), new):
+        x.copy_(y)
+    return dq, dk_blk, dv_blk

@@ -1,6 +1,8 @@
 """Flash attention forward, dQ and dK/dV as hand-written Hopper kernels
 (csrc/flash_fwd.cu, csrc/flash_dq.cu, csrc/flash_dkv.cu, sharing
-csrc/flash_common.cuh).
+csrc/flash_common.cuh), and the three ring block kernels
+(csrc/flash_block_fwd.cu, csrc/flash_block_dq.cu, csrc/flash_block_dkv.cu)
+at the end of this module.
 
 They replace the JAX package's Pallas TPU kernels
 ``ops/flash_attention.py:_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``
@@ -27,8 +29,10 @@ delta are contiguous (B, H, T) fp32.
 Each wrapper checks device, dtype (float32 or bfloat16, one for all
 operands), shape, head dim (32 or 64) and layout, raises on anything
 else, returns the kernel's CUDA error as an exception, and never falls
-back to the plain version. `FWD_LAUNCHES`, `DQ_LAUNCHES` and
-`DKV_LAUNCHES` count launches; nothing else touches them.
+back to the plain version. `FWD_LAUNCHES`, `DQ_LAUNCHES`,
+`DKV_LAUNCHES` and the block kernels' `BLOCK_FWD_LAUNCHES`,
+`BLOCK_DQ_LAUNCHES` and `BLOCK_DKV_LAUNCHES` count launches; nothing else
+touches them.
 """
 
 from __future__ import annotations
@@ -46,6 +50,9 @@ from distributed_vgg_f_tpu_torch.kernels import build
 FWD_LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+BLOCK_FWD_LAUNCHES = 0
+BLOCK_DQ_LAUNCHES = 0
+BLOCK_DKV_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are instantiated for
@@ -60,6 +67,11 @@ _SHAPE = [_I, _I, _I, _I, _L, _L, _L, _I, _I, ctypes.c_float, _I, _I, _P]
 _FWD_ARGS = [_P, _P, _P, _P, _P] + _SHAPE
 _DQ_ARGS = [_P, _P, _P, _P, _P, _P, _P] + _SHAPE
 _DKV_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P] + _SHAPE
+# BH, Tq, Tk, D, q_off, k_off, causal, kv_len, scale, dtype, device, stream
+_BLOCK = [_I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
+_BLOCK_FWD_ARGS = [_P] * 6 + _BLOCK
+_BLOCK_DQ_ARGS = [_P] * 7 + _BLOCK
+_BLOCK_DKV_ARGS = [_P] * 8 + _BLOCK
 
 
 def _entry(name: str, argtypes):
@@ -188,3 +200,124 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = False,
                            f"error {rc}")
     DKV_LAUNCHES += 1
     return dk, dv
+
+
+# ---------------------------------------------------------- ring block steps
+# They replace ops/flash_attention.py:_ring_fwd_kernel, _ring_dq_kernel and
+# _ring_dkv_kernel of the JAX package and compute the functions of the plain
+# versions in ops/flash_attention.py (`block_update_plain`,
+# `block_grads_plain`). q, do: (B*H, Tq, D); k_blk, v_blk: (B*H, Tk, D);
+# all contiguous in one dtype. The state (acc, m, l) and the accumulators
+# (dq, dk_blk, dv_blk) are contiguous fp32 and are updated in place; lse and
+# delta are (B*H, Tq, 1) fp32. Same checks, errors and no fallback as above.
+
+def _check_block(q, k_blk, v_blk, kv_len) -> int:
+    """Raise on q, k_blk, v_blk the block kernels do not take; returns
+    kv_len."""
+    for name, x in (("q", q), ("k_blk", k_blk), ("v_blk", v_blk)):
+        if not x.is_cuda:
+            raise ValueError(f"the flash block kernels take CUDA tensors, "
+                             f"got {name} on {x.device}")
+        if x.dtype not in _DTYPES:
+            raise TypeError(f"the flash block kernels take float32 or "
+                            f"bfloat16, got {name} of {x.dtype}")
+        if x.dim() != 3 or not x.is_contiguous():
+            raise ValueError(f"the flash block kernels take {name} "
+                             f"contiguous (B*H, T, D), got "
+                             f"{tuple(x.shape)} strides {x.stride()}")
+    if k_blk.dtype != q.dtype or v_blk.dtype != q.dtype \
+            or k_blk.device != q.device or v_blk.device != q.device:
+        raise ValueError("q, k_blk and v_blk must share one dtype and device")
+    bh, tq, d = q.shape
+    if k_blk.shape != v_blk.shape or k_blk.shape[0] != bh \
+            or k_blk.shape[2] != d:
+        raise ValueError(f"k_blk and v_blk must be (B*H, Tk, D) beside q "
+                         f"{tuple(q.shape)}, got {tuple(k_blk.shape)} "
+                         f"{tuple(v_blk.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not one of {HEAD_DIMS}")
+    tk = k_blk.shape[1]
+    if min(bh, tq, tk) < 1 or bh > _MAX_GRID_Y:
+        raise ValueError(f"(B*H, Tq, Tk) = {(bh, tq, tk)} outside the "
+                         f"kernels' range (B*H <= {_MAX_GRID_Y})")
+    kv_len = tk if kv_len is None else int(kv_len)
+    if not 1 <= kv_len <= tk:
+        raise ValueError(f"kv_len {kv_len} outside [1, {tk}]")
+    return kv_len
+
+
+def _block_args(q, k_blk, q_off, k_off, causal, kv_len) -> list:
+    bh, tq, d = q.shape
+    return [bh, tq, k_blk.shape[1], d, int(q_off), int(k_off),
+            int(bool(causal)), kv_len, 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+            q.device.index, torch.cuda.current_stream(q.device).cuda_stream]
+
+
+def flash_block_fwd_cuda(q, k_blk, v_blk, acc, m, l, *, q_off: int,
+                         k_off: int, causal: bool, kv_len: int = None):
+    """Fold one K/V block into (acc, m, l) in place on the current stream.
+    Same semantics as ops.flash_attention.block_update_plain."""
+    global BLOCK_FWD_LAUNCHES
+    kv_len = _check_block(q, k_blk, v_blk, kv_len)
+    bh, tq, d = q.shape
+    _check_dense("acc", acc, (bh, tq, d), torch.float32, q.device)
+    _check_dense("m", m, (bh, tq, 1), torch.float32, q.device)
+    _check_dense("l", l, (bh, tq, 1), torch.float32, q.device)
+    fn = _entry("flash_block_fwd", _BLOCK_FWD_ARGS)
+    rc = fn(q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            *_block_args(q, k_blk, q_off, k_off, causal, kv_len))
+    if rc != 0:
+        raise RuntimeError(f"flash block forward kernel launch failed with "
+                           f"CUDA error {rc}")
+    BLOCK_FWD_LAUNCHES += 1
+    return acc, m, l
+
+
+def _check_block_rows(do, lse, delta, q) -> None:
+    bh, tq, _ = q.shape
+    _check_dense("dO", do, q.shape, q.dtype, q.device)
+    _check_dense("lse", lse, (bh, tq, 1), torch.float32, q.device)
+    _check_dense("delta", delta, (bh, tq, 1), torch.float32, q.device)
+
+
+def flash_block_dq_cuda(q, k_blk, v_blk, do, lse, delta, dq, *, q_off: int,
+                        k_off: int, causal: bool, kv_len: int = None):
+    """dq += this block's contribution, in place on the current stream.
+    Same semantics as the dq of ops.flash_attention.block_grads_plain."""
+    global BLOCK_DQ_LAUNCHES
+    kv_len = _check_block(q, k_blk, v_blk, kv_len)
+    _check_block_rows(do, lse, delta, q)
+    _check_dense("dq", dq, q.shape, torch.float32, q.device)
+    fn = _entry("flash_block_dq", _BLOCK_DQ_ARGS)
+    rc = fn(q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_block_args(q, k_blk, q_off, k_off, causal, kv_len))
+    if rc != 0:
+        raise RuntimeError(f"flash block dQ kernel launch failed with CUDA "
+                           f"error {rc}")
+    BLOCK_DQ_LAUNCHES += 1
+    return dq
+
+
+def flash_block_dkv_cuda(q, k_blk, v_blk, do, lse, delta, dk_blk, dv_blk, *,
+                         q_off: int, k_off: int, causal: bool,
+                         kv_len: int = None):
+    """dk_blk, dv_blk += this rank's contribution to the visiting block,
+    in place on the current stream. Same semantics as the dk and dv of
+    ops.flash_attention.block_grads_plain."""
+    global BLOCK_DKV_LAUNCHES
+    kv_len = _check_block(q, k_blk, v_blk, kv_len)
+    _check_block_rows(do, lse, delta, q)
+    _check_dense("dk_blk", dk_blk, k_blk.shape, torch.float32, q.device)
+    _check_dense("dv_blk", dv_blk, k_blk.shape, torch.float32, q.device)
+    fn = _entry("flash_block_dkv", _BLOCK_DKV_ARGS)
+    rc = fn(q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk_blk.data_ptr(),
+            dv_blk.data_ptr(),
+            *_block_args(q, k_blk, q_off, k_off, causal, kv_len))
+    if rc != 0:
+        raise RuntimeError(f"flash block dK/dV kernel launch failed with "
+                           f"CUDA error {rc}")
+    BLOCK_DKV_LAUNCHES += 1
+    return dk_blk, dv_blk

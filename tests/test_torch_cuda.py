@@ -23,7 +23,11 @@ Flash kernels vs their plain versions: max error within 1e-5 of the
 largest reference value in fp32 (the kernels sum in 64-key tiles with an
 online rescale, the plain versions whole rows at once), 1e-2 in bf16 (one
 bf16 ulp of an element is at most 3.9e-3 of the largest), lse within
-1e-5 in both. A narrow ViT's fp32 train step through the flash kernels:
+1e-5 in both; the same for the causal kernels at T = 2048 and for the
+three ring block kernels (their fp32 state and accumulators included).
+The sequence-parallel entry points on one card (no process group: a ring
+of one) against `flash_self_attention`: fp32 2e-5 (output) and 5e-5
+(gradients), bf16 3e-2, the JAX ring tests' tolerances. A narrow ViT's fp32 train step through the flash kernels:
 every gradient and update within 1e-4 relative L2 of the CPU step."""
 
 import numpy as np
@@ -326,3 +330,173 @@ def test_card_vit_train_step_matches_cpu(cuda_device):
             err = float((got - want).double().norm()
                         / max(float(want.double().norm()), 1e-30))
             assert err <= 1e-4, (k, err)
+
+
+# ------------------------------------------------------ ring block kernels
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,d,q_off,k_off,causal,kv_len", [
+    (24, 2048, 2048, 64, 2048, 0, False, None),   # a past block of the ring
+    (24, 2048, 2048, 64, 2048, 2048, True, None),  # the diagonal block
+    (6, 197, 197, 64, 197, 147, True, 180),        # partly masked, ragged
+    (6, 197, 197, 64, 394, 0, False, 180),
+    (4, 130, 70, 32, 0, 40, True, 60),             # Tq != Tk
+    (4, 130, 130, 32, 0, 130, True, None)])        # wholly in the future
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_block_kernels_match_plain_on_card(cuda_device, bh, tq, tk, d,
+                                           q_off, k_off, causal, kv_len,
+                                           dtype, tol):
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import (
+        block_grads_plain, block_update_plain)
+    gen = torch.Generator(device=cuda_device).manual_seed(bh + tq)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device)
+
+    q, do = draw(bh, tq, d).to(dtype), draw(bh, tq, d).to(dtype)
+    k, v = draw(bh, tk, d).to(dtype), draw(bh, tk, d).to(dtype)
+    acc, m = draw(bh, tq, d), draw(bh, tq, 1)
+    l = draw(bh, tq, 1).abs() + 0.5
+    acc[:, :5], m[:, :5], l[:, :5] = 0.0, -float("inf"), 0.0  # seen nothing
+    lse, delta = draw(bh, tq, 1) + 3.0, draw(bh, tq, 1)
+    dq, dk, dv = draw(bh, tq, d), draw(bh, tk, d), draw(bh, tk, d)
+    kw = {"q_off": q_off, "k_off": k_off, "causal": causal,
+          "kv_len": tk if kv_len is None else kv_len}
+    dk[:, kw["kv_len"]:] = 0.0
+    dv[:, kw["kv_len"]:] = 0.0
+    want = (*block_update_plain(q, k, v, acc, m, l, **kw),
+            *block_grads_plain(q, k, v, do, lse, delta, dq, dk, dv, **kw))
+    got = [x.clone() for x in (acc, m, l, dq, dk, dv)]
+    before = (flash_cuda.BLOCK_FWD_LAUNCHES, flash_cuda.BLOCK_DQ_LAUNCHES,
+              flash_cuda.BLOCK_DKV_LAUNCHES)
+    flash_cuda.flash_block_fwd_cuda(q, k, v, *got[:3], **kw)
+    flash_cuda.flash_block_dq_cuda(q, k, v, do, lse, delta, got[3], **kw)
+    flash_cuda.flash_block_dkv_cuda(q, k, v, do, lse, delta, *got[4:], **kw)
+    torch.cuda.synchronize()
+    assert (flash_cuda.BLOCK_FWD_LAUNCHES, flash_cuda.BLOCK_DQ_LAUNCHES,
+            flash_cuda.BLOCK_DKV_LAUNCHES) == tuple(n + 1 for n in before)
+    for name, g, w in zip(("acc", "m", "l", "dq", "dk", "dv"), got, want):
+        if name == "m":   # -inf where no key was ever live, in both
+            assert torch.equal(torch.isneginf(g), torch.isneginf(w))
+            g, w = g.clamp_min(-1e30), w.clamp_min(-1e30)
+            assert float((g - w).abs().max()) <= 1e-5, name
+            continue
+        # the fp32 state carries no rounding of its own: the bf16 bound
+        # is for the products of bf16 inputs
+        _close(g, w, tol)
+    assert (got[4][:, kw["kv_len"]:] == 0).all()
+    assert (got[5][:, kw["kv_len"]:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_causal_flash_kernels_match_plain_at_long_t(cuda_device, dtype, tol):
+    """The counterpart of the JAX package's jagged causal kernels: the
+    flash kernels' causal loop bound at T = 2048, where "auto" picks the
+    jagged grids on the TPU."""
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import (
+        attention_dkv, attention_dq)
+    q, k, v, do, fwd, delta_of = _flash_case(cuda_device, 4, 2048, 6, 64,
+                                             dtype, "dense", seed=5)
+    kw = {"causal": True, "kv_len": None}
+    o, lse = flash_cuda.flash_fwd_cuda(q, k, v, **kw)
+    o_ref, lse_ref = fwd(q, k, v, **kw)
+    delta = delta_of(do, o_ref)
+    dq = flash_cuda.flash_dq_cuda(q, k, v, do, lse_ref, delta, **kw)
+    dk, dv = flash_cuda.flash_dkv_cuda(q, k, v, do, lse_ref, delta, **kw)
+    torch.cuda.synchronize()
+    _close(o, o_ref, tol)
+    _close(lse, lse_ref, 1e-5)
+    _close(dq, attention_dq(q, k, v, do, lse_ref, delta, **kw), tol)
+    dk_ref, dv_ref = attention_dkv(q, k, v, do, lse_ref, delta, **kw)
+    _close(dk, dk_ref, tol)
+    _close(dv, dv_ref, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_sequence_parallel_entry_points_on_one_card(cuda_device, dtype,
+                                                    causal):
+    """Without a process group each entry point is a ring (or an
+    all-to-all) of one: ring x flash, the einsum ring and Ulysses (flash)
+    equal flash_self_attention, forward and backward, and ring x flash
+    launches one block fold, dQ and dK/dV step each."""
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import \
+        flash_self_attention
+    from distributed_vgg_f_tpu_torch.parallel.ring_attention import \
+        ring_self_attention
+    from distributed_vgg_f_tpu_torch.parallel.ring_flash import \
+        ring_flash_attention
+    from distributed_vgg_f_tpu_torch.parallel.ulysses import \
+        ulysses_self_attention
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, w = (torch.randn(2, 512, 6, 64, generator=gen,
+                              device=cuda_device).to(dtype)
+                  for _ in range(4))
+
+    def run(fn):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*xs, causal=causal)
+        out.backward(w)
+        return [out.detach(), *(x.grad for x in xs)]
+
+    want = run(flash_self_attention)
+    fwd_tol, grad_tol = (2e-5, 5e-5) if dtype == torch.float32 else (3e-2,
+                                                                     3e-2)
+    before = flash_cuda.BLOCK_FWD_LAUNCHES, flash_cuda.BLOCK_DKV_LAUNCHES
+    for fn in (ring_flash_attention, ring_self_attention,
+               lambda *a, **kw: ulysses_self_attention(*a, kernel="flash",
+                                                       **kw)):
+        got = run(fn)
+        for i, (g, r) in enumerate(zip(got, want)):
+            torch.testing.assert_close(
+                g.float(), r.float(), rtol=fwd_tol if i == 0 else grad_tol,
+                atol=fwd_tol if i == 0 else grad_tol)
+    assert (flash_cuda.BLOCK_FWD_LAUNCHES,
+            flash_cuda.BLOCK_DKV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_sequence_parallel_across_four_cards(cuda_device, tmp_path):
+    """The three entry points over a real 4-rank NCCL group, one card a
+    rank (the ring's batch_isend_irecv hops and Ulysses' all-to-alls
+    between cards), started by tests/_torch_sp_worker.py, against
+    flash_self_attention over the whole sequence on one card: output and
+    gradients of sum(out**2). Needs 4 cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices, one a rank of the NCCL group")
+    from _torch_sp_worker import run_group
+
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import \
+        flash_self_attention
+    shape = (2, 2048, 6, 64)   # T_loc = 512 a rank; H = 6 pads to 8
+    cases = [{"name": f"{kind}_{dtype}_{int(causal)}", "kind": kind,
+              "dtype": dtype, "causal": causal}
+             for kind in ("ring_flash", "ring", "ulysses_flash")
+             for dtype in ("bfloat16", "float32")
+             for causal in (False, True)]
+    rng = np.random.default_rng(10)
+    arrays = {f"{c['name']}/{key}": rng.standard_normal(shape).astype(
+        np.float32) for c in cases for key in "qkv"}
+    got = run_group(4, cases, arrays, str(tmp_path), timeout=600,
+                    device="cuda")
+    for c in cases:
+        dtype = getattr(torch, c["dtype"])
+        xs = [torch.from_numpy(arrays[f"{c['name']}/{key}"]).to(
+            cuda_device, dtype).requires_grad_() for key in "qkv"]
+        out = flash_self_attention(*xs, causal=c["causal"])
+        (out.float() ** 2).sum().backward()
+        want = [out.detach(), *(x.grad for x in xs)]
+        fwd_tol, grad_tol = ((2e-5, 5e-5) if dtype == torch.float32
+                             else (3e-2, 3e-2))
+        for i, (key, w) in enumerate(zip(("out", "dq", "dk", "dv"), want)):
+            tol = fwd_tol if i == 0 else grad_tol
+            torch.testing.assert_close(
+                torch.from_numpy(got[f"{c['name']}/{key}"]),
+                w.float().cpu(), rtol=tol, atol=tol,
+                msg=lambda m: f"{c['name']} {key}: {m}")

@@ -143,3 +143,27 @@ def test_bad_arguments_are_refused(kw, match):
         flash_self_attention(q, q, q, **kw)
     with pytest.raises(ValueError, match="shape"):
         flash_self_attention(q, q, q[:, :4])
+
+
+@pytest.mark.parametrize("causal,causal_skip", [
+    (False, "auto"), (False, "mxu"), (True, "auto"), (True, "mxu"),
+    (True, "dma")])
+def test_causal_skip_values_run_the_same_function(causal, causal_skip):
+    """JAX's `causal_skip` values are taken, and all three run the same
+    kernels (their plain versions here): the same output, bit for bit
+    ("dma" only with causal=True, as in JAX)."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(70, seed=4))
+    want = flash_self_attention(q, k, v, causal=causal)
+    got = flash_self_attention(q, k, v, causal=causal,
+                               causal_skip=causal_skip)
+    assert torch.equal(got, want)
+
+
+def test_causal_skip_is_checked_as_in_jax(interpret):
+    q = torch.zeros(1, 8, 1, 32)
+    for fn, arr in ((flash_self_attention, q),
+                    (jflash.flash_self_attention, jnp.zeros((1, 8, 1, 32)))):
+        with pytest.raises(ValueError, match="not one of"):
+            fn(arr, arr, arr, causal=True, causal_skip="jagged")
+        with pytest.raises(ValueError, match="only applies to causal"):
+            fn(arr, arr, arr, causal_skip="dma")

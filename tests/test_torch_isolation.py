@@ -55,8 +55,10 @@ def test_importing_every_port_module_pulls_in_no_jax():
     assert {f"{PORT}.train.trainer", f"{PORT}.train.step",
             f"{PORT}.data.augment", f"{PORT}.resilience.guard",
             f"{PORT}.utils.meter", f"{PORT}.models.vit",
-            f"{PORT}.ops.flash_attention", f"{PORT}.ops.flash_cuda"} \
-        <= set(mods)
+            f"{PORT}.ops.flash_attention", f"{PORT}.ops.flash_cuda",
+            f"{PORT}.parallel.distributed", f"{PORT}.parallel.collectives",
+            f"{PORT}.parallel.ring_attention", f"{PORT}.parallel.ring_flash",
+            f"{PORT}.parallel.ulysses"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -136,6 +138,17 @@ def test_trainer_and_train_step_refuse_without_cuda(no_cuda):
         build_train_step(lambda step: 0.1, 0.0)
     assert Trainer(get_config("vggf_teacher"), device="cpu").device.type \
         == "cpu"
+
+
+def test_initialize_distributed_refuses_nccl_without_cuda(no_cuda):
+    """A group on the card needs CUDA; without it the call raises before
+    it starts anything. A single process given nothing is a no-op."""
+    from distributed_vgg_f_tpu_torch.parallel.distributed import \
+        initialize_distributed
+    assert initialize_distributed() is False
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_distributed("localhost:1", 2, 0)
+    assert not torch.distributed.is_initialized()
 
 
 def test_explicit_cpu_runs(no_cuda):

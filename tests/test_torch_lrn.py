@@ -109,7 +109,9 @@ def test_kernel_modules_import_without_nvcc():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["0", "['flash_dkv',", "'flash_dq',",
+    assert out.stdout.split() == ["0", "['flash_block_dkv',",
+                                  "'flash_block_dq',", "'flash_block_fwd',",
+                                  "'flash_dkv',", "'flash_dq',",
                                   "'flash_fwd',", "'lrn_bwd',", "'lrn_fwd']"]
 
 
