@@ -8,7 +8,8 @@ and trains on the card.
 Phases, one JSON line each:
   card      name and power limit (nvidia-smi), torch and CUDA versions
   build     nvcc build of every kernel under distributed_vgg_f_tpu_torch/
-            csrc/ for sm_90a, with its seconds
+            csrc/ for sm_90a (each nvcc given 600 s), with its seconds and
+            the script's wall seconds so far
   kernel    the LRN forward kernel against its plain PyTorch version on
             the card, at the served path's shapes (buckets 1 and 32) and
             an odd shape, in bf16 and fp32, with device times of the
@@ -42,10 +43,15 @@ Phases, one JSON line each:
   flash_kernel the flash attention forward, dQ and dK/dV kernels against
             their plain versions on the card, at ViT-S/16's shapes
             (T = 197, 6 heads of 64) at batch 32 and 1024, at a ragged
-            shape with a kv_len mask and at a causal one, in bf16 and
-            fp32, with device times of the kernel, the plain version and
-            the library call (SDPA, its autograd backward for dQ and dK/dV
-            together) at ViT's shapes, and the bytes/operations bound
+            shape with a kv_len mask and at a causal one, at head dims 8,
+            16, 32, 100, 128 and 256 (JAX's (1, 128, 1, 256) causal among
+            them), at B*H = 65600, and (the forward) at T = 1, 63, 64,
+            65, 129, 197 and 2048 with kv_len masks (around the tiles and
+            the K/V ring's stages), in bf16 and fp32, with device times of
+            the kernel, the plain version and the library call (SDPA, its
+            autograd backward for dQ and dK/dV together) at ViT's shapes
+            and at ViT's T with heads of 128 and 256, and the
+            bytes/operations bound
   vit_model full-width ViT-S/16 (flash layout, bf16, seeded init) through
             build_engine on the bucket ladder: 12 forward launches per
             forward, probabilities finite and summing to 1, fp32 and bf16
@@ -73,14 +79,16 @@ Phases, one JSON line each:
             the kernel, the plain version and causal SDPA, and the bound
             over the causal live pairs: the counterpart of the JAX
             package's jagged causal kernels is the kernels' causal loop
-            bound
+            bound; and the stress lengths of flash_kernel, causal
   ring_kernel the three ring block kernels (fold, dQ step, dK/dV step)
             against their plain versions at the offsets the ranks of a
             4-rank ring see at the local shape (4, 2048, 6, 64) — a past
             block, the diagonal, a block wholly in the future (left
             untouched) — and at the ragged local length 197 with a
-            block-local kv_len and a partly masked block, in bf16 and fp32;
-            device times against the bound for a past and a diagonal block
+            block-local kv_len and a partly masked block, at head dims 128
+            and 256 and at B*H = 65600, in bf16 and fp32; device times
+            against the bound for a past and a diagonal block, and for a
+            past block at head dim 128
   ring_flash (a) initialize_distributed on a one-rank NCCL group, then
             ring_flash_attention, ring_self_attention and
             ulysses_self_attention (flash) at (4, 8192, 6, 64) bf16, causal
@@ -96,7 +104,9 @@ Phases, one JSON line each:
             CUDA tensors; (b) is what puts n > 1 offsets through the
             kernels
   isolation no jax, flax or JAX-package module was imported
-then the kernels summary line, the nvidia-smi line, and as the last line
+  wall      the script's wall seconds
+then the kernels summary line (each flash row with the head dims its
+kernel was checked at), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failed check raises and the script
 exits non-zero without the last line; without a CUDA device it exits 2
 before doing anything.
@@ -294,10 +304,11 @@ def _trace_breakdown(prof, count, top):
                               if "lrn_fwd" in k) / count,
             "lrn_bwd_us": sum(v for k, v in by_name.items()
                               if "lrn_bwd" in k) / count,
-            # the port's (anonymous namespace)::flash_fwd_kernel (fp32) and
-            # flash_fwd_mma_kernel (bf16), not PyTorch's own flash kernels
+            # the port's (anonymous namespace)::flash_fwd_kernel (fp32),
+            # flash_fwd_wgmma_kernel (bf16) and flash_{dq,dkv}(_mma)_kernel,
+            # not PyTorch's own flash kernels
             "flash_us": {n: sum(v for k, v in by_name.items() if re.search(
-                                rf"namespace\)::{n}(_mma)?_kernel", k))
+                                rf"namespace\)::{n}(_mma|_wgmma)?_kernel", k))
                          / count
                          for n in ("flash_fwd", "flash_dq", "flash_dkv")},
             "top_us": [[k[:80], v / count] for k, v in ranked]}
@@ -936,15 +947,78 @@ def _flash_phase(phase, cases, peaks, seed):
     return records
 
 
+#: head dims the flash kernels are checked at beyond ViT's 64: the padded
+#: widths, a head dim that runs padded (8, as the JAX ring tests use) and
+#: one whose rows a tensor map cannot read in place (100: the bf16
+#: forward's wrapper copies it)
+_HEAD_DIMS = (8, 16, 32, 100, 128, 256)
+#: sequence lengths around the 64- and 128-row tiles and the K/V ring's
+#: two stages, each with a kv_len mask: (T, kv_len)
+_RING_STRESS = ((1, 1), (63, 50), (64, 64), (65, 33), (129, 100),
+                (197, 180), (2048, 1500))
+
+
+def _ring_stress(phase, causal, seed):
+    """The forward kernel, whose K/V ring and tiles the lengths of
+    _RING_STRESS stress, against its plain version at (2, T, 3, 64) in
+    bf16 and fp32 (a stage-count or phase-parity fault shows as a wrong
+    row or a trap). The forward alone: at T = 1 the exact dQ and dK are
+    zero (one key: dS = p (dO.v - dO.o) with o = v), so both sides of
+    their check would be rounding noise. Returns the records."""
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import \
+        attention_fwd
+    from distributed_vgg_f_tpu_torch.ops.flash_cuda import flash_fwd_cuda
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    records = []
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        for t, kv_len in _RING_STRESS:
+            shape = (2, t, 3, _VIT_D)
+            q, k, v = torch.randn(shape[0], t, 3, *shape[2:], generator=gen,
+                                  device="cuda").to(dtype).unbind(2)
+            kw = {"causal": causal, "kv_len": kv_len}
+            got = flash_fwd_cuda(q, k, v, **kw)
+            want = attention_fwd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = rel = 0.0
+            for i, (g, w) in enumerate(zip(got, want)):
+                g, w = g.float(), w.float()
+                e, scale = float((g - w).abs().max()), float(w.abs().max())
+                bound = (1e-5 if i == 1 else tol) * scale  # lse: fp32
+                check(bool(torch.isfinite(g).all()) and e <= bound,
+                      f"flash_fwd off its plain version by {e} at ring "
+                      f"stress T = {t} causal={causal} {dtype} (allowed "
+                      f"{bound})")
+                err, rel = max(err, e), max(rel, e / scale)
+            rec = {"name": "flash_fwd", "site": f"ring_stress_{t}",
+                   "shape": list(shape),
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "causal": causal, "kv_len": kv_len, "tol_of_max": tol,
+                   "max_abs_err": err, "max_rel_err": rel}
+            records.append(rec)
+            emit(phase, **rec)
+    return records
+
+
 def phase_flash_kernel(peaks):
     """Flash forward, dQ and dK/dV kernels vs their plain versions on the
-    card at ViT-S/16's shapes, a ragged and a causal one; returns the
-    records."""
+    card at ViT-S/16's shapes, a ragged and a causal one, at head dims 8
+    to 256 (JAX's test_wide_head_dim shape (1, 128, 1, 256) causal among
+    them), at B*H = 65600 (above the 65535 of a grid's y axis), and at the
+    ring stress lengths (the forward); returns the records."""
     return _flash_phase("flash_kernel", [
         ("vit_train", (1024, _VIT_T, _VIT_H, _VIT_D), False, None, 3),
         ("vit_serve", (32, _VIT_T, _VIT_H, _VIT_D), False, None, 40),
         ("ragged", (3, 77, 2, 32), False, 50, 0),
-        ("causal", (2, 300, 3, 64), True, 250, 0)], peaks, seed=3)
+        ("causal", (2, 300, 3, 64), True, 250, 0),
+        *((f"head_dim_{d}", (2, _VIT_T, 3, d), i % 2 == 1, 150, 0)
+          for i, d in enumerate(_HEAD_DIMS)),
+        ("wide_head", (1, 128, 1, 256), True, None, 0),
+        # timed at the wide head dims, where the bf16 backward kernels
+        # (mma.sync) spill registers: ViT's T with heads of 128 and 256
+        ("wide_128", (256, _VIT_T, _VIT_H, 128), False, None, 2),
+        ("wide_256", (128, _VIT_T, _VIT_H, 256), False, None, 2),
+        ("bh_65600", (65600, 8, 1, 64), False, None, 0)], peaks,
+        seed=3) + _ring_stress("flash_kernel", False, seed=4)
 
 
 def _tree_size(tree):
@@ -1279,7 +1353,8 @@ def phase_flash_causal(peaks):
     PERF.md's kernel table)."""
     return _flash_phase("flash_causal", [
         (f"causal_{t}", (_LONG_B, t, _VIT_H, _VIT_D), True, None, 2)
-        for t in _LONG_TS], peaks, seed=11)
+        for t in _LONG_TS], peaks, seed=11) + _ring_stress(
+            "flash_causal", True, seed=12)
 
 
 # ------------------------------------------------------ ring block kernels
@@ -1333,8 +1408,9 @@ def phase_ring_kernel(peaks):
     """The three ring block kernels against their plain versions at the
     offsets the ranks of a 4-rank ring see (a past block, the diagonal, a
     block wholly in the future) at the local shape (4, 2048, 6, 64) of
-    (4, 8192, 6, 64), and at the ragged local length 197 with a
-    block-local kv_len and a partly masked block; returns the records."""
+    (4, 8192, 6, 64), at the ragged local length 197 with a block-local
+    kv_len and a partly masked block, at head dims 128 and 256, and at
+    B*H = 65600; returns the records."""
     from distributed_vgg_f_tpu_torch.ops.flash_attention import (
         block_grads_plain, block_update_plain)
     from distributed_vgg_f_tpu_torch.ops.flash_cuda import (
@@ -1355,7 +1431,15 @@ def phase_ring_kernel(peaks):
              ("ragged_partial", (2, 197, _VIT_H, _VIT_D), 197, 147, True,
               180, False),
              ("ragged_past", (2, 197, _VIT_H, _VIT_D), 394, 0, False, 180,
-              False)]
+              False),
+             # head dims past the 64 of ViT, and B*H = 65600
+             ("wide_head_diagonal", (2, 197, 2, 128), 197, 197, True, 150,
+              False),
+             ("wide_head_past", (_LONG_B, t_loc, _VIT_H, 128), 2 * t_loc, 0,
+              False, None, True),
+             ("widest_head_past", (1, 130, 2, 256), 130, 0, False, None,
+              False),
+             ("bh_65600", (16400, 16, 4, _VIT_D), 8, 0, True, 12, False)]
 
     def inputs(bh, t, d, dtype, kv_len):
         f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
@@ -1693,6 +1777,7 @@ def phase_isolation():
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script measures "
               "the port on an NVIDIA GPU", file=sys.stderr)
@@ -1722,7 +1807,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
-         kernels=sorted(libs), flags=build.NVCC_FLAGS)
+         wall_s=time.perf_counter() - t_script, kernels=sorted(libs),
+         flags=build.NVCC_FLAGS, nvcc_timeout_s=build.NVCC_TIMEOUT_S)
 
     records = phase_kernel(peaks)
     bwd_records = phase_kernel_bwd(peaks)
@@ -1771,8 +1857,13 @@ def main() -> int:
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
                                         for r in main) else "operations"),
             "library_ms": sum(r["library_ms"] for r in main),
+            "head_dims": None,
             "work": work + ": " + ", ".join(str(tuple(r["shape"]))
                                            for r in main)}
+
+    def head_dims(recs, name):
+        # the head dims a kernel was held against its plain version at
+        return sorted({r["shape"][3] for r in recs if r["name"] == name})
 
     def flash_summary(name, line, by_path):
         # one layer's launch in bf16 at the training batch
@@ -1790,6 +1881,7 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
+            "head_dims": head_dims(flash_records + causal_records, name),
             "work": "one attention layer of ViT-S/16 in bf16 at batch 1024: "
                     f"(B, T, H, D) = {tuple(rec['shape'])}"}
 
@@ -1814,6 +1906,7 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
+            "head_dims": head_dims(flash_records + causal_records, kernel),
             "work": "causal attention over ViT-S/16's heads in bf16 at "
                     f"(B, T, H, D) = {tuple(rec['shape'])}: the causal loop "
                     "bound of the rectangular kernel"}
@@ -1840,10 +1933,12 @@ def main() -> int:
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None,
+            "head_dims": head_dims(ring_records, name),
             "work": "one ring step over a fully live block in bf16 at the "
                     "4-rank ring's local (B, T_loc, H, D) = "
                     f"{tuple(rec['shape'])}"}
 
+    emit("wall", seconds=time.perf_counter() - t_script)
     print(json.dumps({"kernels": [
         summary("lrn_fwd", "distributed_vgg_f_tpu_torch/csrc/lrn_fwd.cu",
                 "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records,

@@ -22,7 +22,8 @@
 // and delta read once and dk, dv (fp32) read and written once — operations
 // set the least time (~52 us in bf16 for a fully live block). bf16 runs
 // its products on the tensor cores (block_dkv_mma_kernel), fp32 on the
-// CUDA cores (block_dkv_kernel), as flash_dkv.cu does.
+// CUDA cores (block_dkv_kernel), as flash_dkv.cu does, at any head dim
+// from 1 to 256 (padded as flash_common.cuh says).
 //
 // Design: flash_dkv.cu's transposed loop with the offsets and kv_len as
 // arguments: a block owns kTile keys of the visiting block for one bh,
@@ -43,92 +44,94 @@ namespace {
 using flash::kThreads;
 using flash::kTile;
 
-template <int D>
+template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
     block_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* dk_io,
-                     float* dv_io, int Tq, int Tk, int q_off, int k_off,
-                     int causal, int kv_len, float scale) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                   // kTile x (D+1)
-  float* Vs = Ks + kTile * (D + 1);   // kTile x (D+1)
-  float* Qs = Vs + kTile * (D + 1);   // kTile x (D+1)
-  float* dOs = Qs + kTile * (D + 1);  // kTile x (D+1)
-  float* Ts = dOs + kTile * (D + 1);  // kTile x (kTile+1): P^T, then dS^T
-  float* lse_s = Ts + kTile * (kTile + 1);  // kTile
-  float* delta_s = lse_s + kTile;           // kTile
+                     float* dv_io, int Tq, int Tk, int d, int q_off,
+                     int k_off, int causal, int kv_len, float scale) {
+  constexpr int kR = R / 16;
+  float* Ks = flash::dyn_smem<float>();  // R x (D+1)
+  float* Vs = Ks + R * (D + 1);           // R x (D+1)
+  float* Qs = Vs + R * (D + 1);           // R x (D+1)
+  float* dOs = Qs + R * (D + 1);          // R x (D+1)
+  float* Ts = dOs + R * (D + 1);          // R x (R+1): P^T, then dS^T
+  float* lse_s = Ts + R * (R + 1);        // R
+  float* delta_s = lse_s + R;             // R
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const int k0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
-  const int q_start = flash::block_query_start(k0, q_off, k_off, causal);
+  const flash::Tile tile = flash::tile_of(R, Tk);
+  const int k0 = tile.r0;
+  const int bh = tile.bh;
+  const int q_start = flash::block_query_start(k0, R, q_off, k_off, causal);
   if (k0 >= kv_len || q_start >= Tq) return;  // no live pair: untouched
-  const flash::Strides qs = flash::rows_strides(Tq, D);
-  const flash::Strides ks = flash::rows_strides(Tk, D);
+  const flash::Strides qs = flash::rows_strides(Tq, d);
+  const flash::Strides ks = flash::rows_strides(Tk, d);
   const long long qbase = bh * qs.b;
   const long long kbase = bh * ks.b;
 
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
+  float dk_acc[kR][D / 16], dv_acc[kR][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kR; ++i) {
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
   }
-  flash::load_tile<D>(Ks, k, kbase, ks, k0, Tk);
-  flash::load_tile<D>(Vs, v, kbase, ks, k0, Tk);
-  for (int q0 = q_start; q0 < Tq; q0 += kTile) {
+  flash::load_tile<D, R>(Ks, k, kbase, ks, k0, Tk, d);
+  flash::load_tile<D, R>(Vs, v, kbase, ks, k0, Tk, d);
+  for (int q0 = q_start; q0 < Tq; q0 += R) {
     __syncthreads();  // the last tile's readers of Qs, dOs and Ts are done
-    flash::load_tile<D>(Qs, q, qbase, qs, q0, Tq);
-    flash::load_tile<D>(dOs, dout, qbase, qs, q0, Tq);
-    if (threadIdx.x < kTile) {
+    flash::load_tile<D, R>(Qs, q, qbase, qs, q0, Tq, d);
+    flash::load_tile<D, R>(dOs, dout, qbase, qs, q0, Tq, d);
+    if (threadIdx.x < R) {
       const int row = q0 + threadIdx.x;
       const long long at = static_cast<long long>(bh) * Tq + row;
       lse_s[threadIdx.x] = row < Tq ? lse[at] : 0.0f;
       delta_s[threadIdx.x] = row < Tq ? delta[at] : 0.0f;
     }
     __syncthreads();
-    // rows of these tiles are keys (ty*4+i), columns queries (tx+16j)
-    float st[4][4], ds[4][4];
-    flash::dot_tile<D>(st, Ks, Qs, ty, tx);
-    flash::dot_tile<D>(ds, Vs, dOs, ty, tx);  // dP^T, then dS^T in place
+    // rows of these tiles are keys (ty*kR+i), columns queries (tx+16j)
+    float st[kR][kR], ds[kR][kR];
+    flash::dot_tile<D, R>(st, Ks, Qs, ty, tx);
+    flash::dot_tile<D, R>(ds, Vs, dOs, ty, tx);  // dP^T, then dS^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kj = k0 + ty * 4 + i;
+    for (int i = 0; i < kR; ++i) {
+      const int kj = k0 + ty * kR + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kR; ++j) {
         const int c = tx + 16 * j;
         const int qi = q0 + c;
         const bool live = qi < Tq && flash::block_live(qi, kj, q_off, k_off,
                                                        causal, kv_len);
         const float p = live ? expf(st[i][j] * scale - lse_s[c]) : 0.0f;
         ds[i][j] = p * (ds[i][j] - delta_s[c]);
-        Ts[(ty * 4 + i) * (kTile + 1) + c] = p;
+        Ts[(ty * kR + i) * (R + 1) + c] = p;
       }
     }
     __syncthreads();
-    flash::accumulate_rows<D>(dv_acc, Ts, dOs, ty, tx);
+    flash::accumulate_rows<D, R>(dv_acc, Ts, dOs, ty, tx);
     __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kR; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ts[(ty * 4 + i) * (kTile + 1) + tx + 16 * j] = ds[i][j];
+      for (int j = 0; j < kR; ++j) {
+        Ts[(ty * kR + i) * (R + 1) + tx + 16 * j] = ds[i][j];
       }
     }
     __syncthreads();
-    flash::accumulate_rows<D>(dk_acc, Ts, Qs, ty, tx);
+    flash::accumulate_rows<D, R>(dk_acc, Ts, Qs, ty, tx);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int row = k0 + ty * kR + i;
     if (row >= Tk) continue;
-    const long long at = kbase + static_cast<long long>(row) * D;
+    const long long at = kbase + static_cast<long long>(row) * d;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
+      if (tx + 16 * j >= d) continue;
       dk_io[at + tx + 16 * j] += scale * dk_acc[i][j];
       dv_io[at + tx + 16 * j] += dv_acc[i][j];
     }
@@ -150,23 +153,27 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
                          const __nv_bfloat16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, float* dk_io,
-                         float* dv_io, int Tq, int Tk, int q_off, int k_off,
-                         int causal, int kv_len, float scale, bool vec) {
-  __shared__ __align__(16) uint16_t Qs[kTile * (D + 8)];   // K first
-  __shared__ __align__(16) uint16_t dOs[kTile * (D + 8)];  // V first
-  __shared__ __align__(16) uint16_t Qt[D * (kTile + 8)];
-  __shared__ __align__(16) uint16_t dOt[D * (kTile + 8)];
-  __shared__ float lse_s[kTile], delta_s[kTile];
+                         float* dv_io, int Tq, int Tk, int d, int q_off,
+                         int k_off, int causal, int kv_len, float scale,
+                         bool vec) {
+  uint16_t* Qs = flash::dyn_smem<uint16_t>();  // kTile x (D+8), K first
+  uint16_t* dOs = Qs + kTile * (D + 8);         // kTile x (D+8), V first
+  uint16_t* Qt = dOs + kTile * (D + 8);         // D x (kTile+8)
+  uint16_t* dOt = Qt + D * (kTile + 8);         // D x (kTile+8)
+  float* lse_s = reinterpret_cast<float*>(dOt + D * (kTile + 8));  // kTile
+  float* delta_s = lse_s + kTile;                                  // kTile
   const int lane = threadIdx.x % 32;
   const int r0 = (threadIdx.x / 32) * 16;
   const int g = lane / 4;
   const int tq = lane % 4;
-  const int k0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
-  const int q_start = flash::block_query_start(k0, q_off, k_off, causal);
+  const flash::Tile tile = flash::tile_of(kTile, Tk);
+  const int k0 = tile.r0;
+  const int bh = tile.bh;
+  const int q_start =
+      flash::block_query_start(k0, kTile, q_off, k_off, causal);
   if (k0 >= kv_len || q_start >= Tq) return;  // no live pair: untouched
-  const flash::Strides qs = flash::rows_strides(Tq, D);
-  const flash::Strides ks = flash::rows_strides(Tk, D);
+  const flash::Strides qs = flash::rows_strides(Tq, d);
+  const flash::Strides ks = flash::rows_strides(Tk, d);
   const long long qbase = bh * qs.b;
   const long long kbase = bh * ks.b;
 
@@ -176,8 +183,8 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
   }
-  flash::load_tile_bf16<D, false>(Qs, k, kbase, ks, k0, Tk, vec);
-  flash::load_tile_bf16<D, false>(dOs, v, kbase, ks, k0, Tk, vec);
+  flash::load_tile_bf16<D, false>(Qs, k, kbase, ks, k0, Tk, d, vec);
+  flash::load_tile_bf16<D, false>(dOs, v, kbase, ks, k0, Tk, d, vec);
   __syncthreads();
   uint32_t ka[D / 16][4], va[D / 16][4];
 #pragma unroll
@@ -187,10 +194,10 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
   }
   for (int q0 = q_start; q0 < Tq; q0 += kTile) {
     __syncthreads();  // fragments loaded; the last tile's readers are done
-    flash::load_tile_bf16<D, false>(Qs, q, qbase, qs, q0, Tq, vec);
-    flash::load_tile_bf16<D, true>(Qt, q, qbase, qs, q0, Tq, vec);
-    flash::load_tile_bf16<D, false>(dOs, dout, qbase, qs, q0, Tq, vec);
-    flash::load_tile_bf16<D, true>(dOt, dout, qbase, qs, q0, Tq, vec);
+    flash::load_tile_bf16<D, false>(Qs, q, qbase, qs, q0, Tq, d, vec);
+    flash::load_tile_bf16<D, true>(Qt, q, qbase, qs, q0, Tq, d, vec);
+    flash::load_tile_bf16<D, false>(dOs, dout, qbase, qs, q0, Tq, d, vec);
+    flash::load_tile_bf16<D, true>(dOt, dout, qbase, qs, q0, Tq, d, vec);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
       const long long at = static_cast<long long>(bh) * Tq + row;
@@ -248,13 +255,15 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
   for (int i = 0; i < 2; ++i) {
     const int row = k0 + r0 + g + 8 * i;
     if (row >= Tk) continue;
-    const long long at = kbase + static_cast<long long>(row) * D;
+    const long long at = kbase + static_cast<long long>(row) * d;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        dk_io[at + 8 * n + 2 * tq + j] += scale * dk_acc[n][2 * i + j];
-        dv_io[at + 8 * n + 2 * tq + j] += dv_acc[n][2 * i + j];
+        const int c = 8 * n + 2 * tq + j;
+        if (c >= d) continue;
+        dk_io[at + c] += scale * dk_acc[n][2 * i + j];
+        dv_io[at + c] += dv_acc[n][2 * i + j];
       }
     }
   }
@@ -269,47 +278,54 @@ struct Args {
   const float* delta;
   float* dk;
   float* dv;
-  int BH, Tq, Tk, q_off, k_off, causal, kv_len;
+  int BH, Tq, Tk, d, q_off, k_off, causal, kv_len;
   float scale;
 };
 
 template <int D>
 cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.Tk + kTile - 1) / kTile, a.BH);
-  block_dkv_mma_kernel<D><<<grid, flash::kMmaThreads, 0, stream>>>(
+  constexpr size_t smem =
+      flash::smem_bytes_bf16<D>(2, 2) + 2 * kTile * sizeof(float);
+  static const cudaError_t opt_in =
+      flash::allow_smem(block_dkv_mma_kernel<D>, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  dim3 grid;
+  const cudaError_t err = flash::grid_of(a.Tk, kTile, a.BH, &grid);
+  if (err != cudaSuccess) return err;
+  block_dkv_mma_kernel<D><<<grid, flash::kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
       static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta, a.dk, a.dv,
-      a.Tq, a.Tk, a.q_off, a.k_off, a.causal, a.kv_len, a.scale,
-      // every row stride (T*D) is a multiple of 8 values at D = 32 or 64
-      flash::rows_aligned16(flash::rows_strides(a.Tq, D), a.q, a.k, a.v,
-                            a.dout));
+      a.Tq, a.Tk, a.d, a.q_off, a.k_off, a.causal, a.kv_len, a.scale,
+      // row strides Tq*d and Tk*d are multiples of 8 values when d is
+      flash::rows_aligned16(a.d, flash::rows_strides(a.Tq, a.d), a.q, a.k,
+                            a.v, a.dout));
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = flash::smem_bytes<D>(4, 1, 2);
+  constexpr int R = flash::rows_fp32<D>();
+  constexpr size_t smem = flash::smem_bytes<D, R>(4, 1, 2);
   static const cudaError_t opt_in =
-      flash::allow_smem(block_dkv_kernel<D>, smem);
+      flash::allow_smem(block_dkv_kernel<D, R>, smem);
   if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid((a.Tk + kTile - 1) / kTile, a.BH);
-  block_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid;
+  const cudaError_t err = flash::grid_of(a.Tk, R, a.BH, &grid);
+  if (err != cudaSuccess) return err;
+  block_dkv_kernel<D, R><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, a.dk, a.dv, a.Tq, a.Tk, a.q_off, a.k_off, a.causal,
-      a.kv_len, a.scale);
+      a.lse, a.delta, a.dk, a.dv, a.Tq, a.Tk, a.d, a.q_off, a.k_off,
+      a.causal, a.kv_len, a.scale);
   return cudaGetLastError();
 }
 
-// fp32 on the CUDA cores, bf16 on the tensor cores; D = 32 or 64.
-cudaError_t dispatch(int dtype, int D, const Args& a, cudaStream_t stream) {
-  if (dtype == 0 && D == 32) return launch<32>(a, stream);
-  if (dtype == 0 && D == 64) return launch<64>(a, stream);
-  if (dtype == 1 && D == 32) return launch_mma<32>(a, stream);
-  if (dtype == 1 && D == 64) return launch_mma<64>(a, stream);
-  return cudaErrorInvalidValue;
+// fp32 on the CUDA cores, bf16 on the tensor cores, at d's padded width.
+cudaError_t dispatch(int dtype, const Args& a, cudaStream_t stream) {
+  FLASH_PADDED_DIMS(a.d, return dtype == 0 ? launch<DP>(a, stream)
+                                           : launch_mma<DP>(a, stream))
 }
 
 }  // namespace
@@ -326,8 +342,8 @@ extern "C" int dvggf_flash_block_dkv(const void* q, const void* k,
   if (BH < 1 || Tq < 1 || Tk < 1 || kv_len < 1 || kv_len > Tk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, dout, lse, delta, dk, dv, BH, Tq, Tk, q_off, k_off,
-               causal, kv_len, scale};
+  const Args a{q,  k,  v,  dout,  lse,   delta,  dk,     dv,   BH,
+               Tq, Tk, D,  q_off, k_off, causal, kv_len, scale};
   return static_cast<int>(
-      dispatch(dtype, D, a, static_cast<cudaStream_t>(stream)));
+      dispatch(dtype, a, static_cast<cudaStream_t>(stream)));
 }

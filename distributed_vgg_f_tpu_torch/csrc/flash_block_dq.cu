@@ -19,7 +19,8 @@
 // and delta read once and dq (fp32) read and written once — operations,
 // not bytes, set the least time (~39 us in bf16 for a fully live block).
 // bf16 runs its products on the tensor cores (block_dq_mma_kernel), fp32
-// on the CUDA cores (block_dq_kernel), as flash_dq.cu does.
+// on the CUDA cores (block_dq_kernel), as flash_dq.cu does, at any head
+// dim from 1 to 256 (padded as flash_common.cuh says).
 //
 // Design: flash_dq.cu's loop with the offsets and kv_len as arguments: a
 // block owns kTile query rows of one bh, keeps q, dO, lse and delta in
@@ -39,78 +40,79 @@ namespace {
 using flash::kThreads;
 using flash::kTile;
 
-template <int D>
+template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
     block_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* dq_io, int Tq,
-                    int Tk, int q_off, int k_off, int causal, int kv_len,
-                    float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                   // kTile x (D+1)
-  float* dOs = Qs + kTile * (D + 1);  // kTile x (D+1)
-  float* Ks = dOs + kTile * (D + 1);  // kTile x (D+1)
-  float* Vs = Ks + kTile * (D + 1);   // kTile x (D+1)
-  float* dSs = Vs + kTile * (D + 1);  // kTile x (kTile+1)
+                    int Tk, int d, int q_off, int k_off, int causal,
+                    int kv_len, float scale) {
+  constexpr int kR = R / 16;
+  float* Qs = flash::dyn_smem<float>();  // R x (D+1)
+  float* dOs = Qs + R * (D + 1);          // R x (D+1)
+  float* Ks = dOs + R * (D + 1);          // R x (D+1)
+  float* Vs = Ks + R * (D + 1);           // R x (D+1)
+  float* dSs = Vs + R * (D + 1);          // R x (R+1)
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
+  const flash::Tile tile = flash::tile_of(R, Tq);
+  const int q0 = tile.r0;
+  const int bh = tile.bh;
   const int k_end =
-      flash::block_key_end(q0, Tq, q_off, k_off, causal, kv_len);
+      flash::block_key_end(q0, R, Tq, q_off, k_off, causal, kv_len);
   if (k_end <= 0) return;  // every key lies in these rows' future
-  const flash::Strides qs = flash::rows_strides(Tq, D);
-  const flash::Strides ks = flash::rows_strides(Tk, D);
+  const flash::Strides qs = flash::rows_strides(Tq, d);
+  const flash::Strides ks = flash::rows_strides(Tk, d);
   const long long qbase = bh * qs.b;
   const long long kbase = bh * ks.b;
-  flash::load_tile<D>(Qs, q, qbase, qs, q0, Tq);
-  flash::load_tile<D>(dOs, dout, qbase, qs, q0, Tq);
+  flash::load_tile<D, R>(Qs, q, qbase, qs, q0, Tq, d);
+  flash::load_tile<D, R>(dOs, dout, qbase, qs, q0, Tq, d);
 
-  float row_lse[4], row_delta[4], acc[4][D / 16];
+  float row_lse[kR], row_delta[kR], acc[kR][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int row = q0 + ty * kR + i;
     const long long at = static_cast<long long>(bh) * Tq + row;
     row_lse[i] = row < Tq ? lse[at] : 0.0f;
     row_delta[i] = row < Tq ? delta[at] : 0.0f;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.0f;
   }
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+  for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();  // the last tile's readers of Ks, Vs and dSs are done
-    flash::load_tile<D>(Ks, k, kbase, ks, k0, Tk);
-    flash::load_tile<D>(Vs, v, kbase, ks, k0, Tk);
+    flash::load_tile<D, R>(Ks, k, kbase, ks, k0, Tk, d);
+    flash::load_tile<D, R>(Vs, v, kbase, ks, k0, Tk, d);
     __syncthreads();
-    float sc[4][4], dp[4][4];
-    flash::dot_tile<D>(sc, Qs, Ks, ty, tx);
-    flash::dot_tile<D>(dp, dOs, Vs, ty, tx);
+    float sc[kR][kR], dp[kR][kR];
+    flash::dot_tile<D, R>(sc, Qs, Ks, ty, tx);
+    flash::dot_tile<D, R>(dp, dOs, Vs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
+    for (int i = 0; i < kR; ++i) {
+      const int qi = q0 + ty * kR + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kR; ++j) {
         const int kj = k0 + tx + 16 * j;
         const bool live = qi < Tq && flash::block_live(qi, kj, q_off, k_off,
                                                        causal, kv_len);
         const float p = live ? expf(sc[i][j] * scale - row_lse[i]) : 0.0f;
-        dSs[(ty * 4 + i) * (kTile + 1) + tx + 16 * j] =
+        dSs[(ty * kR + i) * (R + 1) + tx + 16 * j] =
             p * (dp[i][j] - row_delta[i]);
       }
     }
     __syncthreads();
-    flash::accumulate_rows<D>(acc, dSs, Ks, ty, tx);
+    flash::accumulate_rows<D, R>(acc, dSs, Ks, ty, tx);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int row = q0 + ty * kR + i;
     if (row >= Tq) continue;
-    const long long at = qbase + static_cast<long long>(row) * D;
+    const long long at = qbase + static_cast<long long>(row) * d;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
-      dq_io[at + tx + 16 * j] += scale * acc[i][j];
+      if (tx + 16 * j < d) dq_io[at + tx + 16 * j] += scale * acc[i][j];
     }
   }
 }
@@ -130,26 +132,27 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
                         const __nv_bfloat16* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, float* dq_io,
-                        int Tq, int Tk, int q_off, int k_off, int causal,
-                        int kv_len, float scale, bool vec) {
-  __shared__ __align__(16) uint16_t Qs[kTile * (D + 8)];   // then K
-  __shared__ __align__(16) uint16_t dOs[kTile * (D + 8)];  // then V
-  __shared__ __align__(16) uint16_t Kt[D * (kTile + 8)];
+                        int Tq, int Tk, int d, int q_off, int k_off,
+                        int causal, int kv_len, float scale, bool vec) {
+  uint16_t* Qs = flash::dyn_smem<uint16_t>();  // kTile x (D+8), then K
+  uint16_t* dOs = Qs + kTile * (D + 8);         // kTile x (D+8), then V
+  uint16_t* Kt = dOs + kTile * (D + 8);         // D x (kTile+8)
   const int lane = threadIdx.x % 32;
   const int r0 = (threadIdx.x / 32) * 16;
   const int g = lane / 4;
   const int tq = lane % 4;
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
+  const flash::Tile tile = flash::tile_of(kTile, Tq);
+  const int q0 = tile.r0;
+  const int bh = tile.bh;
   const int k_end =
-      flash::block_key_end(q0, Tq, q_off, k_off, causal, kv_len);
+      flash::block_key_end(q0, kTile, Tq, q_off, k_off, causal, kv_len);
   if (k_end <= 0) return;  // every key lies in these rows' future
-  const flash::Strides qs = flash::rows_strides(Tq, D);
-  const flash::Strides ks = flash::rows_strides(Tk, D);
+  const flash::Strides qs = flash::rows_strides(Tq, d);
+  const flash::Strides ks = flash::rows_strides(Tk, d);
   const long long qbase = bh * qs.b;
   const long long kbase = bh * ks.b;
-  flash::load_tile_bf16<D, false>(Qs, q, qbase, qs, q0, Tq, vec);
-  flash::load_tile_bf16<D, false>(dOs, dout, qbase, qs, q0, Tq, vec);
+  flash::load_tile_bf16<D, false>(Qs, q, qbase, qs, q0, Tq, d, vec);
+  flash::load_tile_bf16<D, false>(dOs, dout, qbase, qs, q0, Tq, d, vec);
   __syncthreads();
   uint32_t qa[D / 16][4], da[D / 16][4];
 #pragma unroll
@@ -174,9 +177,9 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
   uint16_t* Vs = dOs;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // fragments loaded; the last tile's readers are done
-    flash::load_tile_bf16<D, false>(Ks, k, kbase, ks, k0, Tk, vec);
-    flash::load_tile_bf16<D, true>(Kt, k, kbase, ks, k0, Tk, vec);
-    flash::load_tile_bf16<D, false>(Vs, v, kbase, ks, k0, Tk, vec);
+    flash::load_tile_bf16<D, false>(Ks, k, kbase, ks, k0, Tk, d, vec);
+    flash::load_tile_bf16<D, true>(Kt, k, kbase, ks, k0, Tk, d, vec);
+    flash::load_tile_bf16<D, false>(Vs, v, kbase, ks, k0, Tk, d, vec);
     __syncthreads();
     // no mask when every key is live for every row and no row is past Tq
     const bool mask = k0 + kTile > kv_len || q0 + kTile > Tq ||
@@ -224,12 +227,13 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + r0 + g + 8 * i;
     if (row >= Tq) continue;
-    const long long at = qbase + static_cast<long long>(row) * D;
+    const long long at = qbase + static_cast<long long>(row) * d;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        dq_io[at + 8 * n + 2 * tq + j] += scale * acc[n][2 * i + j];
+        const int c = 8 * n + 2 * tq + j;
+        if (c < d) dq_io[at + c] += scale * acc[n][2 * i + j];
       }
     }
   }
@@ -243,47 +247,53 @@ struct Args {
   const float* lse;
   const float* delta;
   float* dq;
-  int BH, Tq, Tk, q_off, k_off, causal, kv_len;
+  int BH, Tq, Tk, d, q_off, k_off, causal, kv_len;
   float scale;
 };
 
 template <int D>
 cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.Tq + kTile - 1) / kTile, a.BH);
-  block_dq_mma_kernel<D><<<grid, flash::kMmaThreads, 0, stream>>>(
+  constexpr size_t smem = flash::smem_bytes_bf16<D>(2, 1);
+  static const cudaError_t opt_in =
+      flash::allow_smem(block_dq_mma_kernel<D>, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  dim3 grid;
+  const cudaError_t err = flash::grid_of(a.Tq, kTile, a.BH, &grid);
+  if (err != cudaSuccess) return err;
+  block_dq_mma_kernel<D><<<grid, flash::kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
       static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta, a.dq, a.Tq,
-      a.Tk, a.q_off, a.k_off, a.causal, a.kv_len, a.scale,
-      // every row stride (T*D) is a multiple of 8 values at D = 32 or 64
-      flash::rows_aligned16(flash::rows_strides(a.Tq, D), a.q, a.k, a.v,
-                            a.dout));
+      a.Tk, a.d, a.q_off, a.k_off, a.causal, a.kv_len, a.scale,
+      // row strides Tq*d and Tk*d are multiples of 8 values when d is
+      flash::rows_aligned16(a.d, flash::rows_strides(a.Tq, a.d), a.q, a.k,
+                            a.v, a.dout));
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = flash::smem_bytes<D>(4, 1, 0);
+  constexpr int R = flash::rows_fp32<D>();
+  constexpr size_t smem = flash::smem_bytes<D, R>(4, 1, 0);
   static const cudaError_t opt_in =
-      flash::allow_smem(block_dq_kernel<D>, smem);
+      flash::allow_smem(block_dq_kernel<D, R>, smem);
   if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid((a.Tq + kTile - 1) / kTile, a.BH);
-  block_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid;
+  const cudaError_t err = flash::grid_of(a.Tq, R, a.BH, &grid);
+  if (err != cudaSuccess) return err;
+  block_dq_kernel<D, R><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, a.dq, a.Tq, a.Tk, a.q_off, a.k_off, a.causal,
+      a.lse, a.delta, a.dq, a.Tq, a.Tk, a.d, a.q_off, a.k_off, a.causal,
       a.kv_len, a.scale);
   return cudaGetLastError();
 }
 
-// fp32 on the CUDA cores, bf16 on the tensor cores; D = 32 or 64.
-cudaError_t dispatch(int dtype, int D, const Args& a, cudaStream_t stream) {
-  if (dtype == 0 && D == 32) return launch<32>(a, stream);
-  if (dtype == 0 && D == 64) return launch<64>(a, stream);
-  if (dtype == 1 && D == 32) return launch_mma<32>(a, stream);
-  if (dtype == 1 && D == 64) return launch_mma<64>(a, stream);
-  return cudaErrorInvalidValue;
+// fp32 on the CUDA cores, bf16 on the tensor cores, at d's padded width.
+cudaError_t dispatch(int dtype, const Args& a, cudaStream_t stream) {
+  FLASH_PADDED_DIMS(a.d, return dtype == 0 ? launch<DP>(a, stream)
+                                           : launch_mma<DP>(a, stream))
 }
 
 }  // namespace
@@ -300,8 +310,8 @@ extern "C" int dvggf_flash_block_dq(const void* q, const void* k,
   if (BH < 1 || Tq < 1 || Tk < 1 || kv_len < 1 || kv_len > Tk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, dout, lse, delta, dq, BH, Tq, Tk, q_off, k_off,
-               causal, kv_len, scale};
+  const Args a{q,  k,  v,     dout,  lse,    delta,  dq,   BH,
+               Tq, Tk, D,     q_off, k_off,  causal, kv_len, scale};
   return static_cast<int>(
-      dispatch(dtype, D, a, static_cast<cudaStream_t>(stream)));
+      dispatch(dtype, a, static_cast<cudaStream_t>(stream)));
 }

@@ -23,9 +23,10 @@
 // the card's ~295, so the least time is set by the tensor cores' bf16
 // rate (~26 us for a fully live block), and by the CUDA cores' fp32 rate
 // in fp32. bf16 runs its products on the tensor cores (mma.sync,
-// block_fwd_mma_kernel), fp32 on the CUDA cores (block_fwd_kernel), as
-// flash_fwd.cu does; neither is near the bound (TMA and wgmma are later
-// work).
+// block_fwd_mma_kernel), fp32 on the CUDA cores (block_fwd_kernel), at
+// any head dim from 1 to 256 (padded as flash_common.cuh says); neither
+// is near the bound (its TMA and wgmma redesign on csrc/hopper.cuh, as
+// flash_fwd.cu's, is ROADMAP B7's third step).
 //
 // Design: the TPU kernel's sequential KV grid axis, with the state in its
 // output blocks, becomes a loop inside the block. A block owns kTile query
@@ -51,57 +52,59 @@ namespace {
 using flash::kThreads;
 using flash::kTile;
 
-template <int D>
+template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
     block_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* acc_io, float* m_io,
-                     float* l_io, int Tq, int Tk, int q_off, int k_off,
-                     int causal, int kv_len, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                  // kTile x (D+1)
-  float* Ks = Qs + kTile * (D + 1);  // kTile x (D+1)
-  float* Vs = Ks + kTile * (D + 1);  // kTile x (D+1)
-  float* Ps = Vs + kTile * (D + 1);  // kTile x (kTile+1)
+                     float* l_io, int Tq, int Tk, int d, int q_off,
+                     int k_off, int causal, int kv_len, float scale) {
+  constexpr int kR = R / 16;
+  float* Qs = flash::dyn_smem<float>();  // R x (D+1)
+  float* Ks = Qs + R * (D + 1);           // R x (D+1)
+  float* Vs = Ks + R * (D + 1);           // R x (D+1)
+  float* Ps = Vs + R * (D + 1);           // R x (R+1)
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
+  const flash::Tile tile = flash::tile_of(R, Tq);
+  const int q0 = tile.r0;
+  const int bh = tile.bh;
   const int k_end =
-      flash::block_key_end(q0, Tq, q_off, k_off, causal, kv_len);
+      flash::block_key_end(q0, R, Tq, q_off, k_off, causal, kv_len);
   if (k_end <= 0) return;  // every key lies in these rows' future
-  const flash::Strides qs = flash::rows_strides(Tq, D);
-  const flash::Strides ks = flash::rows_strides(Tk, D);
+  const flash::Strides qs = flash::rows_strides(Tq, d);
+  const flash::Strides ks = flash::rows_strides(Tk, d);
   const long long qbase = bh * qs.b;
   const long long kbase = bh * ks.b;
-  flash::load_tile<D>(Qs, q, qbase, qs, q0, Tq);
+  flash::load_tile<D, R>(Qs, q, qbase, qs, q0, Tq, d);
 
-  float acc[4][D / 16];
-  float m[4], l[4];
+  float acc[kR][D / 16];
+  float m[kR], l[kR];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int row = q0 + ty * kR + i;
     const bool in = row < Tq;
     const long long at = static_cast<long long>(bh) * Tq + row;
     m[i] = in ? m_io[at] : -INFINITY;
     l[i] = in ? l_io[at] : 0.0f;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
-      acc[i][j] = in ? acc_io[at * D + tx + 16 * j] : 0.0f;
+      acc[i][j] =
+          in && tx + 16 * j < d ? acc_io[at * d + tx + 16 * j] : 0.0f;
     }
   }
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+  for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();  // the last tile's readers of Ks, Vs and Ps are done
-    flash::load_tile<D>(Ks, k, kbase, ks, k0, Tk);
-    flash::load_tile<D>(Vs, v, kbase, ks, k0, Tk);
+    flash::load_tile<D, R>(Ks, k, kbase, ks, k0, Tk, d);
+    flash::load_tile<D, R>(Vs, v, kbase, ks, k0, Tk, d);
     __syncthreads();
-    float sc[4][4];
-    flash::dot_tile<D>(sc, Qs, Ks, ty, tx);
+    float sc[kR][kR];
+    flash::dot_tile<D, R>(sc, Qs, Ks, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
+    for (int i = 0; i < kR; ++i) {
+      const int qi = q0 + ty * kR + i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kR; ++j) {
         const int kj = k0 + tx + 16 * j;
         // rows past Tq count as live here: they are never written back
         const bool live =
@@ -114,10 +117,10 @@ __global__ void __launch_bounds__(kThreads)
       const float corr = expf(m[i] - m_use);
       float rs = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kR; ++j) {
         const float p = expf(sc[i][j] - m_use);
         rs += p;
-        Ps[(ty * 4 + i) * (kTile + 1) + tx + 16 * j] = p;
+        Ps[(ty * kR + i) * (R + 1) + tx + 16 * j] = p;
       }
       l[i] = l[i] * corr + flash::row_sum(rs);
       m[i] = m_new;
@@ -125,16 +128,18 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < D / 16; ++j) acc[i][j] *= corr;
     }
     __syncthreads();
-    flash::accumulate_rows<D>(acc, Ps, Vs, ty, tx);
+    flash::accumulate_rows<D, R>(acc, Ps, Vs, ty, tx);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int row = q0 + ty * kR + i;
     if (row >= Tq) continue;
     const long long at = static_cast<long long>(bh) * Tq + row;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc_io[at * D + tx + 16 * j] = acc[i][j];
+    for (int j = 0; j < D / 16; ++j) {
+      if (tx + 16 * j < d) acc_io[at * d + tx + 16 * j] = acc[i][j];
+    }
     if (tx == 0) {
       m_io[at] = m[i];
       l_io[at] = l[i];
@@ -142,8 +147,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The bf16 version of the same function, on the tensor cores, as
-// flash_fwd.cu's flash_fwd_mma_kernel: a block of 4 warps owns kTile query
+// The bf16 version of the same function, on the tensor cores with
+// mma.sync (as flash_dq.cu's kernel): a block of 4 warps owns kTile query
 // rows, 16 a warp; Q's fragments stay in registers; each K/V tile is staged
 // in shared memory as bf16 (K row-major, V transposed); S, m, l and acc
 // stay in registers (acc in the C-fragment layout, read from and written
@@ -154,26 +159,27 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
     block_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, float* acc_io,
-                         float* m_io, float* l_io, int Tq, int Tk, int q_off,
-                         int k_off, int causal, int kv_len, float scale,
-                         bool vec) {
-  __shared__ __align__(16) uint16_t Qs[kTile * (D + 8)];
-  __shared__ __align__(16) uint16_t Ks[kTile * (D + 8)];
-  __shared__ __align__(16) uint16_t Vt[D * (kTile + 8)];
+                         float* m_io, float* l_io, int Tq, int Tk, int d,
+                         int q_off, int k_off, int causal, int kv_len,
+                         float scale, bool vec) {
+  uint16_t* Qs = flash::dyn_smem<uint16_t>();  // kTile x (D+8)
+  uint16_t* Ks = Qs + kTile * (D + 8);          // kTile x (D+8)
+  uint16_t* Vt = Ks + kTile * (D + 8);          // D x (kTile+8)
   const int lane = threadIdx.x % 32;
   const int r0 = (threadIdx.x / 32) * 16;  // this warp's rows of the tile
   const int g = lane / 4;
   const int tq = lane % 4;
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
+  const flash::Tile tile = flash::tile_of(kTile, Tq);
+  const int q0 = tile.r0;
+  const int bh = tile.bh;
   const int k_end =
-      flash::block_key_end(q0, Tq, q_off, k_off, causal, kv_len);
+      flash::block_key_end(q0, kTile, Tq, q_off, k_off, causal, kv_len);
   if (k_end <= 0) return;  // every key lies in these rows' future
-  const flash::Strides qs = flash::rows_strides(Tq, D);
-  const flash::Strides ks = flash::rows_strides(Tk, D);
+  const flash::Strides qs = flash::rows_strides(Tq, d);
+  const flash::Strides ks = flash::rows_strides(Tk, d);
   const long long qbase = bh * qs.b;
   const long long kbase = bh * ks.b;
-  flash::load_tile_bf16<D, false>(Qs, q, qbase, qs, q0, Tq, vec);
+  flash::load_tile_bf16<D, false>(Qs, q, qbase, qs, q0, Tq, d, vec);
   __syncthreads();
   uint32_t qa[D / 16][4];
 #pragma unroll
@@ -193,14 +199,15 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
     for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        acc[n][2 * i + j] = in ? acc_io[at * D + 8 * n + 2 * tq + j] : 0.0f;
+        const int c = 8 * n + 2 * tq + j;
+        acc[n][2 * i + j] = in && c < d ? acc_io[at * d + c] : 0.0f;
       }
     }
   }
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the last tile's readers of Ks and Vt are done
-    flash::load_tile_bf16<D, false>(Ks, k, kbase, ks, k0, Tk, vec);
-    flash::load_tile_bf16<D, true>(Vt, v, kbase, ks, k0, Tk, vec);
+    flash::load_tile_bf16<D, false>(Ks, k, kbase, ks, k0, Tk, d, vec);
+    flash::load_tile_bf16<D, true>(Vt, v, kbase, ks, k0, Tk, d, vec);
     __syncthreads();
     float sc[8][4];
 #pragma unroll
@@ -280,7 +287,8 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
     for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        acc_io[at * D + 8 * n + 2 * tq + j] = acc[n][2 * i + j];
+        const int c = 8 * n + 2 * tq + j;
+        if (c < d) acc_io[at * d + c] = acc[n][2 * i + j];
       }
     }
     if (tq == 0) {
@@ -297,44 +305,51 @@ struct Args {
   float* acc;
   float* m;
   float* l;
-  int BH, Tq, Tk, q_off, k_off, causal, kv_len;
+  int BH, Tq, Tk, d, q_off, k_off, causal, kv_len;
   float scale;
 };
 
 template <int D>
 cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.Tq + kTile - 1) / kTile, a.BH);
-  block_fwd_mma_kernel<D><<<grid, flash::kMmaThreads, 0, stream>>>(
+  constexpr size_t smem = flash::smem_bytes_bf16<D>(2, 1);
+  static const cudaError_t opt_in =
+      flash::allow_smem(block_fwd_mma_kernel<D>, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  dim3 grid;
+  const cudaError_t err = flash::grid_of(a.Tq, kTile, a.BH, &grid);
+  if (err != cudaSuccess) return err;
+  block_fwd_mma_kernel<D><<<grid, flash::kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v), a.acc, a.m, a.l, a.Tq, a.Tk,
-      a.q_off, a.k_off, a.causal, a.kv_len, a.scale,
-      // every row stride (T*D) is a multiple of 8 values at D = 32 or 64
-      flash::rows_aligned16(flash::rows_strides(a.Tq, D), a.q, a.k, a.v));
+      a.d, a.q_off, a.k_off, a.causal, a.kv_len, a.scale,
+      // row strides Tq*d and Tk*d are multiples of 8 values when d is
+      flash::rows_aligned16(a.d, flash::rows_strides(a.Tq, a.d), a.q, a.k,
+                            a.v));
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = flash::smem_bytes<D>(3, 1, 0);
+  constexpr int R = flash::rows_fp32<D>();
+  constexpr size_t smem = flash::smem_bytes<D, R>(3, 1, 0);
   static const cudaError_t opt_in =
-      flash::allow_smem(block_fwd_kernel<D>, smem);
+      flash::allow_smem(block_fwd_kernel<D, R>, smem);
   if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid((a.Tq + kTile - 1) / kTile, a.BH);
-  block_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid;
+  const cudaError_t err = flash::grid_of(a.Tq, R, a.BH, &grid);
+  if (err != cudaSuccess) return err;
+  block_fwd_kernel<D, R><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), a.acc, a.m, a.l, a.Tq, a.Tk, a.q_off,
-      a.k_off, a.causal, a.kv_len, a.scale);
+      static_cast<const float*>(a.v), a.acc, a.m, a.l, a.Tq, a.Tk, a.d,
+      a.q_off, a.k_off, a.causal, a.kv_len, a.scale);
   return cudaGetLastError();
 }
 
-// fp32 on the CUDA cores, bf16 on the tensor cores; D = 32 or 64.
-cudaError_t dispatch(int dtype, int D, const Args& a, cudaStream_t stream) {
-  if (dtype == 0 && D == 32) return launch<32>(a, stream);
-  if (dtype == 0 && D == 64) return launch<64>(a, stream);
-  if (dtype == 1 && D == 32) return launch_mma<32>(a, stream);
-  if (dtype == 1 && D == 64) return launch_mma<64>(a, stream);
-  return cudaErrorInvalidValue;
+// fp32 on the CUDA cores, bf16 on the tensor cores, at d's padded width.
+cudaError_t dispatch(int dtype, const Args& a, cudaStream_t stream) {
+  FLASH_PADDED_DIMS(a.d, return dtype == 0 ? launch<DP>(a, stream)
+                                           : launch_mma<DP>(a, stream))
 }
 
 }  // namespace
@@ -350,8 +365,8 @@ extern "C" int dvggf_flash_block_fwd(const void* q, const void* k,
   if (BH < 1 || Tq < 1 || Tk < 1 || kv_len < 1 || kv_len > Tk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, acc, m, l, BH, Tq, Tk, q_off, k_off, causal, kv_len,
-               scale};
+  const Args a{q,  k,     v,     acc,   m,      l,      BH,    Tq,
+               Tk, D,     q_off, k_off, causal, kv_len, scale};
   return static_cast<int>(
-      dispatch(dtype, D, a, static_cast<cudaStream_t>(stream)));
+      dispatch(dtype, a, static_cast<cudaStream_t>(stream)));
 }

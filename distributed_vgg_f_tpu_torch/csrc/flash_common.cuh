@@ -1,16 +1,25 @@
 // Shared pieces of the flash attention kernels (flash_fwd.cu, flash_dq.cu,
-// flash_dkv.cu), for Hopper (sm_90a).
+// flash_dkv.cu and the ring block kernels), for Hopper (sm_90a).
 //
-// Every kernel works on square tiles of kTile rows of one (batch, head),
-// at head dim D = 32 or 64. The fp32 versions run on the CUDA cores: a
-// block of kThreads = 256 threads is a 16 x 16 grid, thread (ty, tx)
-// owning rows ty*4 .. ty*4+3 of a tile and columns tx + 16*j (j < 4) of a
-// tile x tile product, or columns tx + 16*j (j < D/16) of a tile x D one.
-// Tiles live in shared memory as fp32 with a row stride of D+1 (or
-// kTile+1), so the column reads of one half-warp hit 16 distinct banks and
-// the two half-warps of a warp read either the same word or distinct
-// banks. Products are fp32 fused multiply-adds. The bf16 versions run on
-// the tensor cores (below).
+// Head dims: every kernel takes any D from 1 to 256. It is instantiated
+// for the padded widths 16, 32, 64, 128 and 256 (padded_dim) and runs a
+// smaller D on the next one up: the padding columns are zero-filled in
+// shared memory, so they add nothing to q.k, and are never written out.
+//
+// Grid: a block's (b*h, row tile) pair is one index on the grid's x axis
+// (tile_of), which allows 2^31 - 1 blocks, so B*H is not limited by the
+// y axis's 65535.
+//
+// The fp32 versions run on the CUDA cores: a block of kThreads = 256
+// threads is a 16 x 16 grid, thread (ty, tx) owning rows ty*(R/16) ..
+// ty*(R/16) + R/16 - 1 of an R-row tile and columns tx + 16*j (j < R/16)
+// of an R x R product, or columns tx + 16*j (j < D/16) of an R x D one.
+// R is 64 up to D = 128 and 32 at D = 256 (rows_fp32: four 64 x 257 fp32
+// tiles would not fit in shared memory). Tiles live in shared memory as
+// fp32 with a row stride of D+1 (or R+1), so the column reads of one
+// half-warp hit 16 distinct banks and the two half-warps of a warp read
+// either the same word or distinct banks. Products are fp32 fused
+// multiply-adds. The bf16 versions run on the tensor cores (below).
 //
 // q, k and v are (B, T, H, D) with a contiguous D axis and any strides
 // over (B, T, H): the model passes the three slices of its fused QKV
@@ -30,6 +39,59 @@ namespace flash {
 
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
+constexpr int kMaxHeadDim = 256;
+
+// The padded width a head dim d runs at; 0 when d is outside [1, 256].
+__host__ __device__ __forceinline__ int padded_dim(int d) {
+  return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64
+       : d <= 128 ? 128 : d <= kMaxHeadDim ? 256 : 0;
+}
+
+// Row tile of the fp32 kernels at padded head dim D.
+template <int D>
+constexpr int rows_fp32() {
+  return D <= 128 ? 64 : 32;
+}
+
+// One block's row tile and (b*h) from the grid's x axis: blocks run over
+// the row tiles of a (b, h) first.
+struct Tile {
+  int r0;
+  int bh;
+};
+
+__device__ __forceinline__ Tile tile_of(int rows, int T_len) {
+  const int n = (T_len + rows - 1) / rows;
+  const int x = static_cast<int>(blockIdx.x);
+  return Tile{(x % n) * rows, x / n};
+}
+
+// The grid of ceil(T / rows) * BH blocks, or an error past 2^31 - 1.
+inline cudaError_t grid_of(int T_len, int rows, int BH, dim3* grid) {
+  const long long n =
+      static_cast<long long>((T_len + rows - 1) / rows) * BH;
+  if (n > 2147483647LL) return cudaErrorInvalidConfiguration;
+  *grid = dim3(static_cast<unsigned>(n));
+  return cudaSuccess;
+}
+
+// Dynamic shared memory, one declaration for every kernel of a source.
+template <typename T>
+__device__ __forceinline__ T* dyn_smem() {
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  return reinterpret_cast<T*>(flash_smem);
+}
+
+// Runs CALL with the compile-time padded width DP of head dim d.
+#define FLASH_PADDED_DIMS(d, CALL)              \
+  switch (flash::padded_dim(d)) {               \
+    case 16: { constexpr int DP = 16; CALL; }   \
+    case 32: { constexpr int DP = 32; CALL; }   \
+    case 64: { constexpr int DP = 64; CALL; }   \
+    case 128: { constexpr int DP = 128; CALL; } \
+    case 256: { constexpr int DP = 256; CALL; } \
+    default: return cudaErrorInvalidValue;      \
+  }
 
 // Element strides of a (B, T, H, D) tensor whose D axis is contiguous.
 struct Strides {
@@ -42,64 +104,68 @@ __host__ __device__ __forceinline__ Strides dense_strides(int T, int H,
                  static_cast<long long>(H) * D, static_cast<long long>(D)};
 }
 
-// Rows row0 .. row0+kTile-1 of x for one (b, h) at `base` into dst
-// (kTile x (D+1) fp32); rows at or past T read as zeros.
-template <int D>
+// Rows row0 .. row0+R-1 of x for one (b, h) at `base` into dst
+// (R x (D+1) fp32); rows at or past T and columns at or past d read as
+// zeros.
+template <int D, int R>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ x,
                                           long long base, Strides s,
-                                          int row0, int T_len) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
+                                          int row0, int T_len, int d) {
+  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
     const int r = idx / D;
-    const int d = idx % D;
+    const int c = idx % D;
     const int t = row0 + r;
-    dst[r * (D + 1) + d] = t < T_len ? x[base + t * s.t + d] : 0.0f;
+    dst[r * (D + 1) + c] =
+        t < T_len && c < d ? x[base + t * s.t + c] : 0.0f;
   }
 }
 
-// acc[i][j] = sum_d A[ty*4+i][d] * B[tx+16j][d]: one thread's 4 x 4 share
-// of a kTile x kTile product contracting D (A and B are kTile x (D+1)).
-template <int D>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4],
+// acc[i][j] = sum_d A[ty*R/16+i][d] * B[tx+16j][d]: one thread's share
+// of an R x R product contracting D (A and B are R x (D+1)).
+template <int D, int R>
+__device__ __forceinline__ void dot_tile(float (&acc)[R / 16][R / 16],
                                          const float* A, const float* B,
                                          int ty, int tx) {
+  constexpr int kR = R / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kR; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < kR; ++j) acc[i][j] = 0.0f;
   }
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
+    float a[kR], b[kR];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * (D + 1) + d];
+    for (int i = 0; i < kR; ++i) a[i] = A[(ty * kR + i) * (D + 1) + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + d];
+    for (int j = 0; j < kR; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kR; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < kR; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
   }
 }
 
-// acc[i][j] += sum_c P[ty*4+i][c] * M[c][tx+16j]: one thread's share of a
-// kTile x D product contracting the tile (P is kTile x (kTile+1), M is
-// kTile x (D+1)).
-template <int D>
-__device__ __forceinline__ void accumulate_rows(float (&acc)[4][D / 16],
+// acc[i][j] += sum_c P[ty*R/16+i][c] * M[c][tx+16j]: one thread's share
+// of an R x D product contracting the tile (P is R x (R+1), M is
+// R x (D+1)).
+template <int D, int R>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[R / 16][D / 16],
                                                 const float* P,
                                                 const float* M, int ty,
                                                 int tx) {
+  constexpr int kR = R / 16;
 #pragma unroll 4
-  for (int c = 0; c < kTile; ++c) {
-    float p[4], m[D / 16];
+  for (int c = 0; c < R; ++c) {
+    float p[kR], m[D / 16];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty * 4 + i) * (kTile + 1) + c];
+    for (int i = 0; i < kR; ++i) p[i] = P[(ty * kR + i) * (R + 1) + c];
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) m[j] = M[c * (D + 1) + tx + 16 * j];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kR; ++i) {
 #pragma unroll
       for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(p[i], m[j], acc[i][j]);
     }
@@ -123,14 +189,14 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Shared memory of a kernel with `tiles` kTile x (D+1) tiles, `squares`
-// kTile x (kTile+1) tiles and `vectors` kTile-long vectors, in bytes.
-template <int D>
+// Shared memory of a kernel with `tiles` R x (D+1) tiles, `squares`
+// R x (R+1) tiles and `vectors` R-long vectors, in bytes.
+template <int D, int R>
 constexpr size_t smem_bytes(int tiles, int squares, int vectors) {
   return sizeof(float) *
-         (static_cast<size_t>(tiles) * kTile * (D + 1) +
-          static_cast<size_t>(squares) * kTile * (kTile + 1) +
-          static_cast<size_t>(vectors) * kTile);
+         (static_cast<size_t>(tiles) * R * (D + 1) +
+          static_cast<size_t>(squares) * R * (R + 1) +
+          static_cast<size_t>(vectors) * R);
 }
 
 // Opt a kernel into `bytes` of dynamic shared memory (above the 48 KB a
@@ -156,7 +222,10 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 //   C (16 x 8, fp32): c0, c1 at (g, 2t..2t+1), c2, c3 at (g+8, 2t..)
 // A C tile pair of 16 x 16 fp32 scores converts in registers to the A
 // fragment of the next product (p or dS rounded to bf16, as the JAX
-// kernels cast them), so P and dS never go through shared memory.
+// kernels cast them), so P and dS never go through shared memory. The
+// tiles are in dynamic shared memory (above 48 KB at D = 128 and 256). At
+// D = 128 and 256 a warp's fragments and sums outgrow the 255 registers a
+// thread may hold and spill to local memory: right, and slower.
 constexpr int kWarps = 4;
 constexpr int kMmaThreads = 32 * kWarps;
 
@@ -181,56 +250,68 @@ __device__ __forceinline__ uint32_t ld_pair(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Whether every row of these tensors starts on 16 bytes (pointers and
-// (B, T, H) strides), so a tile loads as 16-byte vectors.
-inline bool rows_aligned16(Strides s, const void* a, const void* b,
-                           const void* c, const void* d = nullptr) {
+// Whether every row of these tensors starts on 16 bytes (pointers, the
+// (B, T, H) strides and the head dim d), so a tile loads as 16-byte
+// vectors.
+inline bool rows_aligned16(int d, Strides s, const void* a, const void* b,
+                           const void* c, const void* e = nullptr) {
   const auto al = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  return s.b % 8 == 0 && s.t % 8 == 0 && s.h % 8 == 0 && al(a) && al(b) &&
-         al(c) && (d == nullptr || al(d));
+  return d % 8 == 0 && s.b % 8 == 0 && s.t % 8 == 0 && s.h % 8 == 0 &&
+         al(a) && al(b) && al(c) && (e == nullptr || al(e));
 }
 
 // Rows row0 .. row0+kTile-1 of x for one (b, h) at `base` into sm as bf16:
-// row-major [row][d] with stride D+8, or transposed [d][row] with stride
-// kTile+8; rows at or past T read as zeros. `vec`: rows start on 16
-// bytes, so each thread moves 8 values at a time.
+// row-major [row][c] with stride D+8, or transposed [c][row] with stride
+// kTile+8; rows at or past T and columns at or past d read as zeros.
+// `vec`: rows start on 16 bytes and d is a multiple of 8, so each thread
+// moves 8 values at a time.
 template <int D, bool kTransposed>
 __device__ __forceinline__ void load_tile_bf16(
     uint16_t* sm, const __nv_bfloat16* __restrict__ x, long long base,
-    Strides s, int row0, int T_len, bool vec) {
+    Strides s, int row0, int T_len, int d, bool vec) {
   if (vec) {
     for (int idx = threadIdx.x; idx < kTile * D / 8; idx += kMmaThreads) {
       const int r = idx / (D / 8);
-      const int d = (idx % (D / 8)) * 8;
+      const int c = (idx % (D / 8)) * 8;
       const int t = row0 + r;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (t < T_len) {
-        v = *reinterpret_cast<const uint4*>(x + base + t * s.t + d);
+      if (t < T_len && c < d) {
+        v = *reinterpret_cast<const uint4*>(x + base + t * s.t + c);
       }
       if (kTransposed) {
         const uint16_t* e = reinterpret_cast<const uint16_t*>(&v);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) sm[(d + j) * (kTile + 8) + r] = e[j];
+        for (int j = 0; j < 8; ++j) sm[(c + j) * (kTile + 8) + r] = e[j];
       } else {
-        *reinterpret_cast<uint4*>(sm + r * (D + 8) + d) = v;
+        *reinterpret_cast<uint4*>(sm + r * (D + 8) + c) = v;
       }
     }
     return;
   }
   for (int idx = threadIdx.x; idx < kTile * D; idx += kMmaThreads) {
     const int r = idx / D;
-    const int d = idx % D;
+    const int c = idx % D;
     const int t = row0 + r;
-    const uint16_t v = t < T_len ? __bfloat16_as_ushort(x[base + t * s.t + d])
-                                 : static_cast<uint16_t>(0);
+    const uint16_t v = t < T_len && c < d
+                           ? __bfloat16_as_ushort(x[base + t * s.t + c])
+                           : static_cast<uint16_t>(0);
     if (kTransposed) {
-      sm[d * (kTile + 8) + r] = v;
+      sm[c * (kTile + 8) + r] = v;
     } else {
-      sm[r * (D + 8) + d] = v;
+      sm[r * (D + 8) + c] = v;
     }
   }
+}
+
+// Shared memory of a bf16 kernel with `rows` kTile x (D+8) row-major
+// tiles and `cols` D x (kTile+8) transposed ones, in bytes.
+template <int D>
+constexpr size_t smem_bytes_bf16(int rows, int cols) {
+  return sizeof(uint16_t) *
+         (static_cast<size_t>(rows) * kTile * (D + 8) +
+          static_cast<size_t>(cols) * D * (kTile + 8));
 }
 
 // A fragment of rows r0..r0+15, columns k0..k0+15 of a row-major tile.
@@ -293,19 +374,19 @@ __device__ __forceinline__ bool block_live(int qi, int kj, int q_off,
   return kj < kv_len && (!causal || k_off + kj <= q_off + qi);
 }
 
-// One past the last key that any of the query rows q0 .. q0+kTile-1 may
+// One past the last key that any of the query rows q0 .. q0+rows-1 may
 // see; <= 0 when none may.
-__device__ __forceinline__ int block_key_end(int q0, int Tq, int q_off,
-                                             int k_off, int causal,
-                                             int kv_len) {
-  return causal ? min(kv_len, q_off + min(q0 + kTile, Tq) - k_off) : kv_len;
+__device__ __forceinline__ int block_key_end(int q0, int rows, int Tq,
+                                             int q_off, int k_off,
+                                             int causal, int kv_len) {
+  return causal ? min(kv_len, q_off + min(q0 + rows, Tq) - k_off) : kv_len;
 }
 
-// The first kTile-aligned query tile holding a row that may see key k0.
-__device__ __forceinline__ int block_query_start(int k0, int q_off, int k_off,
-                                                 int causal) {
+// The first rows-aligned query tile holding a row that may see key k0.
+__device__ __forceinline__ int block_query_start(int k0, int rows, int q_off,
+                                                 int k_off, int causal) {
   const int first = k_off + k0 - q_off;  // local row at key k0's position
-  return causal && first > 0 ? first / kTile * kTile : 0;
+  return causal && first > 0 ? first / rows * rows : 0;
 }
 
 }  // namespace flash

@@ -14,9 +14,9 @@
 //
 // Bound: device-memory bytes (q, k, v and dO read and dk and dv written,
 // 12*D bytes a row in bf16, against 8*T*D FLOP a row: ~131 FLOP a byte at
-// T = 197, below the card's ~295). At head dim 32 or 64, bf16 runs the
-// products on the tensor cores (flash_dkv_mma_kernel), fp32 on the CUDA
-// cores (flash_dkv_kernel).
+// T = 197, below the card's ~295). bf16 runs the products on the tensor
+// cores (flash_dkv_mma_kernel), fp32 on the CUDA cores (flash_dkv_kernel),
+// at any head dim from 1 to 256 (padded as flash_common.cuh says).
 //
 // Design: the transposed loop of the dQ kernel, as the TPU kernel runs
 // the transposed grid. A block owns kTile key rows of one (b, h): their k
@@ -36,7 +36,7 @@ namespace {
 using flash::kThreads;
 using flash::kTile;
 
-template <int D>
+template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
     flash_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
@@ -44,91 +44,92 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int T_len, flash::Strides s,
-                     int causal, int kv_len, float scale) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                   // kTile x (D+1)
-  float* Vs = Ks + kTile * (D + 1);   // kTile x (D+1)
-  float* Qs = Vs + kTile * (D + 1);   // kTile x (D+1)
-  float* dOs = Qs + kTile * (D + 1);  // kTile x (D+1)
-  float* Ts = dOs + kTile * (D + 1);  // kTile x (kTile+1): P^T, then dS^T
-  float* lse_s = Ts + kTile * (kTile + 1);  // kTile
-  float* delta_s = lse_s + kTile;           // kTile
+                     float* __restrict__ dv, int H, int T_len, int d,
+                     flash::Strides s, int causal, int kv_len, float scale) {
+  constexpr int kR = R / 16;
+  float* Ks = flash::dyn_smem<float>();  // R x (D+1)
+  float* Vs = Ks + R * (D + 1);           // R x (D+1)
+  float* Qs = Vs + R * (D + 1);           // R x (D+1)
+  float* dOs = Qs + R * (D + 1);          // R x (D+1)
+  float* Ts = dOs + R * (D + 1);          // R x (R+1): P^T, then dS^T
+  float* lse_s = Ts + R * (R + 1);        // R
+  float* delta_s = lse_s + R;             // R
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const int k0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
+  const flash::Tile tile = flash::tile_of(R, T_len);
+  const int k0 = tile.r0;
+  const int bh = tile.bh;
   const int b = bh / H;
   const int h = bh % H;
   const long long base = b * s.b + h * s.h;
-  const flash::Strides ds_ = flash::dense_strides(T_len, H, D);
+  const flash::Strides ds_ = flash::dense_strides(T_len, H, d);
   const long long dbase = b * ds_.b + h * ds_.h;
 
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
+  float dk_acc[kR][D / 16], dv_acc[kR][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kR; ++i) {
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
   }
   if (k0 < kv_len) {
-    flash::load_tile<D>(Ks, k, base, s, k0, T_len);
-    flash::load_tile<D>(Vs, v, base, s, k0, T_len);
+    flash::load_tile<D, R>(Ks, k, base, s, k0, T_len, d);
+    flash::load_tile<D, R>(Vs, v, base, s, k0, T_len, d);
     // causal: query rows before k0 see none of these keys
     const int q_start = causal ? k0 : 0;
-    for (int q0 = q_start; q0 < T_len; q0 += kTile) {
+    for (int q0 = q_start; q0 < T_len; q0 += R) {
       __syncthreads();  // the last tile's readers of Qs, dOs and Ts are done
-      flash::load_tile<D>(Qs, q, base, s, q0, T_len);
-      flash::load_tile<D>(dOs, dout, dbase, ds_, q0, T_len);
-      if (threadIdx.x < kTile) {
+      flash::load_tile<D, R>(Qs, q, base, s, q0, T_len, d);
+      flash::load_tile<D, R>(dOs, dout, dbase, ds_, q0, T_len, d);
+      if (threadIdx.x < R) {
         const int row = q0 + threadIdx.x;
         const long long at = static_cast<long long>(bh) * T_len + row;
         lse_s[threadIdx.x] = row < T_len ? lse[at] : 0.0f;
         delta_s[threadIdx.x] = row < T_len ? delta[at] : 0.0f;
       }
       __syncthreads();
-      // rows of these tiles are keys (ty*4+i), columns queries (tx+16j)
-      float st[4][4], ds[4][4];
-      flash::dot_tile<D>(st, Ks, Qs, ty, tx);
-      flash::dot_tile<D>(ds, Vs, dOs, ty, tx);  // dP^T, then dS^T in place
+      // rows of these tiles are keys (ty*kR+i), columns queries (tx+16j)
+      float st[kR][kR], ds[kR][kR];
+      flash::dot_tile<D, R>(st, Ks, Qs, ty, tx);
+      flash::dot_tile<D, R>(ds, Vs, dOs, ty, tx);  // dP^T, then dS^T
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kp = k0 + ty * 4 + i;
+      for (int i = 0; i < kR; ++i) {
+        const int kp = k0 + ty * kR + i;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kR; ++j) {
           const int c = tx + 16 * j;
           const int qp = q0 + c;
           const bool live =
               qp < T_len && kp < kv_len && (!causal || kp <= qp);
           const float p = live ? expf(st[i][j] * scale - lse_s[c]) : 0.0f;
           ds[i][j] = p * (ds[i][j] - delta_s[c]);
-          Ts[(ty * 4 + i) * (kTile + 1) + c] = (p);
+          Ts[(ty * kR + i) * (R + 1) + c] = p;
         }
       }
       __syncthreads();
-      flash::accumulate_rows<D>(dv_acc, Ts, dOs, ty, tx);
+      flash::accumulate_rows<D, R>(dv_acc, Ts, dOs, ty, tx);
       __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kR; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          Ts[(ty * 4 + i) * (kTile + 1) + tx + 16 * j] =
-              (ds[i][j]);
+        for (int j = 0; j < kR; ++j) {
+          Ts[(ty * kR + i) * (R + 1) + tx + 16 * j] = ds[i][j];
         }
       }
       __syncthreads();
-      flash::accumulate_rows<D>(dk_acc, Ts, Qs, ty, tx);
+      flash::accumulate_rows<D, R>(dk_acc, Ts, Qs, ty, tx);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int row = k0 + ty * kR + i;
     if (row >= T_len) continue;
     const long long at = dbase + row * ds_.t;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
-      dk[at + tx + 16 * j] = (scale * dk_acc[i][j]);
-      dv[at + tx + 16 * j] = (dv_acc[i][j]);
+      if (tx + 16 * j >= d) continue;
+      dk[at + tx + 16 * j] = scale * dk_acc[i][j];
+      dv[at + tx + 16 * j] = dv_acc[i][j];
     }
   }
 }
@@ -149,23 +150,25 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int H, int T_len,
-                         flash::Strides s, int causal, int kv_len,
+                         int d, flash::Strides s, int causal, int kv_len,
                          float scale, bool vec) {
-  __shared__ __align__(16) uint16_t Qs[kTile * (D + 8)];   // K first
-  __shared__ __align__(16) uint16_t dOs[kTile * (D + 8)];  // V first
-  __shared__ __align__(16) uint16_t Qt[D * (kTile + 8)];
-  __shared__ __align__(16) uint16_t dOt[D * (kTile + 8)];
-  __shared__ float lse_s[kTile], delta_s[kTile];
+  uint16_t* Qs = flash::dyn_smem<uint16_t>();  // kTile x (D+8), K first
+  uint16_t* dOs = Qs + kTile * (D + 8);         // kTile x (D+8), V first
+  uint16_t* Qt = dOs + kTile * (D + 8);         // D x (kTile+8)
+  uint16_t* dOt = Qt + D * (kTile + 8);         // D x (kTile+8)
+  float* lse_s = reinterpret_cast<float*>(dOt + D * (kTile + 8));  // kTile
+  float* delta_s = lse_s + kTile;                                  // kTile
   const int lane = threadIdx.x % 32;
   const int r0 = (threadIdx.x / 32) * 16;
   const int g = lane / 4;
   const int tq = lane % 4;
-  const int k0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
+  const flash::Tile tile = flash::tile_of(kTile, T_len);
+  const int k0 = tile.r0;
+  const int bh = tile.bh;
   const int b = bh / H;
   const int h = bh % H;
   const long long base = b * s.b + h * s.h;
-  const flash::Strides ds_ = flash::dense_strides(T_len, H, D);
+  const flash::Strides ds_ = flash::dense_strides(T_len, H, d);
   const long long dbase = b * ds_.b + h * ds_.h;
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
@@ -175,8 +178,8 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.0f;
   }
   if (k0 < kv_len) {
-    flash::load_tile_bf16<D, false>(Qs, k, base, s, k0, T_len, vec);
-    flash::load_tile_bf16<D, false>(dOs, v, base, s, k0, T_len, vec);
+    flash::load_tile_bf16<D, false>(Qs, k, base, s, k0, T_len, d, vec);
+    flash::load_tile_bf16<D, false>(dOs, v, base, s, k0, T_len, d, vec);
     __syncthreads();
     uint32_t ka[D / 16][4], va[D / 16][4];
 #pragma unroll
@@ -187,10 +190,12 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
     const int q_start = causal ? k0 : 0;
     for (int q0 = q_start; q0 < T_len; q0 += kTile) {
       __syncthreads();  // fragments loaded; the last tile's readers are done
-      flash::load_tile_bf16<D, false>(Qs, q, base, s, q0, T_len, vec);
-      flash::load_tile_bf16<D, true>(Qt, q, base, s, q0, T_len, vec);
-      flash::load_tile_bf16<D, false>(dOs, dout, dbase, ds_, q0, T_len, vec);
-      flash::load_tile_bf16<D, true>(dOt, dout, dbase, ds_, q0, T_len, vec);
+      flash::load_tile_bf16<D, false>(Qs, q, base, s, q0, T_len, d, vec);
+      flash::load_tile_bf16<D, true>(Qt, q, base, s, q0, T_len, d, vec);
+      flash::load_tile_bf16<D, false>(dOs, dout, dbase, ds_, q0, T_len, d,
+                                      vec);
+      flash::load_tile_bf16<D, true>(dOt, dout, dbase, ds_, q0, T_len, d,
+                                     vec);
       if (threadIdx.x < kTile) {
         const int row = q0 + threadIdx.x;
         const long long at = static_cast<long long>(bh) * T_len + row;
@@ -254,9 +259,10 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
     for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        dk[at + 8 * n + 2 * tq + j] =
-            __float2bfloat16(scale * dk_acc[n][2 * i + j]);
-        dv[at + 8 * n + 2 * tq + j] = __float2bfloat16(dv_acc[n][2 * i + j]);
+        const int c = 8 * n + 2 * tq + j;
+        if (c >= d) continue;
+        dk[at + c] = __float2bfloat16(scale * dk_acc[n][2 * i + j]);
+        dv[at + c] = __float2bfloat16(dv_acc[n][2 * i + j]);
       }
     }
   }
@@ -265,63 +271,63 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
-                       void* dk, void* dv, int B, int T_len, int H,
+                       void* dk, void* dv, int B, int T_len, int H, int d,
                        flash::Strides s, int causal, int kv_len, float scale,
                        cudaStream_t stream) {
-  const dim3 grid((T_len + kTile - 1) / kTile, B * H);
-  flash_dkv_mma_kernel<D><<<grid, flash::kMmaThreads, 0, stream>>>(
+  constexpr size_t smem =
+      flash::smem_bytes_bf16<D>(2, 2) + 2 * kTile * sizeof(float);
+  static const cudaError_t opt_in =
+      flash::allow_smem(flash_dkv_mma_kernel<D>, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  dim3 grid;
+  const cudaError_t err = flash::grid_of(T_len, kTile, B * H, &grid);
+  if (err != cudaSuccess) return err;
+  flash_dkv_mma_kernel<D><<<grid, flash::kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout), lse, delta,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
-      T_len, s, causal, kv_len, scale,
-      flash::rows_aligned16(s, q, k, v, dout));
+      T_len, d, s, causal, kv_len, scale,
+      flash::rows_aligned16(d, s, q, k, v, dout));
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
-                   void* dk, void* dv, int B, int T_len, int H,
+                   void* dk, void* dv, int B, int T_len, int H, int d,
                    flash::Strides s, int causal, int kv_len, float scale,
                    cudaStream_t stream) {
-  constexpr size_t smem = flash::smem_bytes<D>(4, 1, 2);
+  constexpr int R = flash::rows_fp32<D>();
+  constexpr size_t smem = flash::smem_bytes<D, R>(4, 1, 2);
   static const cudaError_t opt_in =
-      flash::allow_smem(flash_dkv_kernel<D>, smem);
+      flash::allow_smem(flash_dkv_kernel<D, R>, smem);
   if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid((T_len + kTile - 1) / kTile, B * H);
-  flash_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid;
+  const cudaError_t err = flash::grid_of(T_len, R, B * H, &grid);
+  if (err != cudaSuccess) return err;
+  flash_dkv_kernel<D, R><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dk), static_cast<float*>(dv), H, T_len, s,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), H, T_len, d, s,
       causal, kv_len, scale);
   return cudaGetLastError();
 }
 
-// fp32 on the CUDA cores, bf16 on the tensor cores; D = 32 or 64.
-cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
+// fp32 on the CUDA cores, bf16 on the tensor cores, at d's padded width.
+cudaError_t dispatch(int dtype, int d, const void* q, const void* k,
                      const void* v, const void* dout, const float* lse,
                      const float* delta, void* dk, void* dv, int B,
                      int T_len, int H, flash::Strides s, int causal,
                      int kv_len, float scale, cudaStream_t stream) {
-  if (dtype == 0 && D == 32) {
-    return launch<32>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, s,
-                      causal, kv_len, scale, stream);
-  }
-  if (dtype == 0 && D == 64) {
-    return launch<64>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, s,
-                      causal, kv_len, scale, stream);
-  }
-  if (dtype == 1 && D == 32) {
-    return launch_mma<32>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, s,
-                          causal, kv_len, scale, stream);
-  }
-  if (dtype == 1 && D == 64) {
-    return launch_mma<64>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, s,
-                          causal, kv_len, scale, stream);
-  }
-  return cudaErrorInvalidValue;
+  FLASH_PADDED_DIMS(
+      d, return dtype == 0
+                 ? launch<DP>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H,
+                              d, s, causal, kv_len, scale, stream)
+                 : launch_mma<DP>(q, k, v, dout, lse, delta, dk, dv, B,
+                                  T_len, H, d, s, causal, kv_len, scale,
+                                  stream))
 }
 
 }  // namespace

@@ -13,9 +13,9 @@
 //
 // Bound: device-memory bytes (q, k, v and dO read and dq written, 10*D
 // bytes a row in bf16, against 6*T*D FLOP a row: ~118 FLOP a byte at
-// T = 197, below the card's ~295). At head dim 32 or 64, bf16 runs the
-// products on the tensor cores (flash_dq_mma_kernel), fp32 on the CUDA
-// cores (flash_dq_kernel).
+// T = 197, below the card's ~295). bf16 runs the products on the tensor
+// cores (flash_dq_mma_kernel), fp32 on the CUDA cores (flash_dq_kernel),
+// at any head dim from 1 to 256 (padded as flash_common.cuh says).
 //
 // Design: the TPU kernel's sequential KV grid axis, with dq accumulated in
 // scratch, becomes a loop inside the block. A block owns kTile query rows
@@ -36,7 +36,7 @@ namespace {
 using flash::kThreads;
 using flash::kTile;
 
-template <int D>
+template <int D, int R>
 __global__ void __launch_bounds__(kThreads)
     flash_dq_kernel(const float* __restrict__ q,
                     const float* __restrict__ k,
@@ -44,70 +44,71 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
-                    int H, int T_len, flash::Strides s, int causal,
+                    int H, int T_len, int d, flash::Strides s, int causal,
                     int kv_len, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                   // kTile x (D+1)
-  float* dOs = Qs + kTile * (D + 1);  // kTile x (D+1)
-  float* Ks = dOs + kTile * (D + 1);  // kTile x (D+1)
-  float* Vs = Ks + kTile * (D + 1);   // kTile x (D+1)
-  float* dSs = Vs + kTile * (D + 1);  // kTile x (kTile+1)
+  constexpr int kR = R / 16;
+  float* Qs = flash::dyn_smem<float>();  // R x (D+1)
+  float* dOs = Qs + R * (D + 1);          // R x (D+1)
+  float* Ks = dOs + R * (D + 1);          // R x (D+1)
+  float* Vs = Ks + R * (D + 1);           // R x (D+1)
+  float* dSs = Vs + R * (D + 1);          // R x (R+1)
   const int ty = threadIdx.x / 16;
   const int tx = threadIdx.x % 16;
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
+  const flash::Tile tile = flash::tile_of(R, T_len);
+  const int q0 = tile.r0;
+  const int bh = tile.bh;
   const int b = bh / H;
   const int h = bh % H;
   const long long base = b * s.b + h * s.h;
-  const flash::Strides ds_ = flash::dense_strides(T_len, H, D);
+  const flash::Strides ds_ = flash::dense_strides(T_len, H, d);
   const long long dbase = b * ds_.b + h * ds_.h;
-  flash::load_tile<D>(Qs, q, base, s, q0, T_len);
-  flash::load_tile<D>(dOs, dout, dbase, ds_, q0, T_len);
+  flash::load_tile<D, R>(Qs, q, base, s, q0, T_len, d);
+  flash::load_tile<D, R>(dOs, dout, dbase, ds_, q0, T_len, d);
 
-  float row_lse[4], row_delta[4], acc[4][D / 16];
+  float row_lse[kR], row_delta[kR], acc[kR][D / 16];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int row = q0 + ty * kR + i;
     const long long at = static_cast<long long>(bh) * T_len + row;
     row_lse[i] = row < T_len ? lse[at] : 0.0f;
     row_delta[i] = row < T_len ? delta[at] : 0.0f;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.0f;
   }
-  const int k_end = causal ? min(kv_len, q0 + kTile) : kv_len;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+  const int k_end = causal ? min(kv_len, q0 + R) : kv_len;
+  for (int k0 = 0; k0 < k_end; k0 += R) {
     __syncthreads();  // the last tile's readers of Ks, Vs and dSs are done
-    flash::load_tile<D>(Ks, k, base, s, k0, T_len);
-    flash::load_tile<D>(Vs, v, base, s, k0, T_len);
+    flash::load_tile<D, R>(Ks, k, base, s, k0, T_len, d);
+    flash::load_tile<D, R>(Vs, v, base, s, k0, T_len, d);
     __syncthreads();
-    float sc[4][4], dp[4][4];
-    flash::dot_tile<D>(sc, Qs, Ks, ty, tx);
-    flash::dot_tile<D>(dp, dOs, Vs, ty, tx);
+    float sc[kR][kR], dp[kR][kR];
+    flash::dot_tile<D, R>(sc, Qs, Ks, ty, tx);
+    flash::dot_tile<D, R>(dp, dOs, Vs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
+    for (int i = 0; i < kR; ++i) {
+      const int qp = q0 + ty * kR + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kR; ++j) {
         const int kp = k0 + tx + 16 * j;
         const bool live =
             qp < T_len && kp < kv_len && (!causal || kp <= qp);
         const float p = live ? expf(sc[i][j] * scale - row_lse[i]) : 0.0f;
-        dSs[(ty * 4 + i) * (kTile + 1) + tx + 16 * j] =
-            (p * (dp[i][j] - row_delta[i]));
+        dSs[(ty * kR + i) * (R + 1) + tx + 16 * j] =
+            p * (dp[i][j] - row_delta[i]);
       }
     }
     __syncthreads();
-    flash::accumulate_rows<D>(acc, dSs, Ks, ty, tx);
+    flash::accumulate_rows<D, R>(acc, dSs, Ks, ty, tx);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int row = q0 + ty * kR + i;
     if (row >= T_len) continue;
     const long long at = dbase + row * ds_.t;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
-      dq[at + tx + 16 * j] = (scale * acc[i][j]);
+      if (tx + 16 * j < d) dq[at + tx + 16 * j] = scale * acc[i][j];
     }
   }
 }
@@ -127,24 +128,26 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dq, int H, int T_len,
-                        flash::Strides s, int causal, int kv_len,
+                        int d, flash::Strides s, int causal, int kv_len,
                         float scale, bool vec) {
-  __shared__ __align__(16) uint16_t Qs[kTile * (D + 8)];   // then K
-  __shared__ __align__(16) uint16_t dOs[kTile * (D + 8)];  // then V
-  __shared__ __align__(16) uint16_t Kt[D * (kTile + 8)];
+  uint16_t* Qs = flash::dyn_smem<uint16_t>();  // kTile x (D+8), then K
+  uint16_t* dOs = Qs + kTile * (D + 8);         // kTile x (D+8), then V
+  uint16_t* Kt = dOs + kTile * (D + 8);         // D x (kTile+8)
   const int lane = threadIdx.x % 32;
   const int r0 = (threadIdx.x / 32) * 16;
   const int g = lane / 4;
   const int tq = lane % 4;
-  const int q0 = blockIdx.x * kTile;
-  const int bh = blockIdx.y;
+  const flash::Tile tile = flash::tile_of(kTile, T_len);
+  const int q0 = tile.r0;
+  const int bh = tile.bh;
   const int b = bh / H;
   const int h = bh % H;
   const long long base = b * s.b + h * s.h;
-  const flash::Strides ds_ = flash::dense_strides(T_len, H, D);
+  const flash::Strides ds_ = flash::dense_strides(T_len, H, d);
   const long long dbase = b * ds_.b + h * ds_.h;
-  flash::load_tile_bf16<D, false>(Qs, q, base, s, q0, T_len, vec);
-  flash::load_tile_bf16<D, false>(dOs, dout, dbase, ds_, q0, T_len, vec);
+  flash::load_tile_bf16<D, false>(Qs, q, base, s, q0, T_len, d, vec);
+  flash::load_tile_bf16<D, false>(dOs, dout, dbase, ds_, q0, T_len, d,
+                                  vec);
   __syncthreads();
   uint32_t qa[D / 16][4], da[D / 16][4];
 #pragma unroll
@@ -170,9 +173,9 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
   const int k_end = causal ? min(kv_len, q0 + kTile) : kv_len;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // fragments loaded; the last tile's readers are done
-    flash::load_tile_bf16<D, false>(Ks, k, base, s, k0, T_len, vec);
-    flash::load_tile_bf16<D, true>(Kt, k, base, s, k0, T_len, vec);
-    flash::load_tile_bf16<D, false>(Vs, v, base, s, k0, T_len, vec);
+    flash::load_tile_bf16<D, false>(Ks, k, base, s, k0, T_len, d, vec);
+    flash::load_tile_bf16<D, true>(Kt, k, base, s, k0, T_len, d, vec);
+    flash::load_tile_bf16<D, false>(Vs, v, base, s, k0, T_len, d, vec);
     __syncthreads();
     // no mask when every key is live for every row and no row is past T
     const bool mask = k0 + kTile > kv_len || q0 + kTile > T_len ||
@@ -224,8 +227,8 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
     for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        dq[at + 8 * n + 2 * tq + j] =
-            __float2bfloat16(scale * acc[n][2 * i + j]);
+        const int c = 8 * n + 2 * tq + j;
+        if (c < d) dq[at + c] = __float2bfloat16(scale * acc[n][2 * i + j]);
       }
     }
   }
@@ -234,60 +237,58 @@ __global__ void __launch_bounds__(flash::kMmaThreads)
 template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
-                       void* dq, int B, int T_len, int H, flash::Strides s,
-                       int causal, int kv_len, float scale,
+                       void* dq, int B, int T_len, int H, int d,
+                       flash::Strides s, int causal, int kv_len, float scale,
                        cudaStream_t stream) {
-  const dim3 grid((T_len + kTile - 1) / kTile, B * H);
-  flash_dq_mma_kernel<D><<<grid, flash::kMmaThreads, 0, stream>>>(
+  constexpr size_t smem = flash::smem_bytes_bf16<D>(2, 1);
+  static const cudaError_t opt_in =
+      flash::allow_smem(flash_dq_mma_kernel<D>, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  dim3 grid;
+  const cudaError_t err = flash::grid_of(T_len, kTile, B * H, &grid);
+  if (err != cudaSuccess) return err;
+  flash_dq_mma_kernel<D><<<grid, flash::kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout), lse, delta,
-      static_cast<__nv_bfloat16*>(dq), H, T_len, s, causal, kv_len, scale,
-      flash::rows_aligned16(s, q, k, v, dout));
+      static_cast<__nv_bfloat16*>(dq), H, T_len, d, s, causal, kv_len, scale,
+      flash::rows_aligned16(d, s, q, k, v, dout));
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
-                   void* dq, int B, int T_len, int H, flash::Strides s,
+                   void* dq, int B, int T_len, int H, int d, flash::Strides s,
                    int causal, int kv_len, float scale, cudaStream_t stream) {
-  constexpr size_t smem = flash::smem_bytes<D>(4, 1, 0);
+  constexpr int R = flash::rows_fp32<D>();
+  constexpr size_t smem = flash::smem_bytes<D, R>(4, 1, 0);
   static const cudaError_t opt_in =
-      flash::allow_smem(flash_dq_kernel<D>, smem);
+      flash::allow_smem(flash_dq_kernel<D, R>, smem);
   if (opt_in != cudaSuccess) return opt_in;
-  const dim3 grid((T_len + kTile - 1) / kTile, B * H);
-  flash_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dim3 grid;
+  const cudaError_t err = flash::grid_of(T_len, R, B * H, &grid);
+  if (err != cudaSuccess) return err;
+  flash_dq_kernel<D, R><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dq), H, T_len, s, causal, kv_len, scale);
+      delta, static_cast<float*>(dq), H, T_len, d, s, causal, kv_len, scale);
   return cudaGetLastError();
 }
 
-// fp32 on the CUDA cores, bf16 on the tensor cores; D = 32 or 64.
-cudaError_t dispatch(int dtype, int D, const void* q, const void* k,
+// fp32 on the CUDA cores, bf16 on the tensor cores, at d's padded width.
+cudaError_t dispatch(int dtype, int d, const void* q, const void* k,
                      const void* v, const void* dout, const float* lse,
                      const float* delta, void* dq, int B, int T_len, int H,
                      flash::Strides s, int causal, int kv_len, float scale,
                      cudaStream_t stream) {
-  if (dtype == 0 && D == 32) {
-    return launch<32>(q, k, v, dout, lse, delta, dq, B, T_len, H, s, causal,
-                      kv_len, scale, stream);
-  }
-  if (dtype == 0 && D == 64) {
-    return launch<64>(q, k, v, dout, lse, delta, dq, B, T_len, H, s, causal,
-                      kv_len, scale, stream);
-  }
-  if (dtype == 1 && D == 32) {
-    return launch_mma<32>(q, k, v, dout, lse, delta, dq, B, T_len, H, s,
-                          causal, kv_len, scale, stream);
-  }
-  if (dtype == 1 && D == 64) {
-    return launch_mma<64>(q, k, v, dout, lse, delta, dq, B, T_len, H, s,
-                          causal, kv_len, scale, stream);
-  }
-  return cudaErrorInvalidValue;
+  FLASH_PADDED_DIMS(
+      d, return dtype == 0
+                 ? launch<DP>(q, k, v, dout, lse, delta, dq, B, T_len, H, d,
+                              s, causal, kv_len, scale, stream)
+                 : launch_mma<DP>(q, k, v, dout, lse, delta, dq, B, T_len,
+                                  H, d, s, causal, kv_len, scale, stream))
 }
 
 }  // namespace

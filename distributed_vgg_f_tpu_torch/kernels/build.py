@@ -5,7 +5,10 @@ into ``build/kernels/<name>-<hash>.so`` at the root of the checkout, with a
 plain C interface that the wrappers call through ctypes. The hash covers
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header builds anew and an unchanged one is reused. `build_all`
-starts one nvcc per source, all at once.
+starts one nvcc per source, all at once, and gives them `NVCC_TIMEOUT_S`
+seconds: past that it kills every nvcc still running and raises, naming
+the sources. The kernels reach the driver's tensor map encoder through
+cudaGetDriverEntryPoint, so no build links -lcuda.
 
 Importing this module needs no nvcc: only a build does, and without one it
 raises.
@@ -19,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -27,6 +31,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+#: seconds the nvcc processes of one build may run before it kills them
+NVCC_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -76,8 +82,22 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp)
     failed = []
+    deadline = time.monotonic() + NVCC_TIMEOUT_S
     for name, (proc, tmp) in procs.items():
-        out = proc.communicate()[0].decode(errors="replace")
+        try:
+            out = proc.communicate(
+                timeout=max(0.0, deadline - time.monotonic()))[0]
+        except subprocess.TimeoutExpired:
+            late = [n for n, (p, _) in procs.items() if p.poll() is None]
+            for p, t in procs.values():
+                p.kill()
+                p.wait()
+                if os.path.exists(t):
+                    os.remove(t)
+            raise RuntimeError(f"kernel build: nvcc ran past "
+                               f"{NVCC_TIMEOUT_S} s on {', '.join(late)} "
+                               "and was killed") from None
+        out = out.decode(errors="replace")
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
             if os.path.exists(tmp):

@@ -11,14 +11,16 @@ and compute the functions of the plain versions in ops/flash_attention.py
 
 Bound: device-memory bytes. At ViT's T = 197 and D = 64 each function
 does 100-150 FLOP per byte it must move, below the H100's ~295 bf16
-tensor-core FLOP a byte. bf16 runs the products on the tensor cores
-(mma.sync, fp32 accumulators), fp32 on the CUDA cores. Where the TPU
-kernels carry (acc, m, l) or the gradient sums in scratch along a
-sequential grid axis, a block here owns a 64-row tile of one (b, h) and
-loops over the other operand's tiles itself, staging them through shared
-memory; the (T, T) scores live only in registers and shared memory. Keys at or past `kv_len` and rows
-past T are masked inside the kernels, so T = 197 needs no padding copy.
-TMA, wgmma and a persistent grid are later work.
+tensor-core FLOP a byte. The bf16 forward is warp-specialised: a producer
+warp loads K/V tiles by TMA into a ring of shared-memory stages and two
+consumer warpgroups run both products as wgmma (csrc/flash_fwd.cu). The
+bf16 dQ, dK/dV and block kernels run mma.sync on the tensor cores, fp32
+everything on the CUDA cores. Where the TPU kernels carry (acc, m, l) or
+the gradient sums in scratch along a sequential grid axis, a block here
+owns a tile of rows of one (b, h) and loops over the other operand's tiles
+itself, staging them through shared memory; the (T, T) scores live only
+in registers and shared memory. Keys at or past `kv_len` and rows past T
+are masked inside the kernels, so T = 197 needs no padding copy.
 
 q, k and v are (B, T, H, D) with a contiguous D axis and any strides over
 (B, T, H) — the model passes the three slices of its fused QKV output
@@ -26,10 +28,24 @@ without a copy; they must share one set of strides. dO must be
 contiguous; o, dq, dk and dv come out contiguous (B, T, H, D); lse and
 delta are contiguous (B, H, T) fp32.
 
+Head dims: every kernel takes any D from 1 to `MAX_HEAD_DIM` = 256. The
+kernels are instantiated for the padded widths 16, 32, 64, 128 and 256
+(csrc/flash_common.cuh `padded_dim`) and run a smaller D on the next one
+up, with the padding columns zero in shared memory and never written out (the bf16 forward pads to 64, 128 or 256,
+its swizzle atom being 64 columns). The bf16 forward's tensor maps need
+16-byte aligned rows: base addresses on 16 bytes and the (B, T, H) strides
+multiples of 8 elements, increasing from H to B. Where q, k or v breaks
+that (a head dim that is not a multiple of 8, a permuted view), the
+forward wrapper makes one contiguous copy of the three, its rows padded
+to a multiple of 8 elements, and launches on that; nothing else copies.
+The grid puts (b*h, row tile) on one axis, so B*H has no limit of its own.
+
 Each wrapper checks device, dtype (float32 or bfloat16, one for all
-operands), shape, head dim (32 or 64) and layout, raises on anything
-else, returns the kernel's CUDA error as an exception, and never falls
-back to the plain version. `FWD_LAUNCHES`, `DQ_LAUNCHES`,
+operands), shape, head dim and layout, raises on anything else, returns
+the kernel's CUDA error as an exception, and never falls back to the plain
+version. A kernel that stalls on one of its barriers traps after a few
+seconds instead of hanging the card: the next synchronisation raises it
+as a RuntimeError. `FWD_LAUNCHES`, `DQ_LAUNCHES`,
 `DKV_LAUNCHES` and the block kernels' `BLOCK_FWD_LAUNCHES`,
 `BLOCK_DQ_LAUNCHES` and `BLOCK_DKV_LAUNCHES` count launches; nothing else
 touches them.
@@ -55,10 +71,13 @@ BLOCK_DQ_LAUNCHES = 0
 BLOCK_DKV_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernels are instantiated for
-HEAD_DIMS = (32, 64)
-#: the grid's limit on its second axis (B * H)
-_MAX_GRID_Y = 65535
+#: the kernels take every head dim from 1 to this
+MAX_HEAD_DIM = 256
+#: what the kernels return besides CUDA's own errors
+_KERNEL_ERRORS = {
+    -1: "the CUDA driver has no tensor map encoder or refused the layout",
+    -2: "the kernel did not compile to the 168 registers a thread that its "
+        "setmaxnreg budget needs"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,6 +91,38 @@ _BLOCK = [_I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
 _BLOCK_FWD_ARGS = [_P] * 6 + _BLOCK
 _BLOCK_DQ_ARGS = [_P] * 7 + _BLOCK
 _BLOCK_DKV_ARGS = [_P] * 8 + _BLOCK
+
+
+def _raise_launch(what: str, rc: int):
+    raise RuntimeError(f"{what} kernel launch failed: "
+                       + _KERNEL_ERRORS.get(rc, f"CUDA error {rc}"))
+
+
+def _check_head_dim(d: int) -> None:
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside the flash kernels' rule "
+                         f"1 <= D <= {MAX_HEAD_DIM}")
+
+
+def _tma_ready(x: torch.Tensor) -> bool:
+    """Whether a tensor map can read x (B, T, H, D) in place: base on 16
+    bytes and the (B, T, H) strides multiples of 8 elements, increasing
+    from H to B."""
+    sb, st, sh, _ = x.stride()
+    return (x.data_ptr() % 16 == 0 and sb % 8 == 0 and st % 8 == 0
+            and sh % 8 == 0 and sh <= st <= sb)
+
+
+def _tma_copy(x: torch.Tensor) -> torch.Tensor:
+    """x copied into a contiguous buffer whose rows are padded to a
+    multiple of 8 elements, as a (B, T, H, D) view of it (the padding is
+    never read)."""
+    b, t, h, d = x.shape
+    buf = torch.empty((b, t, h, -(-d // 8) * 8), dtype=x.dtype,
+                      device=x.device)
+    view = buf[..., :d]
+    view.copy_(x)
+    return view
 
 
 def _entry(name: str, argtypes):
@@ -100,11 +151,9 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or v.device != q.device:
         raise ValueError("q, k and v must share one dtype and device")
     b, t, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not one of {HEAD_DIMS}")
-    if min(b, t, h) < 1 or b * h > _MAX_GRID_Y:
-        raise ValueError(f"(B, T, H) = {(b, t, h)} outside the kernels' "
-                         f"range (B*H <= {_MAX_GRID_Y})")
+    _check_head_dim(d)
+    if min(b, t, h) < 1:
+        raise ValueError(f"(B, T, H) = {(b, t, h)} has an empty axis")
     if q.stride(-1) != 1 or k.stride() != q.stride() \
             or v.stride() != q.stride():
         raise ValueError("the flash kernels take q, k and v with a "
@@ -145,9 +194,13 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = False, kv_len: int = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o (B, T, H, D) in q's dtype, lse (B, H, T) fp32) on the current
-    stream. Same semantics as ops.flash_attention.attention_fwd."""
+    stream. Same semantics as ops.flash_attention.attention_fwd. In bf16,
+    q, k and v that a tensor map cannot read in place (`_tma_ready`) are
+    first copied, once, into row-padded contiguous buffers."""
     global FWD_LAUNCHES
     kv_len = _check_qkv(q, k, v, kv_len)
+    if q.dtype == torch.bfloat16 and not all(map(_tma_ready, (q, k, v))):
+        q, k, v = _tma_copy(q), _tma_copy(k), _tma_copy(v)
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -155,8 +208,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), *_shape_args(q, causal, kv_len))
     if rc != 0:
-        raise RuntimeError(f"flash forward kernel launch failed with CUDA "
-                           f"error {rc}")
+        _raise_launch("flash forward", rc)
     FWD_LAUNCHES += 1
     return o, lse
 
@@ -175,8 +227,7 @@ def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = False,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             *_shape_args(q, causal, kv_len))
     if rc != 0:
-        raise RuntimeError(f"flash dQ kernel launch failed with CUDA error "
-                           f"{rc}")
+        _raise_launch("flash dQ", rc)
     DQ_LAUNCHES += 1
     return dq
 
@@ -196,8 +247,7 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = False,
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *_shape_args(q, causal, kv_len))
     if rc != 0:
-        raise RuntimeError(f"flash dK/dV kernel launch failed with CUDA "
-                           f"error {rc}")
+        _raise_launch("flash dK/dV", rc)
     DKV_LAUNCHES += 1
     return dk, dv
 
@@ -234,12 +284,11 @@ def _check_block(q, k_blk, v_blk, kv_len) -> int:
         raise ValueError(f"k_blk and v_blk must be (B*H, Tk, D) beside q "
                          f"{tuple(q.shape)}, got {tuple(k_blk.shape)} "
                          f"{tuple(v_blk.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not one of {HEAD_DIMS}")
+    _check_head_dim(d)
     tk = k_blk.shape[1]
-    if min(bh, tq, tk) < 1 or bh > _MAX_GRID_Y:
-        raise ValueError(f"(B*H, Tq, Tk) = {(bh, tq, tk)} outside the "
-                         f"kernels' range (B*H <= {_MAX_GRID_Y})")
+    if min(bh, tq, tk) < 1:
+        raise ValueError(f"(B*H, Tq, Tk) = {(bh, tq, tk)} has an empty "
+                         "axis")
     kv_len = tk if kv_len is None else int(kv_len)
     if not 1 <= kv_len <= tk:
         raise ValueError(f"kv_len {kv_len} outside [1, {tk}]")
@@ -268,8 +317,7 @@ def flash_block_fwd_cuda(q, k_blk, v_blk, acc, m, l, *, q_off: int,
             acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             *_block_args(q, k_blk, q_off, k_off, causal, kv_len))
     if rc != 0:
-        raise RuntimeError(f"flash block forward kernel launch failed with "
-                           f"CUDA error {rc}")
+        _raise_launch("flash block forward", rc)
     BLOCK_FWD_LAUNCHES += 1
     return acc, m, l
 
@@ -294,8 +342,7 @@ def flash_block_dq_cuda(q, k_blk, v_blk, do, lse, delta, dq, *, q_off: int,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             *_block_args(q, k_blk, q_off, k_off, causal, kv_len))
     if rc != 0:
-        raise RuntimeError(f"flash block dQ kernel launch failed with CUDA "
-                           f"error {rc}")
+        _raise_launch("flash block dQ", rc)
     BLOCK_DQ_LAUNCHES += 1
     return dq
 
@@ -317,7 +364,6 @@ def flash_block_dkv_cuda(q, k_blk, v_blk, do, lse, delta, dk_blk, dv_blk, *,
             dv_blk.data_ptr(),
             *_block_args(q, k_blk, q_off, k_off, causal, kv_len))
     if rc != 0:
-        raise RuntimeError(f"flash block dK/dV kernel launch failed with "
-                           f"CUDA error {rc}")
+        _raise_launch("flash block dK/dV", rc)
     BLOCK_DKV_LAUNCHES += 1
     return dk_blk, dv_blk

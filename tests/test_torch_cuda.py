@@ -20,11 +20,13 @@ parameter gradients (narrow model, 32 px) and for the updated
 parameters.
 
 Flash kernels vs their plain versions: max error within 1e-5 of the
-largest reference value in fp32 (the kernels sum in 64-key tiles with an
-online rescale, the plain versions whole rows at once), 1e-2 in bf16 (one
-bf16 ulp of an element is at most 3.9e-3 of the largest), lse within
-1e-5 in both; the same for the causal kernels at T = 2048 and for the
-three ring block kernels (their fp32 state and accumulators included).
+largest reference value in fp32 (the kernels sum in 64- or 128-key tiles
+with an online rescale, the plain versions whole rows at once), 1e-2 in
+bf16 (one bf16 ulp of an element is at most 3.9e-3 of the largest), lse
+within 1e-5 in both; the same for the causal kernels at T = 2048 and for
+the three ring block kernels (their fp32 state and accumulators
+included), at head dims 8 to 256 and at B*H = 65600 (past the 65535 of a
+grid's y axis).
 The sequence-parallel entry points on one card (no process group: a ring
 of one) against `flash_self_attention`: fp32 2e-5 (output) and 5e-5
 (gradients), bf16 3e-2, the JAX ring tests' tolerances. A narrow ViT's fp32 train step through the flash kernels:
@@ -187,9 +189,12 @@ def test_card_train_step_gives_conv1_the_cpu_gradient(cuda_device):
 # ------------------------------------------------------------ flash kernels
 def _flash_case(device, b, t, h, d, dtype, layout, seed=0):
     """q, k, v and dO in `layout`: "qkv" (q, k, v slices of one
-    (B, T, 3, H, D) tensor, as the model passes them), "dense", or
+    (B, T, 3, H, D) tensor, as the model passes them), "dense",
     "misaligned" (each tensor one element into its storage, so no row
-    starts on 16 bytes); and the plain forward and delta."""
+    starts on 16 bytes) or "permuted" (q, k and v (B, H, T, D) tensors
+    seen as (B, T, H, D), whose H stride exceeds their T stride: a tensor
+    map cannot read those in place, so the bf16 forward's wrapper copies
+    them); and the plain forward and delta."""
     from distributed_vgg_f_tpu_torch.ops.flash_attention import \
         attention_delta, attention_fwd
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -203,6 +208,8 @@ def _flash_case(device, b, t, h, d, dtype, layout, seed=0):
 
     if layout == "qkv":
         q, k, v = draw(b, t, 3, h, d).unbind(2)
+    elif layout == "permuted":
+        q, k, v = (draw(b, h, t, d).transpose(1, 2) for _ in range(3))
     else:
         q, k, v = (draw(b, t, h, d) for _ in range(3))
     return q, k, v, draw(b, t, h, d), attention_fwd, attention_delta
@@ -223,7 +230,12 @@ def _close(got, want, tol):
     (2, 197, 6, 64, True, None, "qkv"),
     (3, 77, 2, 32, False, 50, "dense"),     # ragged tiles and padding keys
     (2, 130, 3, 64, True, 100, "dense"),
-    (2, 100, 2, 64, True, 90, "misaligned")])
+    (2, 100, 2, 64, True, 90, "misaligned"),
+    (1, 128, 1, 256, True, None, "dense"),  # JAX's test_wide_head_dim
+    (2, 197, 2, 128, True, 150, "qkv"),
+    (65600, 8, 1, 64, False, None, "qkv"),  # B*H past 65535
+    (2, 100, 2, 64, False, None, "permuted"),
+    (2, 100, 2, 12, True, 80, "dense")])    # rows not on 16 bytes
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_flash_kernels_match_plain_on_card(cuda_device, b, t, h, d, causal,
@@ -255,14 +267,46 @@ def test_flash_kernels_match_plain_on_card(cuda_device, b, t, h, d, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 256])
+@pytest.mark.parametrize("t", [1, 65, 197, 2048])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_flash_forward_takes_every_head_dim_on_card(cuda_device, d, t,
+                                                    causal, dtype, tol):
+    """The forward at the head dims the JAX package's tests use (8, 16,
+    256) and the padded widths, around the tile and ring-stage edges,
+    with keys past kv_len masked, from slices of one QKV tensor."""
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    q, k, v, _, fwd, _ = _flash_case(cuda_device, 2, t, 2, d, dtype, "qkv",
+                                     seed=d + t)
+    kw = {"causal": causal, "kv_len": max(1, t - 7)}
+    before = flash_cuda.FWD_LAUNCHES
+    o, lse = flash_cuda.flash_fwd_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_cuda.FWD_LAUNCHES == before + 1
+    o_ref, lse_ref = fwd(q, k, v, **kw)
+    _close(o, o_ref, tol)
+    _close(lse, lse_ref, 1e-5)
+
+
+@pytest.mark.cuda
 def test_flash_kernels_refuse_what_they_do_not_take(cuda_device):
+    """Every head dim from 1 to 256 and any B*H are taken (the tests
+    above); still refused: other dtypes, head dims past 256, a strided
+    head axis, kv_len outside [1, T] and a dO of the wrong type."""
     from distributed_vgg_f_tpu_torch.ops import flash_cuda
     q = torch.randn(1, 8, 2, 64, device=cuda_device)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_cuda.flash_fwd_cuda(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError, match="head dim"):
-        x = q[..., :48]
+    with pytest.raises(ValueError, match="head dim 257 outside"):
+        x = torch.randn(1, 8, 2, 257, device=cuda_device)
         flash_cuda.flash_fwd_cuda(x, x, x)
+    with pytest.raises(ValueError, match="head dim 300 outside"):
+        x = torch.randn(4, 8, 300, device=cuda_device)
+        flash_cuda.flash_block_fwd_cuda(x, x, x, x.clone(), x[..., :1],
+                                        x[..., :1], q_off=0, k_off=0,
+                                        causal=False)
     with pytest.raises(ValueError, match="contiguous head axis"):
         x = q.transpose(1, 3).contiguous().transpose(1, 3)
         flash_cuda.flash_fwd_cuda(x, x, x)
@@ -340,7 +384,11 @@ def test_card_vit_train_step_matches_cpu(cuda_device):
     (6, 197, 197, 64, 197, 147, True, 180),        # partly masked, ragged
     (6, 197, 197, 64, 394, 0, False, 180),
     (4, 130, 70, 32, 0, 40, True, 60),             # Tq != Tk
-    (4, 130, 130, 32, 0, 130, True, None)])        # wholly in the future
+    (4, 130, 130, 32, 0, 130, True, None),         # wholly in the future
+    (4, 197, 197, 128, 197, 197, True, 150),       # wide heads
+    (2, 130, 130, 256, 130, 0, False, None),
+    (6, 90, 90, 8, 90, 40, True, None),            # narrow heads
+    (65600, 16, 16, 64, 8, 0, True, 12)])          # B*H past 65535
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_block_kernels_match_plain_on_card(cuda_device, bh, tq, tk, d,

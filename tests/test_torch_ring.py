@@ -55,13 +55,18 @@ def _close(got, want, tol, what):
 
 
 # ------------------------------------------------------------ block steps
-# (tq, tk, q_off, k_off, causal, kv_len, virgin state)
+# (tq, tk, q_off, k_off, causal, kv_len, virgin state, head dim); the
+# head dims are those of the JAX tests (8, 16) and the widest (256)
 BLOCK_CASES = {
-    "past_block": (64, 64, 64, 0, False, None, False),
-    "past_block_kv_len": (64, 64, 64, 0, False, 40, False),
-    "diagonal_causal": (128, 128, 128, 128, True, None, True),
-    "partly_masked_causal": (64, 128, 64, 100, True, 100, False),
-    "fully_past_causal": (64, 64, 256, 0, True, None, False),
+    "past_block": (64, 64, 64, 0, False, None, False, 16),
+    "past_block_kv_len": (64, 64, 64, 0, False, 40, False, 16),
+    "diagonal_causal": (128, 128, 128, 128, True, None, True, 16),
+    "partly_masked_causal": (64, 128, 64, 100, True, 100, False, 16),
+    "fully_past_causal": (64, 64, 256, 0, True, None, False, 16),
+    "past_block_d8": (64, 64, 64, 0, False, None, False, 8),
+    "diagonal_causal_d8": (64, 64, 64, 64, True, None, True, 8),
+    "past_block_kv_len_d256": (64, 64, 64, 0, False, 40, False, 256),
+    "diagonal_causal_d256": (128, 128, 0, 0, True, None, True, 256),
 }
 
 
@@ -84,8 +89,8 @@ def _block_inputs(tq, tk, virgin, seed, bh=3, d=16):
                                        ("bfloat16", 3e-2)])
 @pytest.mark.parametrize("case", sorted(BLOCK_CASES))
 def test_block_update_and_grads_match_jax(interpret, case, dtype, tol):
-    tq, tk, q_off, k_off, causal, kv_len, virgin = BLOCK_CASES[case]
-    x = _block_inputs(tq, tk, virgin, seed=len(case) + tq)
+    tq, tk, q_off, k_off, causal, kv_len, virgin, d = BLOCK_CASES[case]
+    x = _block_inputs(tq, tk, virgin, seed=len(case) + tq, d=d)
     if kv_len is not None:     # padded keys start their accumulators at 0
         x["dk"][:, kv_len:] = 0.0
         x["dv"][:, kv_len:] = 0.0
