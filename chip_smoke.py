@@ -8,8 +8,9 @@ and trains on the card.
 Phases, one JSON line each:
   card      name and power limit (nvidia-smi), torch and CUDA versions
   build     nvcc build of every kernel under distributed_vgg_f_tpu_torch/
-            csrc/ for sm_90a (each nvcc given 600 s), with its seconds and
-            the script's wall seconds so far
+            csrc/ for sm_90a (each nvcc given 600 s), with its seconds, the
+            script's wall seconds so far, and ptxas's registers, shared
+            memory and spills for each warp-specialised (wgmma) kernel
   kernel    the LRN forward kernel against its plain PyTorch version on
             the card, at the served path's shapes (buckets 1 and 32) and
             an odd shape, in bf16 and fp32, with device times of the
@@ -47,11 +48,13 @@ Phases, one JSON line each:
             16, 32, 100, 128 and 256 (JAX's (1, 128, 1, 256) causal among
             them), at B*H = 65600, and (the forward) at T = 1, 63, 64,
             65, 129, 197 and 2048 with kv_len masks (around the tiles and
-            the K/V ring's stages), in bf16 and fp32, with device times of
-            the kernel, the plain version and the library call (SDPA, its
-            autograd backward for dQ and dK/dV together) at ViT's shapes
-            and at ViT's T with heads of 128 and 256, and the
-            bytes/operations bound
+            the K/V ring's stages), dQ and dK/dV at T = 2 … 2048 with the
+            same masks at head dims 64 and 256, in bf16 and fp32, with
+            device times of the kernel, the plain version and the library
+            call (SDPA, its autograd backward for dQ and dK/dV together) at
+            ViT's shapes and at ViT's T with heads of 128 and 256, the
+            bytes/operations bound and the kernel's TFLOP/s; and dQ, dK and
+            dV of two launches on the same inputs bit-equal at ViT's layer
   vit_model full-width ViT-S/16 (flash layout, bf16, seeded init) through
             build_engine on the bucket ladder: 12 forward launches per
             forward, probabilities finite and summing to 1, fp32 and bf16
@@ -79,7 +82,8 @@ Phases, one JSON line each:
             the kernel, the plain version and causal SDPA, and the bound
             over the causal live pairs: the counterpart of the JAX
             package's jagged causal kernels is the kernels' causal loop
-            bound; and the stress lengths of flash_kernel, causal
+            bound; the stress lengths of flash_kernel, causal; and the
+            backward's bit-equal repeat at T = 2048
   ring_kernel the three ring block kernels (fold, dQ step, dK/dV step)
             against their plain versions at the offsets the ranks of a
             4-rank ring see at the local shape (4, 2048, 6, 64) — a past
@@ -226,6 +230,48 @@ def lrn_bwd_bound_ms(shape, itemsize, depth_radius, peaks):
                                                           "operations")
 
 
+def _ptxas_report(logs):
+    """From nvcc's -Xptxas -v output of each source: the registers a
+    thread, static shared memory and spill bytes of each warp-specialised
+    (wgmma) kernel instantiation, and the codes of ptxas's performance
+    notes on it (C7515-C7520: wgmma it serialised), as
+    {"kernel<DP>": {...}}."""
+    def entry_of(line):
+        k = re.search(r"(flash_[a-z]+_wgmma_kernel)ILi(\d+)E", line)
+        return f"{k.group(1)}<{k.group(2)}>" if k else None
+
+    report = {}
+    for text in logs.values():
+        entry = None
+        for line in text.splitlines():
+            note = re.search(r"\((C75\d\d)\)", line)
+            if note and entry_of(line):
+                codes = report.setdefault(entry_of(line), {}).setdefault(
+                    "ptxas_notes", [])
+                if note.group(1) not in codes:
+                    codes.append(note.group(1))
+                continue
+            if "Compiling entry function" in line:
+                entry = entry_of(line)
+                if entry:
+                    report.setdefault(entry, {}).setdefault("ptxas_notes",
+                                                            [])
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                report[entry]["spill_stores"] = int(m.group(1))
+                report[entry]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[entry]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                report[entry]["static_smem"] = int(m.group(1)) if m else 0
+    return report
+
+
 # ------------------------------------------------------------------ phases
 def phase_kernel(peaks):
     """LRN kernel vs plain on the card; returns per-case records."""
@@ -304,11 +350,11 @@ def _trace_breakdown(prof, count, top):
                               if "lrn_fwd" in k) / count,
             "lrn_bwd_us": sum(v for k, v in by_name.items()
                               if "lrn_bwd" in k) / count,
-            # the port's (anonymous namespace)::flash_fwd_kernel (fp32),
-            # flash_fwd_wgmma_kernel (bf16) and flash_{dq,dkv}(_mma)_kernel,
-            # not PyTorch's own flash kernels
+            # the port's (anonymous namespace)::flash_{fwd,dq,dkv}_kernel
+            # (fp32) and flash_{fwd,dq,dkv}_wgmma_kernel (bf16), not
+            # PyTorch's own flash kernels
             "flash_us": {n: sum(v for k, v in by_name.items() if re.search(
-                                rf"namespace\)::{n}(_mma|_wgmma)?_kernel", k))
+                                rf"namespace\)::{n}(_wgmma)?_kernel", k))
                          / count
                          for n in ("flash_fwd", "flash_dq", "flash_dkv")},
             "top_us": [[k[:80], v / count] for k, v in ranked]}
@@ -807,21 +853,26 @@ def _zero_flash_counts():
     flash_cuda.DKV_LAUNCHES = 0
 
 
+def flash_flops(kind, b, t, h, d, causal, kv_len):
+    """The products' FLOPs of one flash kernel on (B, T, H, D) over this
+    run's live (query, key) pairs: 2 products in the forward, 3 in dQ, 4 in
+    dK/dV, each 2*D a pair."""
+    live = sum(min(i + 1, kv_len) if causal else kv_len for i in range(t))
+    products = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[kind]
+    return products * 2 * d * b * h * live
+
+
 def flash_bound_ms(kind, b, t, h, d, itemsize, causal, kv_len, peaks):
     """Least time for one flash kernel on (B, T, H, D): each input read
     once and each output written once (lse and delta as one fp32 a row)
-    at the memory rate, against the products' FLOPs over this run's live
-    (query, key) pairs at the peak for the inputs' type (bf16 tensor
-    cores; fp32 off them)."""
+    at the memory rate, against the products' FLOPs (flash_flops) at the
+    peak for the inputs' type (bf16 tensor cores; fp32 off them)."""
     bw, fp32_flops = peaks
     n = b * t * h * d * itemsize
     rows = b * h * t * 4
-    live = sum(min(i + 1, kv_len) if causal else kv_len for i in range(t))
-    pairs = b * h * live
-    moved, products = {"flash_fwd": (4 * n + rows, 2),
-                       "flash_dq": (5 * n + 2 * rows, 3),
-                       "flash_dkv": (6 * n + 2 * rows, 4)}[kind]
-    flops = products * 2 * d * pairs
+    moved = {"flash_fwd": 4 * n + rows, "flash_dq": 5 * n + 2 * rows,
+             "flash_dkv": 6 * n + 2 * rows}[kind]
+    flops = flash_flops(kind, b, t, h, d, causal, kv_len)
     peak = _BF16_TENSOR_FLOPS if itemsize == 2 else fp32_flops
     bytes_ms, ops_ms = moved / bw * 1e3, flops / peak * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
@@ -936,9 +987,14 @@ def _flash_phase(phase, cases, peaks, seed):
                     rec["library"] = (sdpa_name if lib else
                                       f"autograd backward of {sdpa_name} "
                                       "(dQ, dK and dV together)")
+                    live_len = t if kv_len is None else kv_len
                     rec["bound_ms"], rec["bound_by"] = flash_bound_ms(
-                        name, b, t, h, d, dtype.itemsize, causal,
-                        t if kv_len is None else kv_len, peaks)
+                        name, b, t, h, d, dtype.itemsize, causal, live_len,
+                        peaks)
+                    # the kernel's issued rate over the live pairs
+                    rec["tflops"] = flash_flops(
+                        name, b, t, h, d, causal, live_len) / (
+                            rec["ms"] * 1e-3) / 1e12
                 del sets
             for rec in recs.values():
                 records.append(rec)
@@ -999,13 +1055,110 @@ def _ring_stress(phase, causal, seed):
     return records
 
 
+#: the backward's stress lengths: those of _RING_STRESS but T = 1, whose
+#: exact dQ and dK are zero, and T = 2 in its place, with their kv_len masks
+_BWD_STRESS = ((2, 2),) + _RING_STRESS[1:]
+#: head dims of the backward stress: ViT's, and the widest, whose dK/dV
+#: splits its columns between the two consumer warpgroups
+_BWD_STRESS_DIMS = (_VIT_D, 256)
+
+
+def _bwd_stress(phase, causal, seed):
+    """dQ and dK/dV against their plain versions at (2, T, 3, D) for the
+    lengths of _BWD_STRESS, which sit around the kernels' 64- and 128-row
+    tiles and the stages of their rings, at the head dims of
+    _BWD_STRESS_DIMS, in bf16 and fp32 (1e-2 / 1e-5 of the largest value);
+    keys at or past kv_len must get exactly zero dK and dV. Returns the
+    records."""
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import (
+        attention_delta, attention_dkv, attention_dq, attention_fwd)
+    from distributed_vgg_f_tpu_torch.ops.flash_cuda import (flash_dkv_cuda,
+                                                            flash_dq_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    records = []
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        for d in _BWD_STRESS_DIMS:
+            for t, kv_len in _BWD_STRESS:
+                q, k, v = torch.randn(2, t, 3, 3, d, generator=gen,
+                                      device="cuda").to(dtype).unbind(2)
+                do = torch.randn(2, t, 3, d, generator=gen,
+                                 device="cuda").to(dtype)
+                kw = {"causal": causal, "kv_len": kv_len}
+                o, lse = attention_fwd(q, k, v, **kw)
+                delta = attention_delta(do, o)
+                args = (q, k, v, do, lse, delta)
+                got = {"flash_dq": (flash_dq_cuda(*args, **kw),),
+                       "flash_dkv": flash_dkv_cuda(*args, **kw)}
+                want = {"flash_dq": (attention_dq(*args, **kw),),
+                        "flash_dkv": attention_dkv(*args, **kw)}
+                torch.cuda.synchronize()
+                dk, dv = got["flash_dkv"]
+                check(bool((dk[:, kv_len:] == 0).all()
+                           and (dv[:, kv_len:] == 0).all()),
+                      f"padding keys got a gradient at backward stress "
+                      f"T = {t} D = {d} causal={causal} {dtype}")
+                for name in ("flash_dq", "flash_dkv"):
+                    err = rel = 0.0
+                    for g, w in zip(got[name], want[name]):
+                        g, w = g.float(), w.float()
+                        e = float((g - w).abs().max())
+                        scale = float(w.abs().max())
+                        check(bool(torch.isfinite(g).all())
+                              and e <= tol * scale,
+                              f"{name} off its plain version by {e} at "
+                              f"backward stress T = {t} D = {d} "
+                              f"causal={causal} {dtype} (allowed "
+                              f"{tol * scale})")
+                        err, rel = max(err, e), max(rel, e / scale)
+                    rec = {"name": name, "site": f"bwd_stress_{t}",
+                           "shape": [2, t, 3, d],
+                           "dtype": str(dtype).replace("torch.", ""),
+                           "causal": causal, "kv_len": kv_len,
+                           "tol_of_max": tol, "max_abs_err": err,
+                           "max_rel_err": rel}
+                    records.append(rec)
+                    emit(phase, **rec)
+    return records
+
+
+def _bwd_repeat(phase, shape, causal, seed):
+    """dQ, dK and dV of two launches on the same bf16 inputs must be the
+    same bits: no kernel sums with atomics."""
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import \
+        attention_delta
+    from distributed_vgg_f_tpu_torch.ops.flash_cuda import (flash_dkv_cuda,
+                                                            flash_dq_cuda,
+                                                            flash_fwd_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, t, h, d = shape
+    q, k, v = torch.randn(b, t, 3, h, d, generator=gen,
+                          device="cuda").to(torch.bfloat16).unbind(2)
+    do = torch.randn(b, t, h, d, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    o, lse = flash_fwd_cuda(q, k, v, causal=causal)
+    args = (q, k, v, do, lse, attention_delta(do, o))
+    first = (flash_dq_cuda(*args, causal=causal),
+             *flash_dkv_cuda(*args, causal=causal))
+    second = (flash_dq_cuda(*args, causal=causal),
+              *flash_dkv_cuda(*args, causal=causal))
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(x, y)) for x, y in zip(first, second)]
+    check(all(same), f"dQ, dK, dV of two launches differ at {shape} "
+          f"causal={causal}: bit-equal {same}")
+    emit(phase, name="flash_bwd_repeat", shape=list(shape), causal=causal,
+         dtype="bfloat16", bit_equal={"dq": same[0], "dk": same[1],
+                                      "dv": same[2]})
+
+
 def phase_flash_kernel(peaks):
     """Flash forward, dQ and dK/dV kernels vs their plain versions on the
     card at ViT-S/16's shapes, a ragged and a causal one, at head dims 8
     to 256 (JAX's test_wide_head_dim shape (1, 128, 1, 256) causal among
     them), at B*H = 65600 (above the 65535 of a grid's y axis), and at the
-    ring stress lengths (the forward); returns the records."""
-    return _flash_phase("flash_kernel", [
+    ring stress lengths (the forward) and the backward stress lengths
+    (dQ, dK/dV); then the backward's bit-equal repeat at ViT's layer;
+    returns the records."""
+    records = _flash_phase("flash_kernel", [
         ("vit_train", (1024, _VIT_T, _VIT_H, _VIT_D), False, None, 3),
         ("vit_serve", (32, _VIT_T, _VIT_H, _VIT_D), False, None, 40),
         ("ragged", (3, 77, 2, 32), False, 50, 0),
@@ -1018,7 +1171,12 @@ def phase_flash_kernel(peaks):
         ("wide_128", (256, _VIT_T, _VIT_H, 128), False, None, 2),
         ("wide_256", (128, _VIT_T, _VIT_H, 256), False, None, 2),
         ("bh_65600", (65600, 8, 1, 64), False, None, 0)], peaks,
-        seed=3) + _ring_stress("flash_kernel", False, seed=4)
+        seed=3)
+    records += _ring_stress("flash_kernel", False, seed=4)
+    records += _bwd_stress("flash_kernel", False, seed=5)
+    _bwd_repeat("flash_kernel", (1024, _VIT_T, _VIT_H, _VIT_D), False,
+                seed=6)
+    return records
 
 
 def _tree_size(tree):
@@ -1349,12 +1507,17 @@ def phase_flash_causal(peaks):
     """The flash kernels with causal=True at T = 2048 and 8192 (where the
     JAX package's "auto" picks its jagged grids on the TPU), against
     their plain versions, timed against causal SDPA and the bound over
-    the causal live pairs; returns the records (rows 4, 7 and 8 of
-    PERF.md's kernel table)."""
-    return _flash_phase("flash_causal", [
+    the causal live pairs, then the stress lengths of the forward and the
+    backward, causal, and the backward's bit-equal repeat at T = 2048;
+    returns the records (rows 4, 7 and 8 of PERF.md's kernel table)."""
+    records = _flash_phase("flash_causal", [
         (f"causal_{t}", (_LONG_B, t, _VIT_H, _VIT_D), True, None, 2)
-        for t in _LONG_TS], peaks, seed=11) + _ring_stress(
-            "flash_causal", True, seed=12)
+        for t in _LONG_TS], peaks, seed=11)
+    records += _ring_stress("flash_causal", True, seed=12)
+    records += _bwd_stress("flash_causal", True, seed=13)
+    _bwd_repeat("flash_causal", (_LONG_B, 2048, _VIT_H, _VIT_D), True,
+                seed=14)
+    return records
 
 
 # ------------------------------------------------------ ring block kernels
@@ -1805,10 +1968,12 @@ def main() -> int:
          tf32={"matmul": False, "cudnn": False})
 
     t0 = time.perf_counter()
-    libs = build.build_all()
+    logs = {}
+    libs = build.build_all(logs=logs)
     emit("build", seconds=time.perf_counter() - t0,
          wall_s=time.perf_counter() - t_script, kernels=sorted(libs),
-         flags=build.NVCC_FLAGS, nvcc_timeout_s=build.NVCC_TIMEOUT_S)
+         flags=build.NVCC_FLAGS, nvcc_timeout_s=build.NVCC_TIMEOUT_S,
+         ptxas=_ptxas_report(logs))
 
     records = phase_kernel(peaks)
     bwd_records = phase_kernel_bwd(peaks)
@@ -1880,7 +2045,7 @@ def main() -> int:
                                if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"],
+            "library_ms": rec["library_ms"], "tflops": rec["tflops"],
             "head_dims": head_dims(flash_records + causal_records, name),
             "work": "one attention layer of ViT-S/16 in bf16 at batch 1024: "
                     f"(B, T, H, D) = {tuple(rec['shape'])}"}
@@ -1905,7 +2070,7 @@ def main() -> int:
                                if r["name"] == kernel),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec["library_ms"],
+            "library_ms": rec["library_ms"], "tflops": rec["tflops"],
             "head_dims": head_dims(flash_records + causal_records, kernel),
             "work": "causal attention over ViT-S/16's heads in bf16 at "
                     f"(B, T, H, D) = {tuple(rec['shape'])}: the causal loop "

@@ -6,9 +6,11 @@
 // smaller D on the next one up: the padding columns are zero-filled in
 // shared memory, so they add nothing to q.k, and are never written out.
 //
-// Grid: a block's (b*h, row tile) pair is one index on the grid's x axis
-// (tile_of), which allows 2^31 - 1 blocks, so B*H is not limited by the
-// y axis's 65535.
+// Grid of the fp32 and ring block kernels: a block's (b*h, row tile) pair
+// is one index on the grid's x axis (tile_of), which allows 2^31 - 1
+// blocks, so B*H is not limited by the y axis's 65535. The bf16 forward,
+// dQ and dK/dV walk work tiles persistently instead (the end of this
+// file).
 //
 // The fp32 versions run on the CUDA cores: a block of kThreads = 256
 // threads is a 16 x 16 grid, thread (ty, tx) owning rows ty*(R/16) ..
@@ -19,7 +21,8 @@
 // fp32 with a row stride of D+1 (or R+1), so the column reads of one
 // half-warp hit 16 distinct banks and the two half-warps of a warp read
 // either the same word or distinct banks. Products are fp32 fused
-// multiply-adds. The bf16 versions run on the tensor cores (below).
+// multiply-adds. In bf16 the ring block kernels run mma.sync on the tensor
+// cores (below); the forward, dQ and dK/dV run wgmma (hopper.cuh).
 //
 // q, k and v are (B, T, H, D) with a contiguous D axis and any strides
 // over (B, T, H): the model passes the three slices of its fused QKV
@@ -209,7 +212,7 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 tensor-core versions: mma.sync m16n8k16 with bf16
+// The ring block kernels' bf16 versions: mma.sync m16n8k16 with bf16
 // operands and fp32 accumulators. A block of kWarps = 4 warps owns a
 // kTile = 64-row tile, 16 rows a warp. Tiles live in shared memory as bf16
 // with a row stride of (columns + 8), so the 32 lanes' fragment reads hit
@@ -248,6 +251,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t ld_pair(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Whether a tensor map can read bf16 (B, T, H, D) tensors with element
+// strides s in place: bases on 16 bytes and the (B, T, H) strides
+// multiples of 8 elements (TMA's 16-byte rules).
+template <typename... Ptr>
+inline bool tma_rows(Strides s, Ptr... ptrs) {
+  const auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return s.b % 8 == 0 && s.t % 8 == 0 && s.h % 8 == 0 && (al(ptrs) && ...);
 }
 
 // Whether every row of these tensors starts on 16 bytes (pointers, the
@@ -387,6 +401,35 @@ __device__ __forceinline__ int block_query_start(int k0, int rows, int q_off,
                                                  int k_off, int causal) {
   const int first = k_off + k0 - q_off;  // local row at key k0's position
   return causal && first > 0 ? first / rows * rows : 0;
+}
+
+// ---------------------------------------------------------------------------
+// The persistent bf16 kernels (flash_fwd.cu, flash_dq.cu, flash_dkv.cu):
+// one block an SM takes work tiles t = blockIdx.x, blockIdx.x + gridDim.x,
+// ... A work tile is rows r0 .. r0 + kM - 1 of one (b, h) — query rows in
+// the forward and dQ, key rows in dK/dV — and the n tiles of the other
+// operand that it walks.
+struct Work {
+  int b, h, bh, r0, n;
+};
+
+// The walk of the forward and dQ: kM query rows walk the K/V tiles of kN
+// keys that any of them may see. Causal tiles go longest first; otherwise
+// a (b, h)'s tiles sit side by side, so its K/V is read again from L2.
+__device__ __forceinline__ Work query_walk(long long t, int BH, int H,
+                                          int nq, int kM, int kN,
+                                          int causal, int kv_len) {
+  int qb, bh;
+  if (causal) {
+    qb = nq - 1 - static_cast<int>(t / BH);
+    bh = static_cast<int>(t % BH);
+  } else {
+    bh = static_cast<int>(t / nq);
+    qb = static_cast<int>(t % nq);
+  }
+  const int q0 = qb * kM;
+  const int k_end = causal ? min(kv_len, q0 + kM) : kv_len;
+  return Work{bh / H, bh % H, bh, q0, (k_end + kN - 1) / kN};
 }
 
 }  // namespace flash

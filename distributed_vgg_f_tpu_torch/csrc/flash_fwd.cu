@@ -171,8 +171,6 @@ __global__ void __launch_bounds__(kThreads)
 
 
 // ------------------------------------------------------------- bf16
-constexpr int kErrTensorMap = -1;
-constexpr int kErrRegisters = -2;
 // the named barriers of the two consumer warpgroups' turns to issue
 constexpr int kTurnBarrier = 1;  // warpgroup w's is kTurnBarrier + w
 constexpr int kTurnThreads = 256;
@@ -188,7 +186,6 @@ struct Fwd {
   static constexpr uint32_t kQBytes = kM * DP * 2;
   static constexpr uint32_t kKVBytes = kN * DP * 2;  // one K or V stage
   static constexpr int kThreads = 384;
-  static constexpr int kRegs = 168;  // 65536 / 384, in steps of 8
   // 1024 bytes of slack to align the tiles for the swizzle, then Q, the
   // K stages, the V stages and the barriers
   static constexpr size_t kSmem =
@@ -200,52 +197,8 @@ struct Barriers {
   uint64_t k_full[2], k_empty[2], v_full[2], v_empty[2];
 };
 
-struct Work {
-  int b, h, bh, q0, n;  // n: K/V tiles this tile of rows walks
-};
-
-__device__ __forceinline__ Work work_of(long long t, int BH, int H, int nq,
-                                        int kM, int kN, int causal,
-                                        int kv_len) {
-  int qb, bh;
-  if (causal) {  // longest rows first
-    qb = nq - 1 - static_cast<int>(t / BH);
-    bh = static_cast<int>(t % BH);
-  } else {
-    bh = static_cast<int>(t / nq);
-    qb = static_cast<int>(t % nq);
-  }
-  const int q0 = qb * kM;
-  const int k_end = causal ? min(kv_len, q0 + kM) : kv_len;
-  return Work{bh / H, bh % H, bh, q0, (k_end + kN - 1) / kN};
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// O (64 x DP) += P (64 x kN, registers) V (kN x DP, the stage at v_tile)
-template <int DP, int kN>
-__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2],
-                                         const uint32_t (&p)[kN / 16][4],
-                                         uint32_t v_tile) {
-#pragma unroll
-  for (int kk = 0; kk < kN / 16; ++kk) {
-    const uint32_t at = v_tile + kk * 16 * 128;  // 16 keys of 128 bytes
-    if constexpr (DP == 64) {
-      hopper::wgmma_rs_n64(acc, p[kk], hopper::desc_sw128(at, kN * 128));
-    } else {
-#pragma unroll
-      for (int half = 0; half < DP / 128; ++half) {
-        hopper::wgmma_rs_n128(
-            acc + 64 * half, p[kk],
-            hopper::desc_sw128(at + half * 2 * kN * 128, kN * 128));
-      }
-    }
-  }
-}
+using flash::Work;
+using hopper::ex2;
 
 template <int DP>
 __global__ void __launch_bounds__(384, 1)
@@ -298,13 +251,13 @@ __global__ void __launch_bounds__(384, 1)
     int c = 0;  // K/V tiles loaded so far
     int it = 0;
     for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
-      const Work w = work_of(t, BH, H, nq, kM, kN, causal, kv_len);
+      const Work w = flash::query_walk(t, BH, H, nq, kM, kN, causal, kv_len);
       hopper::mbar_wait(&bar->q_empty, (it & 1) ^ 1);
       hopper::mbar_expect_tx(&bar->q_full, C::kQBytes);
 #pragma unroll
       for (int ch = 0; ch < C::kChunks; ++ch) {
         hopper::tma_load_4d(sQ + ch * kM * 128, &tq, &bar->q_full, 64 * ch,
-                            w.h, w.q0, w.b);
+                            w.h, w.r0, w.b);
       }
       for (int j = 0; j < w.n; ++j, ++c) {
         const int s = c % kStages;
@@ -336,7 +289,7 @@ __global__ void __launch_bounds__(384, 1)
   const int warp = (threadIdx.x / 32) % 4;
   const int lane = threadIdx.x % 32;
   const int tq4 = lane % 4;
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * hopper::kLog2e;
   const uint32_t q_at = hopper::smem_addr(sQ) + cw * 64 * 128;
   const uint32_t k_at = hopper::smem_addr(sK);
   const uint32_t v_at = hopper::smem_addr(sV);
@@ -345,8 +298,8 @@ __global__ void __launch_bounds__(384, 1)
   int c = 0;
   int it = 0;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
-    const Work w = work_of(t, BH, H, nq, kM, kN, causal, kv_len);
-    const int wg_row0 = w.q0 + 64 * cw;
+    const Work w = flash::query_walk(t, BH, H, nq, kM, kN, causal, kv_len);
+    const int wg_row0 = w.r0 + 64 * cw;
     // both warpgroups walk the same tiles, so they agree on taking turns
     // (and a tile leaves the turn where it found it)
     const bool ping_pong = DP == 64 && w.n <= kPingPongMaxTiles;
@@ -367,26 +320,13 @@ __global__ void __launch_bounds__(384, 1)
       float sc[kN / 2];
       if (ping_pong) hopper::named_sync(kTurnBarrier + cw, kTurnThreads);
       hopper::wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < DP / 16; ++ks) {
-        const uint32_t a =
-            q_at + (ks / 4) * kM * 128 + (ks % 4) * 32;  // 16 columns
-        const uint32_t b = k_at + sk * C::kKVBytes + (ks / 4) * kN * 128 +
-                           (ks % 4) * 32;
-        if constexpr (kN == 128) {
-          hopper::wgmma_ss_n128(sc, hopper::desc_sw128(a, 0),
-                                hopper::desc_sw128(b, 0), ks > 0);
-        } else {
-          hopper::wgmma_ss_n64(sc, hopper::desc_sw128(a, 0),
-                               hopper::desc_sw128(b, 0), ks > 0);
-        }
-      }
+      hopper::wgmma_tile_ss<DP, kN, kM>(sc, q_at, k_at + sk * C::kKVBytes);
       hopper::wgmma_commit();
       const int cv = ck - 1;  // the V tile of the previous step
       const int sv = (cv + kStages) % kStages;
       if (j > 0) {
         hopper::mbar_wait(&bar->v_full[sv], (cv / kStages) & 1);
-        issue_pv<DP, kN>(acc, p, v_at + sv * C::kKVBytes);
+        hopper::wgmma_tile_rs<DP, kN>(acc, p, v_at + sv * C::kKVBytes);
         hopper::wgmma_commit();
         if (ping_pong) {
           hopper::named_arrive(kTurnBarrier + 1 - cw, kTurnThreads);
@@ -445,13 +385,7 @@ __global__ void __launch_bounds__(384, 1)
       for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
 #pragma unroll
       for (int e = 0; e < DP / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
-#pragma unroll
-      for (int kk = 0; kk < kN / 16; ++kk) {
-        p[kk][0] = flash::pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
-        p[kk][1] = flash::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        p[kk][2] = flash::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        p[kk][3] = flash::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
+      hopper::to_a_frags<kN>(p, sc);
     }
     {  // the last tile's P.V
       const int cv = c + w.n - 1;
@@ -459,7 +393,7 @@ __global__ void __launch_bounds__(384, 1)
       hopper::mbar_wait(&bar->v_full[sv], (cv / kStages) & 1);
       if (ping_pong) hopper::named_sync(kTurnBarrier + cw, kTurnThreads);
       hopper::wgmma_fence();
-      issue_pv<DP, kN>(acc, p, v_at + sv * C::kKVBytes);
+      hopper::wgmma_tile_rs<DP, kN>(acc, p, v_at + sv * C::kKVBytes);
       hopper::wgmma_commit();
       if (ping_pong) {
         hopper::named_arrive(kTurnBarrier + 1 - cw, kTurnThreads);
@@ -506,42 +440,20 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  int causal, int kv_len, float scale, int device,
                  cudaStream_t stream) {
   using C = Fwd<DP>;
-  static const cudaError_t opt_in =
-      flash::allow_smem(flash_fwd_wgmma_kernel<DP>, C::kSmem);
-  if (opt_in != cudaSuccess) return opt_in;
-  static const int regs = [] {
-    cudaFuncAttributes attr;
-    return cudaFuncGetAttributes(&attr, flash_fwd_wgmma_kernel<DP>) ==
-                   cudaSuccess
-               ? attr.numRegs
-               : -1;
-  }();
-  // setmaxnreg's 40 + 2 * 232 registers of 128 threads need 168 a thread
-  // at launch: with fewer, setmaxnreg.inc would wait for ever
-  if (regs != C::kRegs) return kErrRegisters;
-  // (d, H, T, B), innermost first; strides in bytes
-  const uint64_t dims[4] = {static_cast<uint64_t>(d),
-                            static_cast<uint64_t>(H),
-                            static_cast<uint64_t>(T_len),
-                            static_cast<uint64_t>(B)};
-  const uint64_t strides[3] = {static_cast<uint64_t>(s.h) * 2,
-                               static_cast<uint64_t>(s.t) * 2,
-                               static_cast<uint64_t>(s.b) * 2};
-  const uint32_t box_q[4] = {64, 1, C::kM, 1};
-  const uint32_t box_kv[4] = {64, 1, C::kN, 1};
+  static const int ready =
+      hopper::launch_ready(flash_fwd_wgmma_kernel<DP>, C::kSmem);
+  if (ready != 0) return ready;
   CUtensorMap mq, mk, mv;
-  if (!hopper::encode_bf16_4d(&mq, q, dims, strides, box_q) ||
-      !hopper::encode_bf16_4d(&mk, k, dims, strides, box_kv) ||
-      !hopper::encode_bf16_4d(&mv, v, dims, strides, box_kv)) {
-    return kErrTensorMap;
+  if (!hopper::encode_bthd(&mq, q, B, T_len, H, d, s.b, s.t, s.h, C::kM) ||
+      !hopper::encode_bthd(&mk, k, B, T_len, H, d, s.b, s.t, s.h, C::kN) ||
+      !hopper::encode_bthd(&mv, v, B, T_len, H, d, s.b, s.t, s.h, C::kN)) {
+    return hopper::kErrTensorMap;
   }
-  int sms = 0;
-  const cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
   const long long n_tiles =
       static_cast<long long>((T_len + C::kM - 1) / C::kM) * B * H;
-  const int grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
+  int grid = 0;
+  const cudaError_t err = hopper::persistent_grid(n_tiles, device, &grid);
+  if (err != cudaSuccess) return err;
   flash_fwd_wgmma_kernel<DP><<<grid, C::kThreads, C::kSmem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H, T_len, d, B * H,
       causal, kv_len, scale);
@@ -578,11 +490,7 @@ int dispatch(int dtype, int d, const void* q, const void* k, const void* v,
     FLASH_PADDED_DIMS(d, return launch<DP>(q, k, v, o, lse, B, T_len, H, d, s,
                                            causal, kv_len, scale, stream))
   }
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  if (dtype != 1 || !aligned(q) || !aligned(k) || !aligned(v) ||
-      s.b % 8 != 0 || s.t % 8 != 0 || s.h % 8 != 0) {
+  if (dtype != 1 || !flash::tma_rows(s, q, k, v)) {
     return cudaErrorInvalidValue;  // TMA's 16-byte rules
   }
   switch (flash::padded_dim(d)) {

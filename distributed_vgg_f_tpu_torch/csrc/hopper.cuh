@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's kernels, as inline PTX:
 // mbarriers with bounded waits, TMA tile loads through a CUtensorMap,
-// wgmma shared-memory descriptors and the warpgroup products, and the
-// host side that encodes a tensor map through the driver's entry point.
+// wgmma shared-memory descriptors, the warpgroup products and their loops
+// over a tile, and the host side that encodes a tensor map through the
+// driver's entry point and checks that a warp-specialised kernel may
+// start.
 //
 // Guards: every mbarrier wait here is bounded. A wait that has not seen
 // its phase complete after kWaitLimitNs of the GPU's global timer calls
@@ -16,6 +18,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -110,6 +113,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 2^x on the exp unit (ex2.approx, ~2 ulp of fp32; -inf gives +0): the
+// flash kernels' exp(x) is ex2(x * log2(e)) with log2(e) folded into the
+// scale.
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ------------------------------------------------------ named barriers
 // Barriers 1..15 of the block (0 is __syncthreads'): bar.sync waits until
 // `count` threads have arrived, its own warp's included; bar.arrive
@@ -180,6 +194,23 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// D (64 x 32, fp32) (+)= A (64 x 16) B (16 x 32), A and B bf16 in shared
+// memory, both K-major with the 128-byte swizzle; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // D (64 x 64, fp32) (+)= A (64 x 16) B (16 x 64), A and B bf16 in shared
@@ -300,6 +331,81 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// ---------------------------------------------------------- tile products
+// A tile of R rows and DP columns as TMA writes it with boxes of 64
+// columns and the 128-byte swizzle: DP / 64 chunks of R rows of 128 bytes,
+// chunk c at c * R * 128 bytes. These loops issue the flash kernels'
+// products over such tiles (a wgmma_fence before them, a commit after).
+
+// D (64 x N) = A B^T: A is 64 rows of a tile of kRowsA rows (a_rows is the
+// shared address of its first row in chunk 0), B all N rows of a tile at
+// b_tile; the DP columns of both are the contraction (K-major).
+template <int DP, int N, int kRowsA>
+__device__ __forceinline__ void wgmma_tile_ss(float (&d)[N / 2],
+                                              uint32_t a_rows,
+                                              uint32_t b_tile) {
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    // 16 columns: chunk ks / 4, 32 bytes into its rows
+    const uint64_t a =
+        desc_sw128(a_rows + (ks / 4) * kRowsA * 128 + (ks % 4) * 32, 0);
+    const uint64_t b =
+        desc_sw128(b_tile + (ks / 4) * N * 128 + (ks % 4) * 32, 0);
+    if constexpr (N == 32) {
+      wgmma_ss_n32(d, a, b, ks > 0);
+    } else if constexpr (N == 64) {
+      wgmma_ss_n64(d, a, b, ks > 0);
+    } else {
+      static_assert(N == 128, "N is 32, 64 or 128");
+      wgmma_ss_n128(d, a, b, ks > 0);
+    }
+  }
+}
+
+// D (64 x W) += A B: A (64 x R) in registers, one m16n8k16 A fragment per
+// 16 of its columns; B the W columns of a tile of R rows that start at
+// chunk_at (the shared address of their first chunk), read MN-major
+// through the descriptor's transpose (LBO: the next chunk).
+template <int W, int R>
+__device__ __forceinline__ void wgmma_tile_rs(float (&d)[W / 2],
+                                              const uint32_t (&a)[R / 16][4],
+                                              uint32_t chunk_at) {
+#pragma unroll
+  for (int kk = 0; kk < R / 16; ++kk) {
+    const uint32_t at = chunk_at + kk * 16 * 128;  // 16 rows further
+    if constexpr (W == 64) {
+      wgmma_rs_n64(d, a[kk], desc_sw128(at, R * 128));
+    } else {
+      static_assert(W % 128 == 0, "W is 64, 128 or 256");
+#pragma unroll
+      for (int half = 0; half < W / 128; ++half) {
+        wgmma_rs_n128(d + 64 * half, a[kk],
+                      desc_sw128(at + half * 2 * R * 128, R * 128));
+      }
+    }
+  }
+}
+
+// The accumulator of an m64nN product (fp32, N / 2 a thread) rounded to
+// bf16 as the A fragments of a product that contracts its N columns: the
+// thread's values of columns 16 kk .. 16 kk + 15 are d[8 kk .. 8 kk + 7].
+template <int N>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[N / 16][4],
+                                           const float (&d)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float lo = d[8 * kk + 2 * r], hi = d[8 * kk + 2 * r + 1];
+      a[kk][r] = static_cast<uint32_t>(
+                     __bfloat16_as_ushort(__float2bfloat16(lo))) |
+                 (static_cast<uint32_t>(
+                      __bfloat16_as_ushort(__float2bfloat16(hi)))
+                  << 16);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
@@ -348,6 +454,57 @@ inline bool encode_bf16_4d(CUtensorMap* map, const void* base,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map over a bf16 (B, T, H, d) tensor with element strides
+// (sb, st, sh) and a contiguous last axis, whose box is 64 columns of
+// `rows` consecutive t of one (b, h): coordinates (column, h, t, b).
+inline bool encode_bthd(CUtensorMap* map, const void* base, int B, int T,
+                        int H, int d, long long sb, long long st,
+                        long long sh, uint32_t rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(d),
+                            static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(T),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(sh) * 2,
+                               static_cast<uint64_t>(st) * 2,
+                               static_cast<uint64_t>(sb) * 2};
+  const uint32_t box[4] = {64, 1, rows, 1};
+  return encode_bf16_4d(map, base, dims, strides, box);
+}
+
+// What the warp-specialised launchers return besides CUDA's own errors.
+constexpr int kErrTensorMap = -1;  // no tensor map encoder, or refused
+constexpr int kErrRegisters = -2;  // not compiled to kRegsAtLaunch
+// A 384-thread block's registers a thread at launch: setmaxnreg's
+// 40 + 2 * 232 of 128 threads need 168, and with fewer setmaxnreg.inc
+// would wait for ever.
+constexpr int kRegsAtLaunch = 168;
+
+// 0 when a warp-specialised kernel may start with `smem` bytes of dynamic
+// shared memory and compiled to kRegsAtLaunch registers a thread; else a
+// CUDA error or kErrRegisters.
+template <typename Kernel>
+inline int launch_ready(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  return attr.numRegs == kRegsAtLaunch ? 0 : kErrRegisters;
+}
+
+// The grid of a persistent kernel: one block an SM, at most n_tiles.
+inline cudaError_t persistent_grid(long long n_tiles, int device,
+                                   int* grid) {
+  int sms = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  *grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
+  return cudaSuccess;
 }
 
 }  // namespace hopper

@@ -7,7 +7,9 @@ the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header builds anew and an unchanged one is reused. `build_all`
 starts one nvcc per source, all at once, and gives them `NVCC_TIMEOUT_S`
 seconds: past that it kills every nvcc still running and raises, naming
-the sources. The kernels reach the driver's tensor map encoder through
+the sources. ptxas reports each kernel's registers, shared memory and
+spills (`-Xptxas -v`), which `build_all` hands to a caller that asks.
+The kernels reach the driver's tensor map encoder through
 cudaGetDriverEntryPoint, so no build links -lcuda.
 
 Importing this module needs no nvcc: only a build does, and without one it
@@ -30,7 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: seconds the nvcc processes of one build may run before it kills them
 NVCC_TIMEOUT_S = 600
 
@@ -63,9 +65,12 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build_all(names: List[str] = None) -> Dict[str, str]:
+def build_all(names: List[str] = None,
+              logs: Dict[str, str] = None) -> Dict[str, str]:
     """Compile every named kernel whose library is missing, one nvcc per
-    source, all started together. Returns name -> library path."""
+    source, all started together. Returns name -> library path; `logs`,
+    when given, gets name -> nvcc's output (ptxas's report) for each
+    source compiled."""
     names = sources() if names is None else list(names)
     paths = {n: library_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
@@ -98,6 +103,8 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
                                f"{NVCC_TIMEOUT_S} s on {', '.join(late)} "
                                "and was killed") from None
         out = out.decode(errors="replace")
+        if logs is not None:
+            logs[name] = out
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
             if os.path.exists(tmp):

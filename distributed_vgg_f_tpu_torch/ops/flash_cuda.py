@@ -11,16 +11,20 @@ and compute the functions of the plain versions in ops/flash_attention.py
 
 Bound: device-memory bytes. At ViT's T = 197 and D = 64 each function
 does 100-150 FLOP per byte it must move, below the H100's ~295 bf16
-tensor-core FLOP a byte. The bf16 forward is warp-specialised: a producer
-warp loads K/V tiles by TMA into a ring of shared-memory stages and two
-consumer warpgroups run both products as wgmma (csrc/flash_fwd.cu). The
-bf16 dQ, dK/dV and block kernels run mma.sync on the tensor cores, fp32
-everything on the CUDA cores. Where the TPU kernels carry (acc, m, l) or
-the gradient sums in scratch along a sequential grid axis, a block here
-owns a tile of rows of one (b, h) and loops over the other operand's tiles
-itself, staging them through shared memory; the (T, T) scores live only
-in registers and shared memory. Keys at or past `kv_len` and rows past T
-are masked inside the kernels, so T = 197 needs no padding copy.
+tensor-core FLOP a byte. The bf16 forward, dQ and dK/dV are
+warp-specialised and persistent: a producer warp loads tiles by TMA into a
+ring of shared-memory stages and two consumer warpgroups run every product
+as wgmma, reading the transposed operands through the wgmma descriptor
+(csrc/flash_fwd.cu, csrc/flash_dq.cu, csrc/flash_dkv.cu on
+csrc/hopper.cuh). The block kernels run mma.sync on the tensor cores in
+bf16; fp32 runs everything on the CUDA cores. Where the TPU kernels carry
+(acc, m, l) or the gradient sums in scratch along a sequential grid axis,
+a block here owns a tile of rows of one (b, h) and loops over the other
+operand's tiles itself, staging them through shared memory; the (T, T)
+scores live only in registers and shared memory. Keys at or past `kv_len`
+and rows past T are masked inside the kernels, so T = 197 needs no padding
+copy. No kernel uses atomics: each output row is written once by the block
+that owns it, so results are the same bits from run to run.
 
 q, k and v are (B, T, H, D) with a contiguous D axis and any strides over
 (B, T, H) — the model passes the three slices of its fused QKV output
@@ -31,13 +35,15 @@ delta are contiguous (B, H, T) fp32.
 Head dims: every kernel takes any D from 1 to `MAX_HEAD_DIM` = 256. The
 kernels are instantiated for the padded widths 16, 32, 64, 128 and 256
 (csrc/flash_common.cuh `padded_dim`) and run a smaller D on the next one
-up, with the padding columns zero in shared memory and never written out (the bf16 forward pads to 64, 128 or 256,
-its swizzle atom being 64 columns). The bf16 forward's tensor maps need
-16-byte aligned rows: base addresses on 16 bytes and the (B, T, H) strides
-multiples of 8 elements, increasing from H to B. Where q, k or v breaks
-that (a head dim that is not a multiple of 8, a permuted view), the
-forward wrapper makes one contiguous copy of the three, its rows padded
-to a multiple of 8 elements, and launches on that; nothing else copies.
+up, with the padding columns zero in shared memory and never written out
+(the bf16 forward, dQ and dK/dV pad to 64, 128 or 256, their swizzle atom
+being 64 columns). The bf16 tensor maps need 16-byte aligned rows: base
+addresses on 16 bytes and the (B, T, H) strides multiples of 8 elements,
+increasing from H to B. Where q, k or v breaks that (a head dim that is
+not a multiple of 8, a permuted view), the bf16 wrappers make one
+contiguous copy of the three, its rows padded to a multiple of 8
+elements, and launch on that; dO, which has a tensor map of its own, is
+copied alone when it breaks it (`_tma_inputs`). Nothing else copies.
 The grid puts (b*h, row tile) on one axis, so B*H has no limit of its own.
 
 Each wrapper checks device, dtype (float32 or bfloat16, one for all
@@ -84,8 +90,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SHAPE = [_I, _I, _I, _I, _L, _L, _L, _I, _I, ctypes.c_float, _I, _I, _P]
 _FWD_ARGS = [_P, _P, _P, _P, _P] + _SHAPE
-_DQ_ARGS = [_P, _P, _P, _P, _P, _P, _P] + _SHAPE
-_DKV_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P] + _SHAPE
+# the pointers, then dO's (B, T, H) strides, then the shape
+_DQ_ARGS = [_P] * 7 + [_L, _L, _L] + _SHAPE
+_DKV_ARGS = [_P] * 8 + [_L, _L, _L] + _SHAPE
 # BH, Tq, Tk, D, q_off, k_off, causal, kv_len, scale, dtype, device, stream
 _BLOCK = [_I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
 _BLOCK_FWD_ARGS = [_P] * 6 + _BLOCK
@@ -123,6 +130,18 @@ def _tma_copy(x: torch.Tensor) -> torch.Tensor:
     view = buf[..., :d]
     view.copy_(x)
     return view
+
+
+def _tma_inputs(q, k, v, do=None):
+    """q, k, v and dO (or None) as the bf16 kernels' tensor maps read them:
+    q, k and v share one set of strides, so when any of them is not
+    `_tma_ready` all three are copied (`_tma_copy`); dO has its own map
+    and is copied alone when it is not."""
+    if not all(map(_tma_ready, (q, k, v))):
+        q, k, v = _tma_copy(q), _tma_copy(k), _tma_copy(v)
+    if do is not None and not _tma_ready(do):
+        do = _tma_copy(do)
+    return q, k, v, do
 
 
 def _entry(name: str, argtypes):
@@ -199,8 +218,8 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     first copied, once, into row-padded contiguous buffers."""
     global FWD_LAUNCHES
     kv_len = _check_qkv(q, k, v, kv_len)
-    if q.dtype == torch.bfloat16 and not all(map(_tma_ready, (q, k, v))):
-        q, k, v = _tma_copy(q), _tma_copy(k), _tma_copy(v)
+    if q.dtype == torch.bfloat16:
+        q, k, v, _ = _tma_inputs(q, k, v)
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -213,19 +232,29 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse
 
 
+def _backward_inputs(q, k, v, do, lse, delta, kv_len):
+    """Check the backward kernels' operands; in bf16, copy those a tensor
+    map cannot read in place (`_tma_inputs`). Returns (q, k, v, do,
+    kv_len)."""
+    kv_len = _check_qkv(q, k, v, kv_len)
+    _check_dense("dO", do, q.shape, q.dtype, q.device)
+    _check_rows(lse, delta, q)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = _tma_inputs(q, k, v, do)
+    return q, k, v, do, kv_len
+
+
 def flash_dq_cuda(q, k, v, do, lse, delta, *, causal: bool = False,
                   kv_len: int = None) -> torch.Tensor:
     """dQ (B, T, H, D) in q's dtype on the current stream. Same semantics
     as ops.flash_attention.attention_dq."""
     global DQ_LAUNCHES
-    kv_len = _check_qkv(q, k, v, kv_len)
-    _check_dense("dO", do, q.shape, q.dtype, q.device)
-    _check_rows(lse, delta, q)
+    q, k, v, do, kv_len = _backward_inputs(q, k, v, do, lse, delta, kv_len)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fn = _entry("flash_dq", _DQ_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_shape_args(q, causal, kv_len))
+            *do.stride()[:3], *_shape_args(q, causal, kv_len))
     if rc != 0:
         _raise_launch("flash dQ", rc)
     DQ_LAUNCHES += 1
@@ -237,15 +266,13 @@ def flash_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = False,
     """(dK, dV), each (B, T, H, D) in q's dtype, on the current stream.
     Same semantics as ops.flash_attention.attention_dkv."""
     global DKV_LAUNCHES
-    kv_len = _check_qkv(q, k, v, kv_len)
-    _check_dense("dO", do, q.shape, q.dtype, q.device)
-    _check_rows(lse, delta, q)
+    q, k, v, do, kv_len = _backward_inputs(q, k, v, do, lse, delta, kv_len)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fn = _entry("flash_dkv", _DKV_ARGS)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_shape_args(q, causal, kv_len))
+            *do.stride()[:3], *_shape_args(q, causal, kv_len))
     if rc != 0:
         _raise_launch("flash dK/dV", rc)
     DKV_LAUNCHES += 1

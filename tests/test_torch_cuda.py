@@ -26,7 +26,8 @@ bf16 (one bf16 ulp of an element is at most 3.9e-3 of the largest), lse
 within 1e-5 in both; the same for the causal kernels at T = 2048 and for
 the three ring block kernels (their fp32 state and accumulators
 included), at head dims 8 to 256 and at B*H = 65600 (past the 65535 of a
-grid's y axis).
+grid's y axis). dQ, dK and dV of two launches on the same inputs are
+bit-equal (no kernel sums with atomics).
 The sequence-parallel entry points on one card (no process group: a ring
 of one) against `flash_self_attention`: fp32 2e-5 (output) and 5e-5
 (gradients), bf16 3e-2, the JAX ring tests' tolerances. A narrow ViT's fp32 train step through the flash kernels:
@@ -288,6 +289,65 @@ def test_flash_forward_takes_every_head_dim_on_card(cuda_device, d, t,
     o_ref, lse_ref = fwd(q, k, v, **kw)
     _close(o, o_ref, tol)
     _close(lse, lse_ref, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 100, 128, 256])
+@pytest.mark.parametrize("t", [2, 65, 197, 2048])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_flash_backward_takes_every_head_dim_on_card(cuda_device, d, t,
+                                                     causal, dtype, tol):
+    """dQ and dK/dV at the head dims the JAX package's tests use (8, 16,
+    256), the padded widths and one whose rows a tensor map cannot read
+    in place (100), around the tile and ring-stage edges, with keys past
+    kv_len masked (none at T = 2, where one live key would make the exact
+    dQ and dK zero), from slices of one QKV tensor."""
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import (
+        attention_dkv, attention_dq)
+    q, k, v, do, fwd, delta_of = _flash_case(cuda_device, 2, t, 2, d, dtype,
+                                             "qkv", seed=d + t)
+    kw = {"causal": causal, "kv_len": max(2, t - 7)}
+    o_ref, lse_ref = fwd(q, k, v, **kw)
+    delta = delta_of(do, o_ref)
+    before = (flash_cuda.DQ_LAUNCHES, flash_cuda.DKV_LAUNCHES)
+    dq = flash_cuda.flash_dq_cuda(q, k, v, do, lse_ref, delta, **kw)
+    dk, dv = flash_cuda.flash_dkv_cuda(q, k, v, do, lse_ref, delta, **kw)
+    torch.cuda.synchronize()
+    assert (flash_cuda.DQ_LAUNCHES, flash_cuda.DKV_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    dk_ref, dv_ref = attention_dkv(q, k, v, do, lse_ref, delta, **kw)
+    _close(dq, attention_dq(q, k, v, do, lse_ref, delta, **kw), tol)
+    _close(dk, dk_ref, tol)
+    _close(dv, dv_ref, tol)
+    assert (dk[:, kw["kv_len"]:] == 0).all()
+    assert (dv[:, kw["kv_len"]:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,d,causal", [
+    (64, 197, 6, 64, False),   # ViT's layer at a smaller batch
+    (2, 2048, 2, 64, True),
+    (2, 197, 2, 256, True)])   # dK/dV's column-split warpgroups
+def test_flash_backward_is_deterministic_on_card(cuda_device, b, t, h, d,
+                                                 causal):
+    """dQ, dK and dV of two launches on the same bf16 inputs are the same
+    bits: each output row is written once by the block that owns it, with
+    no atomics."""
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    q, k, v, do, _, delta_of = _flash_case(cuda_device, b, t, h, d,
+                                           torch.bfloat16, "qkv", seed=7)
+    o, lse = flash_cuda.flash_fwd_cuda(q, k, v, causal=causal)
+    args = (q, k, v, do, lse, delta_of(do, o))
+    first = (flash_cuda.flash_dq_cuda(*args, causal=causal),
+             *flash_cuda.flash_dkv_cuda(*args, causal=causal))
+    second = (flash_cuda.flash_dq_cuda(*args, causal=causal),
+              *flash_cuda.flash_dkv_cuda(*args, causal=causal))
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

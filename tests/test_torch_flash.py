@@ -185,6 +185,41 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flash_cuda.flash_dkv_cuda(q, q, q, q, lse, lse)
 
 
+def _bf16(*shape, offset=0):
+    """A bf16 tensor of `shape` whose data start `offset` elements into
+    its storage (offset 1: no row starts on 16 bytes)."""
+    n = int(np.prod(shape))
+    buf = torch.arange(n + offset, dtype=torch.float32).to(torch.bfloat16)
+    return buf[offset:].view(*shape)
+
+
+@pytest.mark.parametrize("layout,copied", [
+    ("dense", (False, False)),        # D = 64, rows on 16 bytes
+    ("qkv", (False, False)),          # slices of one (B, T, 3, H, D) tensor
+    ("narrow", (True, True)),         # D = 12: rows not on 16 bytes
+    ("permuted", (True, False)),      # (B, H, T, D) seen as (B, T, H, D)
+    ("misaligned_do", (False, True))])
+def test_tma_inputs_copy_only_what_a_tensor_map_cannot_read(layout, copied):
+    """The bf16 kernels' host-side layout rule: q, k and v share one set of
+    strides, so all three are copied when any is not `_tma_ready`; dO has
+    its own tensor map and is copied alone. A copy holds the same values,
+    and a tensor map can read it in place."""
+    b, t, h, d = 2, 5, 3, 12 if layout == "narrow" else 64
+    if layout == "qkv":
+        q, k, v = _bf16(b, t, 3, h, d).unbind(2)
+    elif layout == "permuted":
+        q, k, v = (_bf16(b, h, t, d).transpose(1, 2) for _ in range(3))
+    else:
+        q, k, v = (_bf16(b, t, h, d) for _ in range(3))
+    do = _bf16(b, t, h, d, offset=1 if layout == "misaligned_do" else 0)
+    got = flash_cuda._tma_inputs(q, k, v, do)
+    for x, y in zip((q, k, v, do), got):
+        assert torch.equal(x, y) and flash_cuda._tma_ready(y)
+    assert [y is not x for x, y in zip((q, k, v), got[:3])] == [copied[0]] * 3
+    assert (got[3] is not do) == copied[1]
+    assert flash_cuda._tma_inputs(q, k, v)[3] is None
+
+
 @pytest.mark.parametrize("kw,match", [
     ({"kv_len": 0}, "outside"), ({"kv_len": 9}, "outside")])
 def test_bad_arguments_are_refused(kw, match):
