@@ -10,26 +10,36 @@ Phases, one JSON line each:
   build     nvcc build of every kernel under distributed_vgg_f_tpu_torch/
             csrc/ for sm_90a (each nvcc given 600 s), with its seconds, the
             script's wall seconds so far, and ptxas's registers, shared
-            memory and spills for each warp-specialised (wgmma) kernel
-  kernel    the LRN forward kernel against its plain PyTorch version on
-            the card, at the served path's shapes (buckets 1 and 32) and
-            an odd shape, in bf16 and fp32, with device times of the
-            kernel, the plain version and the library call, and the
+            memory and spills for each warp-specialised (wgmma) kernel and
+            each LRN kernel at radius 2
+  kernel    the LRN forward kernel, unfused and with the ReLU fused,
+            against its plain PyTorch versions on the card, in bf16 and
+            fp32: the vector variant at the served path's shapes (buckets
+            1 and 32), the training batch 1024 (bf16) and C = 8 … 256 at
+            radius 0–4, the general variant at odd shapes; each record
+            names its variant and shows that the fused kernel gives the
+            unfused kernel's bits on F.relu(z) (z with exact zeros) and
+            that two launches give the same bits. At buckets 1, 32 and
+            1024: device times of the fused kernel, the unfused kernel,
+            the ReLU pass, the plain version and the library call, and the
             bytes/operations bound
-  kernel_bwd the LRN backward kernel against the plain backward, at both
-            sites' shapes at batch 32 and the training batch 1024 and at
-            odd shapes, in bf16 and fp32, timed the same way (library:
-            the autograd backward of F.local_response_norm)
+  kernel_bwd the LRN backward kernel the same way (the fused kernel's bits
+            against the unfused kernel's on F.relu(z) then the ReLU's
+            threshold_backward), timed at both sites' shapes at batch 32
+            and the training batch 1024 (library: the autograd backward of
+            F.local_response_norm)
   profile   torch.profiler over served forwards at buckets 1 and 32:
             device time by kernel, LRN share, device idle share
   model     full-width VGG-F (224 px, 1000 classes, bf16 compute, seeded
             init) through build_engine on the flagship's bucket ladder:
-            every bucket warmed, 2 LRN launches per forward, probabilities
+            every bucket warmed, 2 LRN launches per forward (the vector
+            variant, ReLU fused), probabilities
             finite and summing to 1, fp32 and bf16 logits held against the
             CPU forward of the same weights
   serve     the served path: serve_from_params on port 0, concurrent and
             sequential u8 POSTs, a bad-size POST; kernel launch counts are
-            zeroed just before and read just after
+            zeroed just before and read just after (every LRN launch of
+            the vector variant)
   train_parity one train step of full-width VGG-F (fp32, TF32 off,
             dropout and augment off, batch 2) on the card and on the CPU
             from the same weights and batch: every parameter's gradient,
@@ -38,7 +48,8 @@ Phases, one JSON line each:
             width and batch 1024 (bf16, dropout, flip, mixup, the
             non-finite skip) for 20 steps on one fixed seeded u8 batch;
             launch counts zeroed before fit and read after (2 forward and
-            2 backward LRN launches a step), every loss finite and the
+            2 backward LRN launches a step, all of the vector variant),
+            every loss finite and the
             loss falling; then step ms, images/s, peak device memory and
             a torch.profiler breakdown of 3 more steps
   flash_kernel the flash attention forward, dQ and dK/dV kernels against
@@ -233,12 +244,23 @@ def lrn_bwd_bound_ms(shape, itemsize, depth_radius, peaks):
 def _ptxas_report(logs):
     """From nvcc's -Xptxas -v output of each source: the registers a
     thread, static shared memory and spill bytes of each warp-specialised
-    (wgmma) kernel instantiation, and the codes of ptxas's performance
-    notes on it (C7515-C7520: wgmma it serialised), as
-    {"kernel<DP>": {...}}."""
+    (wgmma) kernel instantiation and of each LRN kernel instantiation at
+    the main path's radius 2 (the general variant at every radius), and
+    the codes of ptxas's performance notes on it (C7515-C7520: wgmma it
+    serialised), as {"kernel<params>": {...}}."""
     def entry_of(line):
         k = re.search(r"(flash_[a-z]+_wgmma_kernel)ILi(\d+)E", line)
-        return f"{k.group(1)}<{k.group(2)}>" if k else None
+        if k:
+            return f"{k.group(1)}<{k.group(2)}>"
+        k = re.search(r"(lrn_(?:fwd|bwd)(?:_vec)?_kernel)I(13__nv_bfloat16|f)"
+                      r"(?:Li(\d+)ELi(\d+)E)?Lb([01])E", line)
+        if not k or (k.group(4) is not None and k.group(4) != "2"):
+            return None
+        params = ["bf16" if k.group(2) != "f" else "f32"]
+        if k.group(3) is not None:
+            params += [f"E={k.group(3)}", f"R={k.group(4)}"]
+        params.append("relu" if k.group(5) == "1" else "no_relu")
+        return f"{k.group(1)}<{','.join(params)}>"
 
     report = {}
     for text in logs.values():
@@ -273,46 +295,108 @@ def _ptxas_report(logs):
 
 
 # ------------------------------------------------------------------ phases
+#: LRN variant checks: the vector variant at every lane-group width the
+#: main path's rule gives (C = 8 … 256) and every radius it is built for,
+#: the general variant at odd shapes (C = 5 and 100: no whole 16-byte
+#: vectors; 24: 3 lanes; radius 5: wider than the vector variant's)
+_LRN_VEC_CASES = [((2, 5, 7, c), r) for c in (8, 16, 64, 128, 256)
+                  for r in range(5)]
+_LRN_GENERAL_CASES = [((3, 7, 9, 5), 2), ((2, 5, 7, 100), 2),
+                      ((2, 5, 7, 24), 2), ((2, 5, 7, 64), 5)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _lrn_pre(shape, dtype, gen):
+    """Pre-activations (z, as the conv hands them to the fused ReLU + LRN)
+    with negatives and exact zeros (every fifth)."""
+    z = torch.randn(shape, generator=gen, device="cuda") * 3.0
+    z.view(-1)[::5] = 0.0
+    return z.to(dtype)
+
+
+def _lrn_cases(main):
+    """(shape, site, batch, radius, expected variant) for the LRN phases:
+    the main path's shapes, then the variant sweeps."""
+    return ([(shape, site, batch, 2, "vector") for shape, site, batch in main]
+            + [(shape, "vector_sweep", None, r, "vector")
+               for shape, r in _LRN_VEC_CASES]
+            + [(shape, "odd", None, r, "general")
+               for shape, r in _LRN_GENERAL_CASES])
+
+
 def phase_kernel(peaks):
-    """LRN kernel vs plain on the card; returns per-case records."""
+    """LRN forward kernel, both variants, unfused and with the ReLU fused,
+    vs the plain versions on the card; returns per-case records."""
     import torch.nn.functional as F
 
-    from distributed_vgg_f_tpu_torch.ops.lrn import local_response_norm
-    from distributed_vgg_f_tpu_torch.ops.lrn_cuda import \
-        local_response_norm_cuda
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.ops.lrn import (local_response_norm,
+                                                     relu_local_response_norm)
+    fwd = lrn_cuda.local_response_norm_cuda
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = []
-    shapes = [((32, 54, 54, 64), "conv1", 32),
-              ((32, 27, 27, 256), "conv2", 32),
-              ((1, 54, 54, 64), "conv1", 1), ((1, 27, 27, 256), "conv2", 1),
-              ((3, 7, 9, 5), "odd", None)]
+    main = [((32, 54, 54, 64), "conv1", 32), ((32, 27, 27, 256), "conv2", 32),
+            ((1, 54, 54, 64), "conv1", 1), ((1, 27, 27, 256), "conv2", 1),
+            ((1024, 54, 54, 64), "conv1", 1024),
+            ((1024, 27, 27, 256), "conv2", 1024)]
     for dtype, rtol in ((torch.bfloat16, 8e-3), (torch.float32, 1e-5)):
-        for shape, site, bucket in shapes:
-            x = (torch.randn(shape, generator=gen, device="cuda")
-                 * 3.0).to(dtype)
-            got = local_response_norm_cuda(x)
-            want = local_response_norm(x)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                                       atol=1e-6)
-            err = float((got.float() - want.float()).abs().max())
+        for shape, site, bucket, r, want in _lrn_cases(main):
+            if bucket == 1024 and dtype != torch.bfloat16:
+                continue  # the training batch runs in bf16
+            variant = lrn_cuda.variant(shape, dtype, r)
+            check(variant == want, f"{shape} {dtype} r={r} takes the "
+                  f"{variant} variant, expected {want}")
+            z = _lrn_pre(shape, dtype, gen)
+            err = 0.0
+            for got, want_t in ((fwd(z, r), local_response_norm(z, r)),
+                                (fwd(z, r, relu=True),
+                                 relu_local_response_norm(z, r))):
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want_t.float(),
+                                           rtol=rtol, atol=1e-6)
+                err = max(err, float((got.float() - want_t.float())
+                                     .abs().max()))
+                del got, want_t
+            # ReLU is exact: the fused kernel's bits are the unfused
+            # kernel's on F.relu(z), and a second launch repeats them
+            fused = fwd(z, r, relu=True)
+            bit_equal = torch.equal(_bits(fused), _bits(fwd(F.relu(z), r)))
+            repeat = torch.equal(_bits(fused), _bits(fwd(z, r, relu=True)))
+            check(bit_equal, f"fused LRN forward at {shape} {dtype} r={r} "
+                  "is not the unfused kernel's bits on F.relu(z)")
+            check(repeat, f"two LRN forward launches at {shape} {dtype} "
+                  f"r={r} differ")
             rec = {"site": site, "bucket": bucket, "shape": list(shape),
+                   "radius": r, "variant": variant,
                    "dtype": str(dtype).replace("torch.", ""),
-                   "rtol": rtol, "max_abs_err": err}
+                   "rtol": rtol, "max_abs_err": err,
+                   "fused_bit_equal": bit_equal, "repeat_bit_equal": repeat}
+            del z, fused
             if bucket is not None:
-                inputs = [(torch.randn(shape, generator=gen, device="cuda")
-                           * 3.0).to(dtype) for _ in range(40)]
-                rec["ms"] = device_ms(local_response_norm_cuda, inputs)
-                rec["plain_ms"] = device_ms(local_response_norm, inputs)
+                # cold inputs: 40 distinct tensors at buckets 1 and 32; at
+                # batch 1024 one is 7.6x the L2, so 3 suffice
+                inputs = [_lrn_pre(shape, dtype, gen)
+                          for _ in range(3 if bucket == 1024 else 40)]
+                relu_in = [F.relu(t) for t in inputs]
+                # the main path's kernel: ReLU fused
+                rec["ms"] = device_ms(lambda t: fwd(t, relu=True), inputs)
+                rec["unfused_ms"] = device_ms(fwd, relu_in)
+                rec["relu_ms"] = device_ms(F.relu, inputs)
+                rec["plain_ms"] = device_ms(relu_local_response_norm, inputs)
                 # the library yardstick: torch's LRN over dim 1 on the
-                # NCHW view of the same tensor, alpha scaled back by n
+                # NCHW view of the ReLU's output, alpha scaled back by n
                 rec["library_ms"] = device_ms(
                     lambda t: F.local_response_norm(
                         t.permute(0, 3, 1, 2), 5, alpha=5e-4, beta=0.75,
-                        k=2.0), inputs)
-                bound, by = lrn_bound_ms(shape, x.element_size(), 2, peaks)
+                        k=2.0), relu_in)
+                bound, by = lrn_bound_ms(shape, torch.finfo(dtype).bits // 8, 2,
+                                         peaks)
                 rec["bound_ms"], rec["bound_by"] = bound, by
-                del inputs
+                del inputs, relu_in
+                torch.cuda.empty_cache()
             records.append(rec)
             emit("kernel", name="lrn_fwd", **rec)
     torch.cuda.synchronize()
@@ -350,6 +434,11 @@ def _trace_breakdown(prof, count, top):
                               if "lrn_fwd" in k) / count,
             "lrn_bwd_us": sum(v for k, v in by_name.items()
                               if "lrn_bwd" in k) / count,
+            # every ReLU pass outside the LRN kernels: torch's relu is a
+            # clamp_min kernel, its backward threshold_backward
+            "relu_us": {d: sum(v for k, v in by_name.items() if n in k)
+                        / count for d, n in (("fwd", "clamp"),
+                                             ("bwd", "threshold"))},
             # the port's (anonymous namespace)::flash_{fwd,dq,dkv}_kernel
             # (fp32) and flash_{fwd,dq,dkv}_wgmma_kernel (bf16), not
             # PyTorch's own flash kernels
@@ -401,12 +490,15 @@ def phase_model(tree):
                           compute_dtype=cfg.model.compute_dtype, seed=0)
     check(engine.buckets == (1, 2, 4, 8, 16, 32),
           f"flagship ladder is {engine.buckets}")
-    lrn_cuda.LAUNCHES = 0
+    lrn_cuda.LAUNCHES = lrn_cuda.VEC_LAUNCHES = 0
     engine.warmup()
     torch.cuda.synchronize()
     check(lrn_cuda.LAUNCHES == 2 * len(engine.buckets),
           f"warmup of {len(engine.buckets)} buckets launched the LRN "
           f"kernel {lrn_cuda.LAUNCHES} times, expected 2 per forward")
+    check(lrn_cuda.VEC_LAUNCHES == lrn_cuda.LAUNCHES,
+          f"{lrn_cuda.LAUNCHES - lrn_cuda.VEC_LAUNCHES} warmup LRN launches "
+          "took the general variant")
     rng = np.random.default_rng(0)
     imgs = rng.integers(0, 256, (32, size, size, 3)).astype(np.uint8)
     before = lrn_cuda.LAUNCHES
@@ -578,7 +670,7 @@ def phase_serve(tree):
     burst = rng.integers(0, 256, (64, size, size, 3)).astype(np.uint8)
     singles = rng.integers(0, 256, (4, size, size, 3)).astype(np.uint8)
 
-    lrn_cuda.LAUNCHES = 0
+    lrn_cuda.LAUNCHES = lrn_cuda.VEC_LAUNCHES = 0
     t_start = time.perf_counter()
     server = serve_from_params(cfg, tree, device="cuda")
     start_s = time.perf_counter() - t_start
@@ -587,83 +679,117 @@ def phase_serve(tree):
     # the main path's counts, read before any direct engine.run below
     torch.cuda.synchronize()
     launches = lrn_cuda.LAUNCHES
+    vec_launches = lrn_cuda.VEC_LAUNCHES
     batches = reg.counter_value("serving/batches")
     forwards = len(engine.compile_log) + batches
     check(launches > 0, "the main path never launched the LRN kernel")
     check(launches == 2 * forwards,
           f"{launches} LRN launches for {len(engine.compile_log)} warmup "
           f"and {batches} served forwards, expected 2 per forward")
+    check(vec_launches == launches,
+          f"{launches - vec_launches} of {launches} served LRN launches "
+          "took the general variant")
     seq_lat, seq_err = _check_served_probs(engine, singles,
                                            drive["seq_bodies"])
     emit("serve", **_serve_record(reg, burst, singles, drive, seq_lat,
                                   seq_err, start_s, engine, forwards),
-         lrn_launches=launches)
+         lrn_launches=launches, lrn_vec_launches=vec_launches)
     return launches
 
 
 def phase_kernel_bwd(peaks):
-    """LRN backward kernel vs the plain backward on the card; returns the
-    timed records."""
+    """LRN backward kernel, both variants, unfused and with the ReLU's
+    backward fused, vs the plain backward on the card; returns the
+    records."""
     import torch.nn.functional as F
 
-    from distributed_vgg_f_tpu_torch.ops.lrn import local_response_norm_bwd
-    from distributed_vgg_f_tpu_torch.ops.lrn_cuda import \
-        local_response_norm_bwd_cuda
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.ops.lrn import (
+        local_response_norm_bwd, relu_local_response_norm_bwd)
+    bwd = lrn_cuda.local_response_norm_bwd_cuda
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def pair(shape, dtype):
-        x = (torch.randn(shape, generator=gen, device="cuda") * 3.0).to(dtype)
-        return x, torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        z = _lrn_pre(shape, dtype, gen)
+        return z, torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    def library(xg):
+    def unfused(zg, r=2):
+        # what the unfused path runs: the LRN backward at F.relu(z), then
+        # the ReLU's own backward (autograd's threshold_backward)
+        x = F.relu(zg[0])
+        return torch.ops.aten.threshold_backward(bwd(x, zg[1], r), x, 0.0)
+
+    def library(zg):
         # the library yardstick: autograd of torch's LRN over dim 1 of the
-        # NCHW view, alpha scaled back by n; the forward graph is built
-        # outside the timed window, so only the backward is timed
-        x, g = xg
-        xr = x.detach().requires_grad_()
+        # NCHW view of the ReLU's output, alpha scaled back by n; the
+        # forward graph is built outside the timed window, so only the
+        # backward is timed
+        z, g = zg
+        xr = F.relu(z).detach().requires_grad_()
         y = F.local_response_norm(xr.permute(0, 3, 1, 2), 5, alpha=5e-4,
                                   beta=0.75, k=2.0)
         return lambda: torch.autograd.grad(y, xr, g.permute(0, 3, 1, 2),
                                            retain_graph=True)
 
     records = []
-    shapes = [((1024, 54, 54, 64), "conv1", 1024),
-              ((1024, 27, 27, 256), "conv2", 1024),
-              ((32, 54, 54, 64), "conv1", 32),
-              ((32, 27, 27, 256), "conv2", 32),
-              ((3, 7, 9, 5), "odd", None), ((2, 5, 7, 100), "odd", None)]
+    main = [((1024, 54, 54, 64), "conv1", 1024),
+            ((1024, 27, 27, 256), "conv2", 1024),
+            ((32, 54, 54, 64), "conv1", 32),
+            ((32, 27, 27, 256), "conv2", 32)]
     for dtype, rtol, atol in ((torch.bfloat16, 8e-3, 1e-6),
                               (torch.float32, 1e-5, 1e-5)):
-        for shape, site, batch in shapes:
-            x, g = pair(shape, dtype)
-            got = local_response_norm_bwd_cuda(x, g)
-            want = local_response_norm_bwd(x, g)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                                       atol=atol)
-            err = float((got.float() - want.float()).abs().max())
+        for shape, site, batch, r, want in _lrn_cases(main):
+            variant = lrn_cuda.variant(shape, dtype, r)
+            check(variant == want, f"{shape} {dtype} r={r} takes the "
+                  f"{variant} variant, expected {want}")
+            z, g = pair(shape, dtype)
+            err = 0.0
+            for got, want_t in ((bwd(z, g, r), local_response_norm_bwd(z, g,
+                                                                       r)),
+                                (bwd(z, g, r, relu=True),
+                                 relu_local_response_norm_bwd(z, g, r))):
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want_t.float(),
+                                           rtol=rtol, atol=atol)
+                err = max(err, float((got.float() - want_t.float())
+                                     .abs().max()))
+                del got, want_t
+            fused = bwd(z, g, r, relu=True)
+            bit_equal = torch.equal(_bits(fused), _bits(unfused((z, g), r)))
+            repeat = torch.equal(_bits(fused),
+                                 _bits(bwd(z, g, r, relu=True)))
+            check(bit_equal, f"fused LRN backward at {shape} {dtype} r={r} "
+                  "is not the unfused kernel's bits on F.relu(z), masked")
+            check(repeat, f"two LRN backward launches at {shape} {dtype} "
+                  f"r={r} differ")
             rec = {"site": site, "batch": batch, "shape": list(shape),
+                   "radius": r, "variant": variant,
                    "dtype": str(dtype).replace("torch.", ""), "rtol": rtol,
-                   "atol": atol, "max_abs_err": err}
-            del got, want
+                   "atol": atol, "max_abs_err": err,
+                   "fused_bit_equal": bit_equal, "repeat_bit_equal": repeat}
+            del z, g, fused
             if batch is not None:
                 # cold inputs: 40 distinct pairs at batch 32; at batch 1024
                 # one pair is 7-14x the L2, so 3 pairs suffice
                 inputs = [pair(shape, dtype)
                           for _ in range(40 if batch == 32 else 3)]
-                rec["ms"] = device_ms(
-                    lambda xg: local_response_norm_bwd_cuda(*xg), inputs)
+                relu_in = [(F.relu(z), g) for z, g in inputs]
+                # the main path's kernel: the ReLU's backward fused
+                rec["ms"] = device_ms(lambda zg: bwd(*zg, relu=True), inputs)
+                rec["unfused_ms"] = device_ms(lambda xg: bwd(*xg), relu_in)
+                rec["relu_bwd_ms"] = device_ms(
+                    lambda xg: torch.ops.aten.threshold_backward(
+                        xg[1], xg[0], 0.0), relu_in)
                 rec["plain_ms"] = device_ms(
-                    lambda xg: local_response_norm_bwd(*xg), inputs)
-                calls = [library(xg) for xg in inputs]
+                    lambda zg: relu_local_response_norm_bwd(*zg), inputs)
+                calls = [library(zg) for zg in inputs]
                 rec["library_ms"] = device_ms(lambda call: call(), calls)
-                bound, by = lrn_bwd_bound_ms(shape, x.element_size(), 2,
-                                             peaks)
+                bound, by = lrn_bwd_bound_ms(shape, torch.finfo(dtype).bits // 8,
+                                             2, peaks)
                 rec["bound_ms"], rec["bound_by"] = bound, by
-                del inputs, calls
+                del inputs, relu_in, calls
             records.append(rec)
             emit("kernel_bwd", name="lrn_bwd", **rec)
-            del x, g
             torch.cuda.empty_cache()
     return records
 
@@ -708,6 +834,7 @@ def phase_train_parity(tree):
                                 skip_nonfinite=True, device_finish=finish,
                                 device=dev)
         lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+        lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
         state, metrics = step(state, batch, 0)
         torch.cuda.synchronize()
         out[dev] = {
@@ -716,12 +843,16 @@ def phase_train_parity(tree):
                       for k, p in model.named_parameters()},
             "updates": {k: p.detach().cpu() - p0[k]
                         for k, p in model.named_parameters()},
-            "launches": (lrn_cuda.LAUNCHES, lrn_cuda.BWD_LAUNCHES)}
+            "launches": (lrn_cuda.LAUNCHES, lrn_cuda.BWD_LAUNCHES),
+            "vec_launches": (lrn_cuda.VEC_LAUNCHES,
+                             lrn_cuda.VEC_BWD_LAUNCHES)}
         del model, opt, state
     torch.cuda.empty_cache()
     cpu, card = out["cpu"], out["cuda"]
     check(card["launches"] == (2, 2) and cpu["launches"] == (0, 0),
           f"LRN launches card {card['launches']} cpu {cpu['launches']}")
+    check(card["vec_launches"] == (2, 2),
+          f"vector LRN launches on the card {card['vec_launches']}")
     check(all(g is not None for g in card["grads"].values()),
           "a parameter got no gradient on the card")
     check(float(card["grads"]["conv1.weight"].abs().max()) > 0,
@@ -764,6 +895,7 @@ def _profile_train(trainer, state, batch, steps=3):
             "device_idle_share": t["idle_share"],
             "lrn_fwd_us_per_step": t["lrn_fwd_us"],
             "lrn_bwd_us_per_step": t["lrn_bwd_us"],
+            "relu_us_per_step": t["relu_us"],
             "flash_us_per_step": t["flash_us"],
             "top_device_us_per_step": t["top_us"]}
 
@@ -790,11 +922,14 @@ def phase_train():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+    lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
     t0 = time.perf_counter()
     state = trainer.fit(state, data, num_steps=steps)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {"fwd": lrn_cuda.LAUNCHES, "bwd": lrn_cuda.BWD_LAUNCHES}
+    vec_launches = {"fwd": lrn_cuda.VEC_LAUNCHES,
+                    "bwd": lrn_cuda.VEC_BWD_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     recs = [r for r in trainer.records if r["event"] == "train"]
     losses = [r["loss"] for r in recs]
@@ -819,12 +954,16 @@ def phase_train():
          peak_memory_bytes=peak, losses=losses,
          grad_norms=[r["grad_norm"] for r in recs],
          loss_first5_mean=first, loss_last5_mean=last,
-         lrn_launches=launches, profile=profile)
+         lrn_launches=launches, lrn_vec_launches=vec_launches,
+         profile=profile)
     check(state.step == steps + profile["steps"] and len(recs) == steps,
           f"{state.step} steps, {len(recs)} records")
     check(launches == {"fwd": 2 * steps, "bwd": 2 * steps},
           f"LRN launches {launches} over {steps} steps, expected 2 forward "
           "and 2 backward a step")
+    check(vec_launches == launches,
+          f"vector LRN launches {vec_launches} of {launches}: every "
+          "training launch takes the vector variant")
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
     check(all(r["bad_step"] == 0.0 for r in recs), "a step was skipped")
     check(last < first, f"loss did not fall on a fixed batch: mean of the "
@@ -2006,6 +2145,23 @@ def main() -> int:
     sp = phase_ring_flash()
     phase_isolation()
 
+    def lrn_sites(recs, key, value):
+        # the main path's two sites at one batch, in bf16
+        main = [r for r in recs if r[key] == value
+                and r["dtype"] == "bfloat16"]
+        check(len(main) == 2 and all(r["variant"] == "vector"
+                                     for r in main),
+              f"LRN sites at {key} {value}: {len(main)} bf16 records")
+        return main
+
+    def lrn_times(main, relu_key):
+        # both sites summed: the fused kernel (the main path's), the
+        # unfused kernel with the ReLU pass it no longer needs, and
+        # the yardsticks
+        return {k: sum(r[k] for r in main)
+                for k in ("ms", "unfused_ms", relu_key, "plain_ms",
+                          "library_ms", "bound_ms")}
+
     def summary(name, source, replaces, recs, key, value, launches,
                 by_path, work):
         # two sites per pass: the line sums both sites' bf16 records
@@ -2104,17 +2260,31 @@ def main() -> int:
                     f"{tuple(rec['shape'])}"}
 
     emit("wall", seconds=time.perf_counter() - t_script)
+    lrn_fwd_row = summary(
+        "lrn_fwd", "distributed_vgg_f_tpu_torch/csrc/lrn_fwd.cu",
+        "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records, "bucket", 32,
+        serve_launches + train_launches["fwd"],
+        {"serve": serve_launches, "train": train_launches["fwd"]},
+        "both LRN sites of one bf16 forward at bucket 32, ReLU fused")
+    at32 = lrn_times(lrn_sites(records, "bucket", 32), "relu_ms")
+    lrn_fwd_row.update(
+        variant="vector", fused_relu=True, unfused_ms=at32["unfused_ms"],
+        relu_ms=at32["relu_ms"],
+        batch1024=lrn_times(lrn_sites(records, "bucket", 1024), "relu_ms"))
+    lrn_bwd_row = summary(
+        "lrn_bwd", "distributed_vgg_f_tpu_torch/csrc/lrn_bwd.cu",
+        "distributed_vgg_f_tpu/ops/lrn_pallas.py:74", bwd_records, "batch",
+        1024, train_launches["bwd"],
+        {"serve": 0, "train": train_launches["bwd"]},
+        "both LRN sites of one bf16 training step at batch 1024, the ReLU's "
+        "backward fused")
+    at1024 = lrn_times(lrn_sites(bwd_records, "batch", 1024), "relu_bwd_ms")
+    lrn_bwd_row.update(
+        variant="vector", fused_relu=True, unfused_ms=at1024["unfused_ms"],
+        relu_bwd_ms=at1024["relu_bwd_ms"])
     print(json.dumps({"kernels": [
-        summary("lrn_fwd", "distributed_vgg_f_tpu_torch/csrc/lrn_fwd.cu",
-                "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records,
-                "bucket", 32, serve_launches + train_launches["fwd"],
-                {"serve": serve_launches, "train": train_launches["fwd"]},
-                "both LRN sites of one bf16 forward at bucket 32"),
-        summary("lrn_bwd", "distributed_vgg_f_tpu_torch/csrc/lrn_bwd.cu",
-                "distributed_vgg_f_tpu/ops/lrn_pallas.py:74", bwd_records,
-                "batch", 1024, train_launches["bwd"],
-                {"serve": 0, "train": train_launches["bwd"]},
-                "both LRN sites of one bf16 training step at batch 1024"),
+        lrn_fwd_row,
+        lrn_bwd_row,
         flash_summary("flash_fwd", ":211",
                       {"vit_serve": vit_serve_launches,
                        "vit_train": vit_train_launches["fwd"],

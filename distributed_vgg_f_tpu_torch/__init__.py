@@ -14,10 +14,11 @@ train step (train/step.py): finish, flip and mixup (data/augment.py), the
 forward with dropout, CE plus coupled L2 (ops/losses.py), the backward,
 clipping, SGD with momentum on the schedule (train/schedule.py), the EMA
 and the non-finite skip (resilience/guard.py). Both LRN sites of the
-model go through an autograd Function (ops/lrn.py) whose forward and
-backward run the hand-written Hopper kernels (ops/lrn_cuda.py,
-csrc/lrn_fwd.cu, csrc/lrn_bwd.cu) when the tensor lies on a CUDA device
-and the plain PyTorch versions when it lies on the CPU.
+model, each with the ReLU before it fused in, go through an autograd
+Function (ops/lrn.py relu_lrn) whose forward and backward run the
+hand-written Hopper kernels (ops/lrn_cuda.py, csrc/lrn_fwd.cu,
+csrc/lrn_bwd.cu) when the tensor lies on a CUDA device and the plain
+PyTorch versions when it lies on the CPU.
 
 Entry points (`build_engine`, `serve_from_params`, `Trainer`,
 `build_train_step`, ...) default to ``device="cuda"`` and refuse to run

@@ -26,6 +26,8 @@ runs NHWC and the LRN kernel sees contiguous rows of C channels.
 Casts mirror the JAX model: the input is cast to the compute dtype, conv
 and dense biases are added in the compute dtype after the product, LRN
 computes in fp32 and returns the compute dtype, and the logits are fp32.
+The ReLU in front of each LRN is fused into it (ops/lrn.py relu_lrn): the
+same function, one kernel each way instead of two passes.
 Flattening before fc6 in NHWC order makes fc6 a plain transpose of the
 Flax kernel (weights.py).
 """
@@ -37,7 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from distributed_vgg_f_tpu_torch.models.ingest import reject_raw_uint8
-from distributed_vgg_f_tpu_torch.ops.lrn import lrn
+from distributed_vgg_f_tpu_torch.ops.lrn import relu_lrn
 from distributed_vgg_f_tpu_torch.ops.pooling import (_ceil_pad,
                                                      maxpool_3x3s2_ceil_nchw)
 
@@ -116,10 +118,11 @@ class VGGF(nn.Module):
         cd = self.compute_dtype
         return F.linear(x, layer.weight.to(cd)) + layer.bias.to(cd)
 
-    def _lrn(self, x):
-        # the NHWC view of a channels_last tensor is contiguous: the kernel
-        # normalizes rows of C channels in place order
-        y = lrn(x.permute(0, 2, 3, 1).contiguous(), *self.lrn_args)
+    def _relu_lrn(self, z):
+        # ReLU then LRN, fused into one kernel each way; the NHWC view of a
+        # channels_last tensor is contiguous: the kernel normalizes rows of
+        # C channels in place order
+        y = relu_lrn(z.permute(0, 2, 3, 1).contiguous(), *self.lrn_args)
         return y.permute(0, 3, 1, 2)
 
     def _dropout(self, x, generator):
@@ -142,10 +145,10 @@ class VGGF(nn.Module):
             x = depth_to_space(x)
         x = x.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        x = F.relu(self._conv(self.conv1, x, 4, 0))
-        x = maxpool_3x3s2_ceil_nchw(self._lrn(x))
-        x = F.relu(self._conv(self.conv2, x, 1, 2))
-        x = maxpool_3x3s2_ceil_nchw(self._lrn(x))
+        x = maxpool_3x3s2_ceil_nchw(
+            self._relu_lrn(self._conv(self.conv1, x, 4, 0)))
+        x = maxpool_3x3s2_ceil_nchw(
+            self._relu_lrn(self._conv(self.conv2, x, 1, 2)))
         x = F.relu(self._conv(self.conv3, x, 1, 1))
         x = F.relu(self._conv(self.conv4, x, 1, 1))
         x = F.relu(self._conv(self.conv5, x, 1, 1))

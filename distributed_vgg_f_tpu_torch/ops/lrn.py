@@ -13,14 +13,20 @@ counterpart of the Pallas ``_bwd_kernel`` (``ops/lrn_pallas.py:74``) and
 the reference the backward kernel is held against: d is recomputed from
 x, then dx = g*d**-beta - 2*a*beta*x*sum_window(g*x*d**-(beta+1)).
 
-`lrn` is what the model calls. It goes through `LRNFunction`, the
-counterpart of the JAX package's custom VJP ``_lrn2d``: the forward
-saves only x, and the backward recomputes from it. Forward and backward
-each launch the Hopper kernel (ops/lrn_cuda.py) for a CUDA tensor and run
-the plain version for a CPU tensor. The plain versions compute in fp32
-(fp64 for an fp64 input, so `torch.autograd.gradcheck` can hold them to
-their own math) and return the input's dtype. `F.local_response_norm` is
-not used: it divides alpha by n, and on the CPU it refuses bf16.
+`lrn` goes through `LRNFunction`, the counterpart of the JAX package's
+custom VJP ``_lrn2d``: the forward saves only x, and the backward
+recomputes from it. `relu_lrn` is what the model calls at both LRN sites,
+each of which follows a ReLU (the JAX package's ``nn.relu`` then
+``local_response_norm``): it goes through `ReLULRNFunction`, which saves
+only the ReLU's input z and fuses the ReLU into both kernels. Its plain
+versions are `relu_local_response_norm` (``local_response_norm(F.relu(z))``)
+and `relu_local_response_norm_bwd` (the LRN backward at max(z, 0), kept
+where z > 0: the mask of torch's and JAX's ReLU gradients). Forward and
+backward each launch the Hopper kernel (ops/lrn_cuda.py) for a CUDA tensor
+and run the plain version for a CPU tensor. The plain versions compute in
+fp32 (fp64 for an fp64 input, so `torch.autograd.gradcheck` can hold them
+to their own math) and return the input's dtype. `F.local_response_norm`
+is not used: it divides alpha by n, and on the CPU it refuses bf16.
 """
 
 from __future__ import annotations
@@ -106,6 +112,35 @@ def local_response_norm_bwd(x: torch.Tensor,
     return (gf * p - (2.0 * a * beta) * xf * u).to(x.dtype)
 
 
+def relu_local_response_norm(z: torch.Tensor,
+                             depth_radius: int = 2,
+                             bias: float = 2.0,
+                             alpha: float = 1e-4,
+                             beta: float = 0.75,
+                             *,
+                             alpha_scaled: bool = False) -> torch.Tensor:
+    """`local_response_norm` of F.relu(z): the function the fused kernel
+    computes."""
+    return local_response_norm(F.relu(z), depth_radius, bias, alpha, beta,
+                               alpha_scaled=alpha_scaled)
+
+
+def relu_local_response_norm_bwd(z: torch.Tensor,
+                                 g: torch.Tensor,
+                                 depth_radius: int = 2,
+                                 bias: float = 2.0,
+                                 alpha: float = 1e-4,
+                                 beta: float = 0.75,
+                                 *,
+                                 alpha_scaled: bool = False) -> torch.Tensor:
+    """dL/dz of `relu_local_response_norm` from z and g = dL/dy, in closed
+    form: `local_response_norm_bwd` at F.relu(z), rounded to z's dtype,
+    then 0 where z <= 0."""
+    dx = local_response_norm_bwd(F.relu(z), g, depth_radius, bias, alpha,
+                                 beta, alpha_scaled=alpha_scaled)
+    return torch.where(z > 0, dx, torch.zeros_like(dx))
+
+
 class LRNFunction(torch.autograd.Function):
     """LRN with its closed-form backward. Saves only x (the TPU custom
     VJP's residual); the backward recomputes the normalizer from it. Each
@@ -143,11 +178,58 @@ def lrn(x: torch.Tensor,
         beta: float = 0.75,
         *,
         alpha_scaled: bool = False) -> torch.Tensor:
-    """Differentiable LRN over the last axis — what models call, through
-    `LRNFunction`. A CUDA tensor launches the Hopper kernels (which raise
-    on what they do not take), forward and backward; a CPU tensor runs
-    the plain versions."""
+    """Differentiable LRN over the last axis, through `LRNFunction` (the
+    unfused op; VGG-F calls `relu_lrn`). A CUDA tensor launches the Hopper
+    kernels (which raise on what they do not take), forward and backward;
+    a CPU tensor runs the plain versions."""
     n = 2 * depth_radius + 1
     a = alpha / n if alpha_scaled else alpha
     return LRNFunction.apply(x, depth_radius, float(bias), float(a),
                              float(beta))
+
+
+class ReLULRNFunction(torch.autograd.Function):
+    """LRN of ReLU(z) with both directions fused. Saves only z, as
+    `LRNFunction` saves only x: the backward recomputes max(z, 0), the
+    normalizer and the ReLU's mask from it. Each direction dispatches on
+    the tensor's device: the Hopper kernels with their ReLU on for CUDA,
+    the plain versions for the CPU. `a` is the effective alpha.
+    Differentiable once, as `LRNFunction`."""
+
+    @staticmethod
+    def forward(ctx, z, depth_radius, bias, a, beta):
+        ctx.save_for_backward(z)
+        ctx.lrn_args = (depth_radius, bias, a, beta)
+        if z.is_cuda:
+            return lrn_cuda.local_response_norm_cuda(z, depth_radius, bias,
+                                                     a, beta, relu=True)
+        return relu_local_response_norm(z, depth_radius, bias, a, beta)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        g = g.contiguous()
+        if z.is_cuda:
+            dz = lrn_cuda.local_response_norm_bwd_cuda(z, g, *ctx.lrn_args,
+                                                       relu=True)
+        else:
+            dz = relu_local_response_norm_bwd(z, g, *ctx.lrn_args)
+        return dz, None, None, None, None
+
+
+def relu_lrn(z: torch.Tensor,
+             depth_radius: int = 2,
+             bias: float = 2.0,
+             alpha: float = 1e-4,
+             beta: float = 0.75,
+             *,
+             alpha_scaled: bool = False) -> torch.Tensor:
+    """Differentiable LRN of ReLU(z) over the last axis — what VGG-F calls
+    at both LRN sites, through `ReLULRNFunction`. A CUDA tensor launches
+    the fused Hopper kernels, forward and backward; a CPU tensor runs the
+    plain versions."""
+    n = 2 * depth_radius + 1
+    a = alpha / n if alpha_scaled else alpha
+    return ReLULRNFunction.apply(z, depth_radius, float(bias), float(a),
+                                 float(beta))

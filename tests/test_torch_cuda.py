@@ -14,7 +14,10 @@ Tolerances: kernel vs plain fp32 rtol 1e-5 (both sum five squares in
 fp32; the kernel may fuse multiply-adds); bf16 rtol 8e-3, one bf16 ulp
 (both round the same fp32 value, which may differ in its last bits).
 The backward kernel vs the plain backward: the same, with atol 1e-5 in
-fp32 (dx is a difference of two terms). Model on the card vs the CPU in
+fp32 (dx is a difference of two terms). Both LRN kernels in both variants
+(vector and general), unfused and with the ReLU fused, at those
+tolerances; the fused kernels bit-equal to the unfused ones on F.relu(z)
+(ReLU is exact in any dtype), and two launches bit-equal. Model on the card vs the CPU in
 fp32 with TF32 off: rtol/atol 1e-4, for logits, for one train step's
 parameter gradients (narrow model, 32 px) and for the updated
 parameters.
@@ -93,13 +96,13 @@ def test_card_forward_launches_lrn_twice_and_matches_cpu(cuda_device):
     # fp32 convs in full fp32, as on the CPU (cuDNN defaults to TF32)
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    lrn_cuda.LAUNCHES = 0
+    lrn_cuda.LAUNCHES = lrn_cuda.VEC_LAUNCHES = 0
     try:
         with torch.no_grad():
             got = card(torch.from_numpy(x).to(cuda_device)).cpu().numpy()
     finally:
         torch.backends.cudnn.allow_tf32 = prev
-    assert lrn_cuda.LAUNCHES == 2
+    assert lrn_cuda.LAUNCHES == 2 and lrn_cuda.VEC_LAUNCHES == 2
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
@@ -141,6 +144,105 @@ def test_bwd_kernel_refuses_what_it_does_not_take(cuda_device):
         lrn_cuda.local_response_norm_bwd_cuda(x, x.bfloat16())
 
 
+#: The vector variant at every lane-group width the checks use and every
+#: radius it is built for; the general variant at odd shapes (C = 5 and
+#: 100: no whole 16-byte vectors; 24: 3 lanes, no power of two; radius 5:
+#: wider than the vector variant is built for).
+_VEC_CASES = [((2, 5, 7, c), r) for c in (8, 16, 64, 128, 256)
+              for r in range(5)]
+_GENERAL_CASES = [((3, 7, 9, 5), 2), ((2, 5, 7, 100), 2),
+                  ((2, 5, 7, 24), 2), ((2, 5, 7, 64), 5)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _zg_card(device, shape, dtype, seed):
+    """Pre-activations with negatives and exact zeros (every fifth), and a
+    cotangent."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    z = torch.randn(shape, generator=gen, device=device) * 3.0
+    z.view(-1)[::5] = 0.0
+    g = torch.randn(shape, generator=gen, device=device)
+    return z.to(dtype), g.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,radius", _VEC_CASES + _GENERAL_CASES)
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-5, 1e-5),
+                                             (torch.bfloat16, 8e-3, 1e-6)])
+def test_lrn_variants_fused_and_not_match_plain_on_card(cuda_device, shape,
+                                                        radius, dtype, rtol,
+                                                        atol):
+    """Both kernels, unfused and with the ReLU fused, against their plain
+    versions; the fused kernels give the unfused kernels' bits on
+    F.relu(z) (then the ReLU's own backward mask), and a second launch
+    gives the same bits. Each launch counts once, and in the vector
+    counters only when the shape takes the vector variant."""
+    import torch.nn.functional as F
+
+    from distributed_vgg_f_tpu_torch.ops.lrn import (
+        relu_local_response_norm, relu_local_response_norm_bwd)
+    want_variant = ("vector" if (shape, radius) in _VEC_CASES
+                    else "general")
+    assert lrn_cuda.variant(shape, dtype, radius) == want_variant
+    z, g = _zg_card(cuda_device, shape, dtype, seed=radius)
+    r = F.relu(z)
+    counts = (lrn_cuda.LAUNCHES, lrn_cuda.VEC_LAUNCHES,
+              lrn_cuda.BWD_LAUNCHES, lrn_cuda.VEC_BWD_LAUNCHES)
+    y = lrn_cuda.local_response_norm_cuda(z, radius)
+    yf = lrn_cuda.local_response_norm_cuda(z, radius, relu=True)
+    yr = lrn_cuda.local_response_norm_cuda(r, radius)
+    yf2 = lrn_cuda.local_response_norm_cuda(z, radius, relu=True)
+    dx = lrn_cuda.local_response_norm_bwd_cuda(z, g, radius)
+    dz = lrn_cuda.local_response_norm_bwd_cuda(z, g, radius, relu=True)
+    dr = torch.ops.aten.threshold_backward(
+        lrn_cuda.local_response_norm_bwd_cuda(r, g, radius), r, 0.0)
+    dz2 = lrn_cuda.local_response_norm_bwd_cuda(z, g, radius, relu=True)
+    torch.cuda.synchronize()
+    vec = int(want_variant == "vector")
+    assert (lrn_cuda.LAUNCHES, lrn_cuda.VEC_LAUNCHES, lrn_cuda.BWD_LAUNCHES,
+            lrn_cuda.VEC_BWD_LAUNCHES) == (counts[0] + 4, counts[1] + 4 * vec,
+                                           counts[2] + 4, counts[3] + 4 * vec)
+    for got in (y, yf, dx, dz):
+        assert got.dtype == dtype and got.shape == z.shape
+    torch.testing.assert_close(y.float(),
+                               local_response_norm(z, radius).float(),
+                               rtol=rtol, atol=1e-6)
+    torch.testing.assert_close(yf.float(),
+                               relu_local_response_norm(z, radius).float(),
+                               rtol=rtol, atol=1e-6)
+    torch.testing.assert_close(dx.float(),
+                               local_response_norm_bwd(z, g, radius).float(),
+                               rtol=rtol, atol=atol)
+    torch.testing.assert_close(
+        dz.float(), relu_local_response_norm_bwd(z, g, radius).float(),
+        rtol=rtol, atol=atol)
+    assert torch.equal(_bits(yf), _bits(yr))
+    assert torch.equal(_bits(dz), _bits(dr))
+    assert torch.equal(_bits(yf), _bits(yf2))
+    assert torch.equal(_bits(dz), _bits(dz2))
+
+
+@pytest.mark.cuda
+def test_vector_variant_takes_a_view_off_16_bytes_on_card(cuda_device):
+    """A contiguous view that starts off a 16-byte boundary is copied once
+    and takes the vector variant; the result is the aligned tensor's."""
+    z, g = _zg_card(cuda_device, (2 * 3 * 64 + 1,), torch.bfloat16, seed=9)
+    zv, gv = z[1:].view(2, 3, 64), g[1:].view(2, 3, 64)
+    assert zv.data_ptr() % 16 != 0
+    before = lrn_cuda.VEC_LAUNCHES, lrn_cuda.VEC_BWD_LAUNCHES
+    y = lrn_cuda.local_response_norm_cuda(zv, relu=True)
+    dz = lrn_cuda.local_response_norm_bwd_cuda(zv, gv, relu=True)
+    assert (lrn_cuda.VEC_LAUNCHES, lrn_cuda.VEC_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(_bits(y), _bits(lrn_cuda.local_response_norm_cuda(
+        zv.clone(), relu=True)))
+    assert torch.equal(_bits(dz), _bits(lrn_cuda.local_response_norm_bwd_cuda(
+        zv.clone(), gv.clone(), relu=True)))
+
+
 @pytest.mark.cuda
 def test_card_train_step_gives_conv1_the_cpu_gradient(cuda_device):
     """One train step on the card and on the CPU from the same weights and
@@ -167,17 +269,18 @@ def test_card_train_step_gives_conv1_the_cpu_gradient(cuda_device):
             opt, schedule = build_optimizer(cfg, model.parameters())
             state = TrainState.create(model, opt)
             step = build_train_step(schedule, 5e-4, device=dev)
-            lrn_cuda.BWD_LAUNCHES = 0
+            lrn_cuda.BWD_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
             state.opt_count = 100  # past the warmup's LR-0 first update
             state, _ = step(state, batch, 0)
             torch.cuda.synchronize()
             out[dev] = ({k: p.grad.cpu() for k, p in
                          model.named_parameters()},
                         {k: p.detach().cpu() for k, p in
-                         model.named_parameters()}, lrn_cuda.BWD_LAUNCHES)
+                         model.named_parameters()},
+                        (lrn_cuda.BWD_LAUNCHES, lrn_cuda.VEC_BWD_LAUNCHES))
     finally:
         torch.backends.cudnn.allow_tf32 = prev
-    assert out["cpu"][2] == 0 and out["cuda"][2] == 2
+    assert out["cpu"][2] == (0, 0) and out["cuda"][2] == (2, 2)
     grads, params = out["cuda"][0], out["cuda"][1]
     assert grads["conv1.weight"].abs().max() > 0
     for k in grads:

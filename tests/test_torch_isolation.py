@@ -164,3 +164,22 @@ def test_unknown_device_is_refused():
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "train_profile.py"])
+def test_card_scripts_import_no_jax_and_refuse_without_cuda(script):
+    """The scripts run on the card's machine, where JAX is not installed:
+    they import nothing of it, and without a CUDA device they exit 2
+    before printing any result."""
+    path = os.path.join(REPO, script)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert [n for n in names if forbidden(n)] == []
+    out = subprocess.run([sys.executable, path], cwd=REPO,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 2 and out.stdout == "", out.stderr
