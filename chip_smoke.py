@@ -98,12 +98,19 @@ Phases, one JSON line each:
   ring_kernel the three ring block kernels (fold, dQ step, dK/dV step)
             against their plain versions at the offsets the ranks of a
             4-rank ring see at the local shape (4, 2048, 6, 64) — a past
-            block, the diagonal, a block wholly in the future (left
-            untouched) — and at the ragged local length 197 with a
-            block-local kv_len and a partly masked block, at head dims 128
-            and 256 and at B*H = 65600, in bf16 and fp32; device times
+            block, the diagonal, a block wholly in the future (every bit
+            left as it was) — and at the ragged local length 197 with a
+            block-local kv_len (padded keys keep their bits) and a
+            partly masked block, at head dims 128 and 256 and at
+            B*H = 65600, in bf16 and fp32; device times and TFLOP/s
             against the bound for a past and a diagonal block, and for a
-            past block at head dim 128
+            past block at head dim 128, with PyTorch's flash attention
+            backward as the backward's library yardstick (checked
+            against the plain version first); the block dQ and dK/dV at
+            stress lengths T = 2 … 2048 (Tq != Tk among them) and
+            diagonal shifts 0, 37 and -37, causal, at head dims 64 and
+            256 (rows they do not reach keep their bits); and their
+            bit-equal repeat
   ring_flash (a) initialize_distributed on a one-rank NCCL group, then
             ring_flash_attention, ring_self_attention and
             ulysses_self_attention (flash) at (4, 8192, 6, 64) bf16, causal
@@ -244,12 +251,14 @@ def lrn_bwd_bound_ms(shape, itemsize, depth_radius, peaks):
 def _ptxas_report(logs):
     """From nvcc's -Xptxas -v output of each source: the registers a
     thread, static shared memory and spill bytes of each warp-specialised
-    (wgmma) kernel instantiation and of each LRN kernel instantiation at
+    (wgmma) kernel instantiation (the flash forward, dQ and dK/dV, and
+    the ring block dQ and dK/dV) and of each LRN kernel instantiation at
     the main path's radius 2 (the general variant at every radius), and
     the codes of ptxas's performance notes on it (C7515-C7520: wgmma it
     serialised), as {"kernel<params>": {...}}."""
     def entry_of(line):
-        k = re.search(r"(flash_[a-z]+_wgmma_kernel)ILi(\d+)E", line)
+        k = re.search(r"((?:flash|block)_[a-z]+_wgmma_kernel)ILi(\d+)E",
+                      line)
         if k:
             return f"{k.group(1)}<{k.group(2)}>"
         k = re.search(r"(lrn_(?:fwd|bwd)(?:_vec)?_kernel)I(13__nv_bfloat16|f)"
@@ -1676,43 +1685,239 @@ def _zero_block_counts():
     flash_cuda.BLOCK_DKV_LAUNCHES = 0
 
 
+def block_flops(kind, bh, tq, d, q_off, k_off, causal, kv_len):
+    """The products' FLOPs of one ring block step over its live (query,
+    key) pairs: 2 products in the fold, 3 in dQ, 4 in dK/dV, each 2*D a
+    pair."""
+    live = sum(min(kv_len, max(0, q_off + i - k_off + 1)) if causal
+               else kv_len for i in range(tq))
+    products = {"flash_block_fwd": 2, "flash_block_dq": 3,
+                "flash_block_dkv": 4}[kind]
+    return products * 2 * d * bh * live
+
+
 def block_bound_ms(kind, bh, tq, tk, d, itemsize, q_off, k_off, causal,
                    kv_len, peaks):
     """Least time for one ring block step: each input read once (q, k, v,
     and dO, lse and delta in the backward), the fp32 state or accumulators
     read and written once, at the memory rate, against the products' FLOPs
-    over this step's live (query, key) pairs at the peak for the inputs'
-    type."""
+    over this step's live (query, key) pairs (block_flops) at the peak
+    for the inputs' type."""
     bw, fp32_flops = peaks
     q_bytes, kv_bytes = bh * tq * d * itemsize, bh * tk * d * itemsize
     rows = bh * tq * 4
-    live = sum(min(kv_len, max(0, q_off + i - k_off + 1)) if causal
-               else kv_len for i in range(tq))
-    pairs = bh * live
-    moved, products = {
+    moved = {
         # q, k, v; acc (fp32) and m, l in and out
         "flash_block_fwd": (q_bytes + 2 * kv_bytes + 2 * bh * tq * d * 4
-                            + 4 * rows, 2),
+                            + 4 * rows),
         # q, k, v, dO, lse, delta; dq (fp32) in and out
         "flash_block_dq": (2 * q_bytes + 2 * kv_bytes + 2 * rows
-                           + 2 * bh * tq * d * 4, 3),
+                           + 2 * bh * tq * d * 4),
         # q, k, v, dO, lse, delta; dk and dv (fp32) in and out
         "flash_block_dkv": (2 * q_bytes + 2 * kv_bytes + 2 * rows
-                            + 4 * bh * tk * d * 4, 4)}[kind]
-    flops = products * 2 * d * pairs
+                            + 4 * bh * tk * d * 4)}[kind]
+    flops = block_flops(kind, bh, tq, d, q_off, k_off, causal, kv_len)
     peak = _BF16_TENSOR_FLOPS if itemsize == 2 else fp32_flops
     bytes_ms, ops_ms = moved / bw * 1e3, flops / peak * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                           "operations")
 
 
+def _sdpa_block_bwd(x, b, h, causal):
+    """The library yardstick of the block dQ and dK/dV: PyTorch's flash
+    attention backward on this block alone, given the out and lse of its
+    own flash forward (built here, outside any timed window). Returns
+    (call, out, lse): call() gives the block's dQ, dK and dV contributions
+    from zero as (B, H, T, D); out (B*H, T, D) and lse (B*H, T, 1) are
+    what it was given. It recomputes delta = rowsum(dO * out) itself, adds
+    into no carried state and takes no kv_len."""
+    bh, t, d = x["q"].shape
+    q4, k4, v4, do4 = (x[key].view(b, h, -1, d)
+                       for key in ("q", "k", "v", "do"))
+    aten = torch.ops.aten
+    out, lse, cq, ck, mq, mk, seed, offset, _ = \
+        aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal,
+                                                 False)
+
+    def call():
+        return aten._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, out, lse, cq, ck, mq, mk, 0.0, causal, seed,
+            offset)
+    return call, out.reshape(bh, t, d), lse.reshape(bh, t, 1)
+
+
+_SDPA_BWD = "torch.ops.aten._scaled_dot_product_flash_attention_backward"
+
+
+def _library_block_bwd(x, b, h, kw):
+    """Whether the library yardstick (_sdpa_block_bwd) computes this
+    block's function: its dQ, dK and dV against block_grads_plain from
+    zero accumulators on its own out and lse (delta = rowsum(dO * out)),
+    within bf16's 1e-2 of the largest value. Returns (ok, description)."""
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import \
+        block_grads_plain
+    name = _SDPA_BWD + ("(is_causal=True)" if kw["causal"] else "")
+    try:
+        call, out, lse = _sdpa_block_bwd(x, b, h, kw["causal"])
+        got = call()
+    except (RuntimeError, TypeError, ValueError) as e:
+        return False, f"none: {name} refused the block: {e}"[:300]
+    delta = (x["do"].float() * out.float()).sum(-1, keepdim=True)
+    zeros = [torch.zeros(x[key].shape, device="cuda")
+             for key in ("q", "k", "v")]
+    want = block_grads_plain(x["q"], x["k"], x["v"], x["do"], lse, delta,
+                             *zeros, **kw)
+    for what, g, w in zip(("dq", "dk", "dv"), got, want):
+        g = g.float().reshape(w.shape)
+        e, bound = float((g - w).abs().max()), 1e-2 * float(w.abs().max())
+        if not (bool(torch.isfinite(g).all()) and e <= bound):
+            return False, (f"none: {name}'s {what} is off block_grads_plain "
+                           f"by {e} (allowed {bound})")
+    return True, (f"{name}: the block's dQ, dK and dV from zero, given its "
+                  "out and lse (delta recomputed); no carried "
+                  "accumulators, no kv_len")
+
+
+#: the block steps' stress: (Tq, Tk, kv_len) around the 64- and 128-row
+#: tiles and the rings' stages, Tq != Tk among them, each causal at the
+#: diagonal shifts q_off - k_off of _BLOCK_SHIFTS (zero, ragged, negative)
+_BLOCK_STRESS = ((2, 2, 2), (63, 65, 50), (65, 63, 63), (129, 100, 100),
+                 (197, 197, 180), (2048, 2048, 1500))
+_BLOCK_SHIFTS = (0, 37, -37)
+
+
+def _block_bwd_stress(seed):
+    """The block dQ and dK/dV at the lengths and shifts of _BLOCK_STRESS
+    and _BLOCK_SHIFTS, at the head dims of _BWD_STRESS_DIMS, in bf16 and
+    fp32: from zero accumulators within 1e-2 / 1e-5 of the largest value
+    of block_grads_plain (exactly zero where the block lies wholly in the
+    rows' future); from random accumulators, the dq rows that see no key
+    and the dk/dv rows that no query sees must keep their bits. Returns
+    the records."""
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import \
+        block_grads_plain
+    from distributed_vgg_f_tpu_torch.ops.flash_cuda import (
+        flash_block_dkv_cuda, flash_block_dq_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                               device="cuda")
+    b, h = 2, 3
+    records = []
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        for d in _BWD_STRESS_DIMS:
+            for tq, tk, kv_len in _BLOCK_STRESS:
+                for shift in _BLOCK_SHIFTS:
+                    q_off = 512 + max(shift, 0)
+                    kw = {"q_off": q_off, "k_off": q_off - shift,
+                          "causal": True, "kv_len": kv_len}
+                    args = (f(b * h, tq, d).to(dtype),
+                            f(b * h, tk, d).to(dtype),
+                            f(b * h, tk, d).to(dtype),
+                            f(b * h, tq, d).to(dtype),
+                            f(b * h, tq, 1) + 3.0, f(b * h, tq, 1))
+                    lens = (tq, tk, tk)
+                    got = [torch.zeros(b * h, n, d, device="cuda")
+                           for n in lens]
+                    want = block_grads_plain(*args, *got, **kw)
+                    flash_block_dq_cuda(*args, got[0], **kw)
+                    flash_block_dkv_cuda(*args, *got[1:], **kw)
+                    acc = [f(b * h, n, d) for n in lens]
+                    kept = [a.clone() for a in acc]
+                    flash_block_dq_cuda(*args, kept[0], **kw)
+                    flash_block_dkv_cuda(*args, *kept[1:], **kw)
+                    torch.cuda.synchronize()
+                    rows_q = torch.arange(tq, device="cuda")
+                    rows_k = torch.arange(tk, device="cuda")
+                    dead_k = (rows_k >= kv_len) | (rows_k - shift >= tq)
+                    untouched = all(
+                        torch.equal(_bits(y[:, rows]), _bits(a[:, rows]))
+                        for y, a, rows in zip(kept, acc, (
+                            rows_q + shift < 0, dead_k, dead_k)))
+                    site = f"block_stress_{tq}_{tk}_shift{shift}"
+                    check(untouched, f"block dQ/dK/dV changed rows they do "
+                          f"not reach at {site} D = {d} {dtype}")
+                    for name, gs, ws in (("flash_block_dq", got[:1],
+                                          want[:1]),
+                                         ("flash_block_dkv", got[1:],
+                                          want[1:])):
+                        err = rel = 0.0
+                        for g, w in zip(gs, ws):
+                            e = float((g - w).abs().max())
+                            scale = float(w.abs().max())
+                            check(bool(torch.isfinite(g).all())
+                                  and e <= tol * scale,
+                                  f"{name} off its plain version by {e} at "
+                                  f"{site} D = {d} {dtype} (allowed "
+                                  f"{tol * scale})")
+                            err = max(err, e)
+                            rel = max(rel, e / scale if scale else 0.0)
+                        rec = {"name": name, "site": site,
+                               "shape": [b, tq, h, d], "bh": b * h,
+                               "tk": tk, "q_off": kw["q_off"],
+                               "k_off": kw["k_off"], "causal": True,
+                               "kv_len": kv_len,
+                               "dtype": str(dtype).replace("torch.", ""),
+                               "tol_of_max": tol, "max_abs_err": err,
+                               "max_rel_err": rel,
+                               "untouched_bit_equal": untouched}
+                        records.append(rec)
+                        emit("ring_kernel", **rec)
+                    del args, got, want, acc, kept
+    return records
+
+
+def _block_bwd_repeat(seed):
+    """dq, dk and dv of two launches of the bf16 block dQ and dK/dV from
+    the same inputs and accumulators must be the same bits (no atomics):
+    a past and a diagonal block of the 4-rank ring's local shape, and a
+    ragged partly masked block at D = 256 with Tq != Tk."""
+    from distributed_vgg_f_tpu_torch.ops.flash_cuda import (
+        flash_block_dkv_cuda, flash_block_dq_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                               device="cuda")
+    t_loc = _LONG_TS[-1] // 4
+    bh = _LONG_B * _VIT_H
+    for site, tq, tk, d, q_off, k_off, causal in (
+            ("past", t_loc, t_loc, _VIT_D, 2 * t_loc, 0, False),
+            ("diagonal", t_loc, t_loc, _VIT_D, 2 * t_loc, 2 * t_loc, True),
+            ("ragged_partial_256", 197, 150, 256, 197, 147, True)):
+        kw = {"q_off": q_off, "k_off": k_off, "causal": causal,
+              "kv_len": tk}
+        args = (f(bh, tq, d).bfloat16(), f(bh, tk, d).bfloat16(),
+                f(bh, tk, d).bfloat16(), f(bh, tq, d).bfloat16(),
+                f(bh, tq, 1) + 3.0, f(bh, tq, 1))
+        acc = [f(bh, n, d) for n in (tq, tk, tk)]
+        runs = []
+        for _ in range(2):
+            y = [a.clone() for a in acc]
+            flash_block_dq_cuda(*args, y[0], **kw)
+            flash_block_dkv_cuda(*args, *y[1:], **kw)
+            runs.append(y)
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(_bits(a), _bits(c)))
+                for a, c in zip(*runs)]
+        check(all(same), f"block dQ, dK, dV of two launches differ at "
+              f"{site}: bit-equal {same}")
+        emit("ring_kernel", name="flash_block_bwd_repeat", site=site,
+             shape=[_LONG_B, tq, _VIT_H, d], tk=tk, q_off=q_off,
+             k_off=k_off, causal=causal, dtype="bfloat16",
+             bit_equal={"dq": same[0], "dk": same[1], "dv": same[2]})
+        del args, acc, runs
+
+
 def phase_ring_kernel(peaks):
     """The three ring block kernels against their plain versions at the
     offsets the ranks of a 4-rank ring see (a past block, the diagonal, a
-    block wholly in the future) at the local shape (4, 2048, 6, 64) of
-    (4, 8192, 6, 64), at the ragged local length 197 with a block-local
-    kv_len and a partly masked block, at head dims 128 and 256, and at
-    B*H = 65600; returns the records."""
+    block wholly in the future, which must leave every bit of the state
+    as it was) at the local shape (4, 2048, 6, 64) of (4, 8192, 6, 64),
+    at the ragged local length 197 with a block-local kv_len (padded keys
+    keep their accumulators' bits) and a partly masked block, at head
+    dims 128 and 256, and at B*H = 65600; timed sites with TFLOP/s and,
+    for the backward in bf16, PyTorch's flash attention backward as the
+    library yardstick; then the block dQ and dK/dV stress
+    (_block_bwd_stress) and their bit-equal repeat; returns the
+    records."""
     from distributed_vgg_f_tpu_torch.ops.flash_attention import (
         block_grads_plain, block_update_plain)
     from distributed_vgg_f_tpu_torch.ops.flash_cuda import (
@@ -1802,11 +2007,11 @@ def phase_ring_kernel(peaks):
                     if not m_row:   # m's error is held absolutely
                         rel = max(rel, e / float(w.abs().max()))
                 errs[name] = (err, rel)
-            check(bool((got_g[1][:, kv_len:] == 0).all()
-                       and (got_g[2][:, kv_len:] == 0).all()),
-                  f"padded keys got a gradient at {site}")
+            check(all(torch.equal(_bits(g[:, kv_len:]), _bits(y[:, kv_len:]))
+                      for g, y in zip(got_g[1:], args_g[7:])),
+                  f"padded keys' accumulators changed at {site}")
             if site == "future":
-                check(all(torch.equal(g, y) for g, y in
+                check(all(torch.equal(_bits(g), _bits(y)) for g, y in
                           zip(got_f + got_g, args_f[3:] + args_g[6:])),
                       "a block wholly in the future changed the state")
             del got_f, got_g, want_f, want_g
@@ -1841,6 +2046,17 @@ def phase_ring_kernel(peaks):
                             *(y[k] for k in ("q", "k", "v", "do", "lse",
                                              "delta", "dk", "dv")), **kw),
                         None)}
+                lib_ok, lib_what = False, ("none: PyTorch's flash "
+                                           "attention backward takes "
+                                           "fp16 and bf16 only")
+                if dtype == torch.bfloat16:
+                    lib_ok, lib_what = _library_block_bwd(x, b, h, kw)
+                lib_ms = None
+                if lib_ok:
+                    calls = [_sdpa_block_bwd(y, b, h, causal)[0]
+                             for y in sets]
+                    lib_ms = device_ms(lambda c: c(), calls)
+                    del calls
                 plain_grads = None
                 for name, (kern, plain) in fns.items():
                     rec = recs[name]
@@ -1854,20 +2070,28 @@ def phase_ring_kernel(peaks):
                                     if name == "flash_block_fwd" else
                                     "block_grads_plain (dq, dk and dv "
                                     "together)")
-                    rec["library_ms"] = None
-                    rec["library"] = ("none: no single PyTorch call folds "
-                                      "a block into carried softmax state "
-                                      "or accumulates into carried "
-                                      "gradients")
+                    if name == "flash_block_fwd":
+                        rec["library_ms"] = None
+                        rec["library"] = ("none: no single PyTorch call "
+                                          "folds a block into carried "
+                                          "softmax state")
+                    else:
+                        rec["library_ms"], rec["library"] = lib_ms, lib_what
                     rec["bound_ms"], rec["bound_by"] = block_bound_ms(
                         name, bh, t, t, d, dtype.itemsize, q_off, k_off,
                         causal, kv_len, peaks)
+                    # the kernel's issued rate over the live pairs
+                    rec["tflops"] = block_flops(
+                        name, bh, t, d, q_off, k_off, causal, kv_len) / (
+                            rec["ms"] * 1e-3) / 1e12
                 del sets
             for rec in recs.values():
                 records.append(rec)
                 emit("ring_kernel", **rec)
             del x, args_f, args_g
             torch.cuda.empty_cache()
+    records += _block_bwd_stress(seed=15)
+    _block_bwd_repeat(seed=16)
     return records
 
 
@@ -2253,7 +2477,8 @@ def main() -> int:
                                if r["name"] == name),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": None,
+            "library_ms": rec["library_ms"], "library": rec["library"],
+            "tflops": rec["tflops"],
             "head_dims": head_dims(ring_records, name),
             "work": "one ring step over a fully live block in bf16 at the "
                     "4-rank ring's local (B, T_loc, H, D) = "

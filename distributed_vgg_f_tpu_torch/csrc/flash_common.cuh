@@ -6,11 +6,11 @@
 // smaller D on the next one up: the padding columns are zero-filled in
 // shared memory, so they add nothing to q.k, and are never written out.
 //
-// Grid of the fp32 and ring block kernels: a block's (b*h, row tile) pair
-// is one index on the grid's x axis (tile_of), which allows 2^31 - 1
-// blocks, so B*H is not limited by the y axis's 65535. The bf16 forward,
-// dQ and dK/dV walk work tiles persistently instead (the end of this
-// file).
+// Grid of the fp32 kernels and the bf16 ring block fold: a block's (b*h,
+// row tile) pair is one index on the grid's x axis (tile_of), which allows
+// 2^31 - 1 blocks, so B*H is not limited by the y axis's 65535. The bf16
+// forward, dQ and dK/dV (the block steps' too) walk work tiles
+// persistently instead (the end of this file).
 //
 // The fp32 versions run on the CUDA cores: a block of kThreads = 256
 // threads is a 16 x 16 grid, thread (ty, tx) owning rows ty*(R/16) ..
@@ -21,8 +21,9 @@
 // fp32 with a row stride of D+1 (or R+1), so the column reads of one
 // half-warp hit 16 distinct banks and the two half-warps of a warp read
 // either the same word or distinct banks. Products are fp32 fused
-// multiply-adds. In bf16 the ring block kernels run mma.sync on the tensor
-// cores (below); the forward, dQ and dK/dV run wgmma (hopper.cuh).
+// multiply-adds. In bf16 the ring block fold runs mma.sync on the tensor
+// cores (below); the forward, dQ and dK/dV and the block steps' dQ and
+// dK/dV run wgmma (hopper.cuh).
 //
 // q, k and v are (B, T, H, D) with a contiguous D axis and any strides
 // over (B, T, H): the model passes the three slices of its fused QKV
@@ -212,12 +213,12 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// The ring block kernels' bf16 versions: mma.sync m16n8k16 with bf16
-// operands and fp32 accumulators. A block of kWarps = 4 warps owns a
-// kTile = 64-row tile, 16 rows a warp. Tiles live in shared memory as bf16
-// with a row stride of (columns + 8), so the 32 lanes' fragment reads hit
-// 32 distinct banks. Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), with
-// g = lane / 4 and t = lane % 4:
+// The ring block fold's bf16 version (flash_block_fwd.cu): mma.sync
+// m16n8k16 with bf16 operands and fp32 accumulators. A block of kWarps =
+// 4 warps owns a kTile = 64-row tile, 16 rows a warp. Tiles live in shared
+// memory as bf16 with a row stride of (columns + 8), so the 32 lanes'
+// fragment reads hit 32 distinct banks. Fragment layouts (PTX ISA,
+// mma.m16n8k16 .bf16), with g = lane / 4 and t = lane % 4:
 //   A (16 x 16, row-major): reg0 (g, 2t..2t+1), reg1 (g+8, 2t..), reg2
 //     (g, 2t+8..), reg3 (g+8, 2t+8..)
 //   B (16 x 8, element (k, n)): reg0 (k = 2t..2t+1, n = g), reg1
@@ -247,6 +248,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi)))
           << 16);
+}
+
+// x[0] += v0 and, when `two`, x[1] += v1: one float2 access when `pairs`
+// (x on 8 bytes).
+__device__ __forceinline__ void add_pair(float* x, float v0, float v1,
+                                         bool pairs, bool two) {
+  if (pairs) {
+    float2 a = *reinterpret_cast<float2*>(x);
+    a.x += v0;
+    a.y += v1;
+    *reinterpret_cast<float2*>(x) = a;
+  } else {
+    x[0] += v0;
+    if (two) x[1] += v1;
+  }
 }
 
 __device__ __forceinline__ uint32_t ld_pair(const uint16_t* p) {
@@ -375,7 +391,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 // k and v as (B*H, Tk, D), all contiguous: one (b, h) is `bh` with stride
 // T*D. Causal masking is by global position — local query row i sits at
 // q_off + i, local key j at k_off + j — and keys at or past the block-local
-// kv_len are padding.
+// kv_len are padding. The helpers below depend on q_off - k_off alone: the
+// bf16 block dQ and dK/dV pass (q_off - k_off, 0).
 __host__ __device__ __forceinline__ Strides rows_strides(int T_len, int D) {
   return Strides{static_cast<long long>(T_len) * D, D, 0};
 }
@@ -404,8 +421,9 @@ __device__ __forceinline__ int block_query_start(int k0, int rows, int q_off,
 }
 
 // ---------------------------------------------------------------------------
-// The persistent bf16 kernels (flash_fwd.cu, flash_dq.cu, flash_dkv.cu):
-// one block an SM takes work tiles t = blockIdx.x, blockIdx.x + gridDim.x,
+// The persistent bf16 kernels (flash_fwd.cu, flash_dq.cu, flash_dkv.cu,
+// and the block steps' in flash_block_dq.cu and flash_block_dkv.cu): one
+// block an SM takes work tiles t = blockIdx.x, blockIdx.x + gridDim.x,
 // ... A work tile is rows r0 .. r0 + kM - 1 of one (b, h) — query rows in
 // the forward and dQ, key rows in dK/dV — and the n tiles of the other
 // operand that it walks.

@@ -16,8 +16,12 @@ warp-specialised and persistent: a producer warp loads tiles by TMA into a
 ring of shared-memory stages and two consumer warpgroups run every product
 as wgmma, reading the transposed operands through the wgmma descriptor
 (csrc/flash_fwd.cu, csrc/flash_dq.cu, csrc/flash_dkv.cu on
-csrc/hopper.cuh). The block kernels run mma.sync on the tensor cores in
-bf16; fp32 runs everything on the CUDA cores. Where the TPU kernels carry
+csrc/hopper.cuh). The ring block dQ and dK/dV steps in bf16 have the
+same design (csrc/flash_block_dq.cu, csrc/flash_block_dkv.cu), with the
+block's own key length, the causal diagonal shifted by q_off - k_off and
+an epilogue that adds into the carried fp32 accumulators; the block fold
+runs mma.sync on the tensor cores in bf16; fp32 runs everything on the
+CUDA cores. Where the TPU kernels carry
 (acc, m, l) or the gradient sums in scratch along a sequential grid axis,
 a block here owns a tile of rows of one (b, h) and loops over the other
 operand's tiles itself, staging them through shared memory; the (T, T)
@@ -43,7 +47,11 @@ increasing from H to B. Where q, k or v breaks that (a head dim that is
 not a multiple of 8, a permuted view), the bf16 wrappers make one
 contiguous copy of the three, its rows padded to a multiple of 8
 elements, and launch on that; dO, which has a tensor map of its own, is
-copied alone when it breaks it (`_tma_inputs`). Nothing else copies.
+copied alone when it breaks it (`_tma_inputs`). The block steps' bf16
+dQ and dK/dV copy, once, each of q, k, v and dO whose rows a tensor map
+cannot read in place (`_block_tma_inputs`: a head dim that is not a
+multiple of 8, a base off 16 bytes); the fp32 accumulators are never
+copied. Nothing else copies.
 The grid puts (b*h, row tile) on one axis, so B*H has no limit of its own.
 
 Each wrapper checks device, dtype (float32 or bfloat16, one for all
@@ -112,20 +120,21 @@ def _check_head_dim(d: int) -> None:
 
 
 def _tma_ready(x: torch.Tensor) -> bool:
-    """Whether a tensor map can read x (B, T, H, D) in place: base on 16
-    bytes and the (B, T, H) strides multiples of 8 elements, increasing
-    from H to B."""
-    sb, st, sh, _ = x.stride()
-    return (x.data_ptr() % 16 == 0 and sb % 8 == 0 and st % 8 == 0
-            and sh % 8 == 0 and sh <= st <= sb)
+    """Whether a tensor map can read x ((B, T, H, D), or a block's
+    (B*H, T, D)) in place: base on 16 bytes and the strides of every axis
+    but the last multiples of 8 elements, increasing from the innermost
+    to the outermost."""
+    outer = x.stride()[:-1]
+    return (x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in outer)
+            and list(outer) == sorted(outer, reverse=True))
 
 
 def _tma_copy(x: torch.Tensor) -> torch.Tensor:
     """x copied into a contiguous buffer whose rows are padded to a
-    multiple of 8 elements, as a (B, T, H, D) view of it (the padding is
-    never read)."""
-    b, t, h, d = x.shape
-    buf = torch.empty((b, t, h, -(-d // 8) * 8), dtype=x.dtype,
+    multiple of 8 elements, as a view of x's shape into it (the padding
+    is never read)."""
+    d = x.shape[-1]
+    buf = torch.empty((*x.shape[:-1], -(-d // 8) * 8), dtype=x.dtype,
                       device=x.device)
     view = buf[..., :d]
     view.copy_(x)
@@ -349,6 +358,16 @@ def flash_block_fwd_cuda(q, k_blk, v_blk, acc, m, l, *, q_off: int,
     return acc, m, l
 
 
+def _block_tma_inputs(q, k_blk, v_blk, do):
+    """q, k_blk, v_blk and dO as the bf16 block dQ and dK/dV kernels'
+    tensor maps read them: each that is not `_tma_ready` is copied alone
+    (`_tma_copy`). The kernels take every row ld = D rounded up to 8
+    elements apart: D itself when a tensor is read in place (its D is then
+    a multiple of 8), the copy's padded width otherwise."""
+    return tuple(x if _tma_ready(x) else _tma_copy(x)
+                 for x in (q, k_blk, v_blk, do))
+
+
 def _check_block_rows(do, lse, delta, q) -> None:
     bh, tq, _ = q.shape
     _check_dense("dO", do, q.shape, q.dtype, q.device)
@@ -364,6 +383,8 @@ def flash_block_dq_cuda(q, k_blk, v_blk, do, lse, delta, dq, *, q_off: int,
     kv_len = _check_block(q, k_blk, v_blk, kv_len)
     _check_block_rows(do, lse, delta, q)
     _check_dense("dq", dq, q.shape, torch.float32, q.device)
+    if q.dtype == torch.bfloat16:
+        q, k_blk, v_blk, do = _block_tma_inputs(q, k_blk, v_blk, do)
     fn = _entry("flash_block_dq", _BLOCK_DQ_ARGS)
     rc = fn(q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -385,6 +406,8 @@ def flash_block_dkv_cuda(q, k_blk, v_blk, do, lse, delta, dk_blk, dv_blk, *,
     _check_block_rows(do, lse, delta, q)
     _check_dense("dk_blk", dk_blk, k_blk.shape, torch.float32, q.device)
     _check_dense("dv_blk", dv_blk, k_blk.shape, torch.float32, q.device)
+    if q.dtype == torch.bfloat16:
+        q, k_blk, v_blk, do = _block_tma_inputs(q, k_blk, v_blk, do)
     fn = _entry("flash_block_dkv", _BLOCK_DKV_ARGS)
     rc = fn(q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk_blk.data_ptr(),

@@ -29,8 +29,12 @@ bf16 (one bf16 ulp of an element is at most 3.9e-3 of the largest), lse
 within 1e-5 in both; the same for the causal kernels at T = 2048 and for
 the three ring block kernels (their fp32 state and accumulators
 included), at head dims 8 to 256 and at B*H = 65600 (past the 65535 of a
-grid's y axis). dQ, dK and dV of two launches on the same inputs are
-bit-equal (no kernel sums with atomics).
+grid's y axis); the block dQ and dK/dV also at T = 2 to 2048 with
+Tq != Tk and diagonals shifted by 0, 37 and -37, where the rows a block
+does not reach keep their values (in bf16 their bits, -0.0 included, for
+a block wholly in the future and for padded keys). dQ, dK and dV of two
+launches on the same inputs are bit-equal (no kernel sums with atomics),
+in the flash backward and in the block steps.
 The sequence-parallel entry points on one card (no process group: a ring
 of one) against `flash_self_attention`: fp32 2e-5 (output) and 5e-5
 (gradients), bf16 3e-2, the JAX ring tests' tolerances. A narrow ViT's fp32 train step through the flash kernels:
@@ -551,6 +555,8 @@ def test_card_vit_train_step_matches_cpu(cuda_device):
     (4, 197, 197, 128, 197, 197, True, 150),       # wide heads
     (2, 130, 130, 256, 130, 0, False, None),
     (6, 90, 90, 8, 90, 40, True, None),            # narrow heads
+    (6, 90, 90, 16, 90, 40, True, 70),
+    (3, 197, 150, 100, 160, 200, True, 140),       # rows copied for TMA
     (65600, 16, 16, 64, 8, 0, True, 12)])          # B*H past 65535
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
@@ -598,6 +604,128 @@ def test_block_kernels_match_plain_on_card(cuda_device, bh, tq, tk, d,
         _close(g, w, tol)
     assert (got[4][:, kw["kv_len"]:] == 0).all()
     assert (got[5][:, kw["kv_len"]:] == 0).all()
+
+
+def _block_grads_case(device, bh, tq, tk, d, dtype, seed):
+    """Inputs of one ring block backward step: q, k, v, dO in `dtype`, lse
+    and delta, and random fp32 accumulators with some -0.0 entries (a
+    kernel that adds +0.0 to a row it should leave alone flips their
+    sign bit)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    x = {"q": draw(bh, tq, d).to(dtype), "k": draw(bh, tk, d).to(dtype),
+         "v": draw(bh, tk, d).to(dtype), "do": draw(bh, tq, d).to(dtype),
+         "lse": draw(bh, tq, 1) + 3.0, "delta": draw(bh, tq, 1),
+         "dq": draw(bh, tq, d), "dk": draw(bh, tk, d), "dv": draw(bh, tk, d)}
+    for key in ("dq", "dk", "dv"):
+        x[key][:, ::3, ::5] = -0.0
+    return x
+
+
+def _block_grads_run(x, kw, zero=False):
+    """dq, dk and dv after one launch of each block backward kernel,
+    from the accumulators of x (or zeros)."""
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    acc = [torch.zeros_like(x[k]) if zero else x[k].clone()
+           for k in ("dq", "dk", "dv")]
+    args = [x[k] for k in ("q", "k", "v", "do", "lse", "delta")]
+    flash_cuda.flash_block_dq_cuda(*args, acc[0], **kw)
+    flash_cuda.flash_block_dkv_cuda(*args, *acc[1:], **kw)
+    torch.cuda.synchronize()
+    return acc
+
+
+#: the block steps' stress: (Tq, Tk, kv_len) around the 64- and 128-row
+#: tiles and the rings' stages, each at a zero, a ragged and a negative
+#: diagonal shift (q_off - k_off = 0, 37, -37) and causal
+_BLOCK_STRESS = ((2, 2, 2), (63, 65, 50), (65, 63, 63), (129, 100, 100),
+                 (197, 197, 180), (2048, 2048, 1500))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 100, 128, 256])
+@pytest.mark.parametrize("tq,tk,kv_len", _BLOCK_STRESS)
+@pytest.mark.parametrize("shift", [0, 37, -37])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_block_backward_takes_every_head_dim_and_shift_on_card(
+        cuda_device, d, tq, tk, kv_len, shift, dtype, tol):
+    """The block dQ and dK/dV at every head dim the flash kernels are
+    checked at (100: rows a tensor map cannot read in place, copied by the
+    wrapper), at lengths around the tiles with Tq != Tk and kv_len, and
+    at diagonals shifted by 0, by no multiple of a tile and negatively,
+    causal: from zero accumulators within tol of the largest value of
+    block_grads_plain; from random accumulators, the rows that see no
+    key (dq) or that no query sees (dk, dv) keep their values."""
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import \
+        block_grads_plain
+    q_off = 512 + max(shift, 0)
+    k_off = q_off - shift
+    kw = {"q_off": q_off, "k_off": k_off, "causal": True, "kv_len": kv_len}
+    x = _block_grads_case(cuda_device, 2, tq, tk, d, dtype, seed=d + tq)
+    args = [x[k] for k in ("q", "k", "v", "do", "lse", "delta")]
+    zeros = [torch.zeros_like(x[k]) for k in ("dq", "dk", "dv")]
+    want = block_grads_plain(*args, *zeros, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"),
+                          _block_grads_run(x, kw, zero=True), want):
+        if float(w.abs().max()) > 0:
+            _close(g, w, tol)
+        else:   # the whole block lies in every row's future
+            assert torch.equal(g, w), name
+    # dq rows that see no key; dk, dv rows that no query sees
+    dead_q = torch.arange(tq, device=cuda_device) + shift < 0
+    rows_k = torch.arange(tk, device=cuda_device)
+    dead_k = (rows_k >= kv_len) | (rows_k - shift >= tq)
+    got = _block_grads_run(x, kw)
+    assert torch.equal(got[0][:, dead_q], x["dq"][:, dead_q])
+    for g, key in zip(got[1:], ("dk", "dv")):
+        assert torch.equal(g[:, dead_k], x[key][:, dead_k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,tq,tk,d,q_off,k_off,causal", [
+    (24, 2048, 2048, 64, 4096, 0, False),      # a past block of the ring
+    (24, 2048, 2048, 64, 4096, 4096, True),    # the diagonal
+    (6, 197, 197, 128, 197, 147, True),        # ragged, partly masked
+    (4, 130, 70, 256, 0, 40, True)])           # Tq != Tk, column split
+def test_block_backward_is_deterministic_on_card(cuda_device, bh, tq, tk, d,
+                                                 q_off, k_off, causal):
+    """dq, dk and dv of two launches from the same bf16 inputs and
+    accumulators are the same bits: each element is added to once by the
+    thread that owns it, with no atomics."""
+    kw = {"q_off": q_off, "k_off": k_off, "causal": causal, "kv_len": tk}
+    x = _block_grads_case(cuda_device, bh, tq, tk, d, torch.bfloat16,
+                          seed=bh + d)
+    for a, b in zip(_block_grads_run(x, kw), _block_grads_run(x, kw)):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 100, 128, 256])
+@pytest.mark.parametrize("site", ["future", "padded_keys"])
+def test_block_backward_leaves_what_it_does_not_reach_bit_equal_on_card(
+        cuda_device, d, site):
+    """The bf16 block dQ and dK/dV never write what they do not reach: a
+    block wholly in the local rows' future leaves dq, dk and dv the same
+    bits, -0.0 included; keys past kv_len (here most of the block) keep
+    their dk and dv bits while the live keys' rows change."""
+    tq, tk = 197, 197
+    kw = ({"q_off": 0, "k_off": 197, "causal": True, "kv_len": tk}
+          if site == "future" else
+          {"q_off": 394, "k_off": 0, "causal": False, "kv_len": 40})
+    x = _block_grads_case(cuda_device, 6, tq, tk, d, torch.bfloat16,
+                          seed=d)
+    got = _block_grads_run(x, kw)
+    if site == "future":
+        for g, key in zip(got, ("dq", "dk", "dv")):
+            assert torch.equal(_bits(g), _bits(x[key])), key
+    else:
+        for g, key in zip(got[1:], ("dk", "dv")):
+            assert torch.equal(_bits(g[:, 40:]), _bits(x[key][:, 40:])), key
+            assert not torch.equal(g[:, :40], x[key][:, :40]), key
 
 
 @pytest.mark.cuda

@@ -67,6 +67,10 @@ BLOCK_CASES = {
     "diagonal_causal_d8": (64, 64, 64, 64, True, None, True, 8),
     "past_block_kv_len_d256": (64, 64, 64, 0, False, 40, False, 256),
     "diagonal_causal_d256": (128, 128, 0, 0, True, None, True, 256),
+    # diagonals shifted by no multiple of a tile (q_off - k_off = 37 and
+    # -37), the second with Tq != Tk: the bf16 kernels' walks and masks
+    "shifted_causal_kv_len_d64": (130, 130, 37, 0, True, 100, False, 64),
+    "negative_shift_causal_d128": (130, 70, 0, 37, True, 61, False, 128),
 }
 
 
@@ -193,6 +197,43 @@ def test_block_functions_refuse_mismatched_blocks():
     with pytest.raises(ValueError, match="expected"):
         flash_block_update(q, q[..., :8], q[..., :8], q, s, s, q_off=0,
                            k_off=0, causal=False)
+
+
+def _bf16_rows(*shape, offset=0):
+    """A bf16 tensor of `shape` whose data start `offset` elements into
+    its storage (offset 1: no row starts on 16 bytes)."""
+    n = int(np.prod(shape))
+    buf = torch.arange(n + offset, dtype=torch.float32).to(torch.bfloat16)
+    return buf[offset:].view(*shape)
+
+
+@pytest.mark.parametrize("layout,copied", [
+    ("dense", (False, False, False, False)),      # D = 64 on 16 bytes
+    ("narrow", (True, True, True, True)),         # D = 12: no row on 16
+    ("ragged_tk", (False, False, False, False)),  # Tq != Tk, D = 64
+    ("misaligned_k", (False, True, False, False)),
+    ("misaligned_do", (False, False, False, True))])
+def test_block_tma_inputs_copy_only_what_a_tensor_map_cannot_read(layout,
+                                                                  copied):
+    """The bf16 block dQ and dK/dV wrappers' layout rule: each of q, k_blk,
+    v_blk and dO that a tensor map cannot read in place is copied alone;
+    every tensor the kernels get holds the same values, is readable in
+    place and has rows d rounded up to 8 elements apart (the row stride
+    the kernels assume)."""
+    bh, tq, d = 3, 5, 12 if layout == "narrow" else 64
+    tk = 7 if layout == "ragged_tk" else tq
+    off = {name: 1 if layout == f"misaligned_{name}" else 0
+           for name in ("q", "k", "v", "do")}
+    xs = (_bf16_rows(bh, tq, d, offset=off["q"]),
+          _bf16_rows(bh, tk, d, offset=off["k"]),
+          _bf16_rows(bh, tk, d, offset=off["v"]),
+          _bf16_rows(bh, tq, d, offset=off["do"]))
+    got = flash_cuda._block_tma_inputs(*xs)
+    ld = -(-d // 8) * 8
+    for x, y in zip(xs, got):
+        assert torch.equal(x, y) and flash_cuda._tma_ready(y)
+        assert y.stride() == (x.shape[1] * ld, ld, 1)
+    assert [y is not x for x, y in zip(xs, got)] == list(copied)
 
 
 # ------------------------------------------------------------------ rings
