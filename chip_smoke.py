@@ -11,7 +11,9 @@ Phases, one JSON line each:
             csrc/ for sm_90a (each nvcc given 600 s), with its seconds, the
             script's wall seconds so far, and ptxas's registers, shared
             memory and spills for each warp-specialised (wgmma) kernel and
-            each LRN kernel at radius 2
+            each LRN kernel at radius 2; the three ring block kernels
+            must show 168 registers and no note of serialised wgmma at
+            64, 128 and 256
   kernel    the LRN forward kernel, unfused and with the ReLU fused,
             against its plain PyTorch versions on the card, in bf16 and
             fp32: the vector variant at the served path's shapes (buckets
@@ -105,12 +107,12 @@ Phases, one JSON line each:
             B*H = 65600, in bf16 and fp32; device times and TFLOP/s
             against the bound for a past and a diagonal block, and for a
             past block at head dim 128, with PyTorch's flash attention
-            backward as the backward's library yardstick (checked
-            against the plain version first); the block dQ and dK/dV at
-            stress lengths T = 2 … 2048 (Tq != Tk among them) and
-            diagonal shifts 0, 37 and -37, causal, at head dims 64 and
-            256 (rows they do not reach keep their bits); and their
-            bit-equal repeat
+            forward and backward as the fold's and the backward's
+            library yardsticks (each checked against the plain version
+            first); the three kernels at stress lengths T = 2 … 2048
+            (Tq != Tk among them) and diagonal shifts 0, 37 and -37,
+            causal, at head dims 64 and 256 (rows they do not reach keep
+            their bits); and their bit-equal repeat
   ring_flash (a) initialize_distributed on a one-rank NCCL group, then
             ring_flash_attention, ring_self_attention and
             ulysses_self_attention (flash) at (4, 8192, 6, 64) bf16, causal
@@ -252,10 +254,10 @@ def _ptxas_report(logs):
     """From nvcc's -Xptxas -v output of each source: the registers a
     thread, static shared memory and spill bytes of each warp-specialised
     (wgmma) kernel instantiation (the flash forward, dQ and dK/dV, and
-    the ring block dQ and dK/dV) and of each LRN kernel instantiation at
-    the main path's radius 2 (the general variant at every radius), and
-    the codes of ptxas's performance notes on it (C7515-C7520: wgmma it
-    serialised), as {"kernel<params>": {...}}."""
+    the ring block fold, dQ and dK/dV) and of each LRN kernel
+    instantiation at the main path's radius 2 (the general variant at
+    every radius), and the codes of ptxas's performance notes on it
+    (C7515-C7520: wgmma it serialised), as {"kernel<params>": {...}}."""
     def entry_of(line):
         k = re.search(r"((?:flash|block)_[a-z]+_wgmma_kernel)ILi(\d+)E",
                       line)
@@ -1747,6 +1749,48 @@ def _sdpa_block_bwd(x, b, h, causal):
 
 
 _SDPA_BWD = "torch.ops.aten._scaled_dot_product_flash_attention_backward"
+_SDPA_FWD = "torch.ops.aten._scaled_dot_product_flash_attention"
+
+
+def _sdpa_block_fwd(x, b, h, causal):
+    """The library yardstick of the block fold: PyTorch's flash attention
+    forward on this block alone, as (out (B, H, T, D), lse (B, H, T)). It
+    starts from an empty state: it reads no carried (acc, m, l), merges
+    into none and takes no kv_len."""
+    bh, t, d = x["q"].shape
+    q4, k4, v4 = (x[key].view(b, h, -1, d) for key in ("q", "k", "v"))
+    return torch.ops.aten._scaled_dot_product_flash_attention(
+        q4, k4, v4, 0.0, causal)[:2]
+
+
+def _library_block_fwd(x, b, h, kw):
+    """Whether the library yardstick (_sdpa_block_fwd) computes this
+    block's fold: its out against acc / l of block_update_plain from a
+    state that has seen nothing, within bf16's 1e-2 of the largest value.
+    Returns (ok, description)."""
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import \
+        block_update_plain
+    name = _SDPA_FWD + ("(is_causal=True)" if kw["causal"] else "")
+    try:
+        out, lse = _sdpa_block_fwd(x, b, h, kw["causal"])
+    except (RuntimeError, TypeError, ValueError) as e:
+        return False, f"none: {name} refused the block: {e}"[:300]
+    bh, t, d = x["q"].shape
+    acc, m, l = block_update_plain(
+        x["q"], x["k"], x["v"], torch.zeros(bh, t, d, device="cuda"),
+        torch.full((bh, t, 1), -math.inf, device="cuda"),
+        torch.zeros(bh, t, 1, device="cuda"), **kw)
+    want = acc / l
+    got = out.float().reshape(want.shape)
+    e, bound = float((got - want).abs().max()), 1e-2 * float(
+        want.abs().max())
+    if not (bool(torch.isfinite(got).all()) and e <= bound):
+        return False, (f"none: {name}'s out is off acc / l of "
+                       f"block_update_plain by {e} (allowed {bound})")
+    lse_err = float((lse.reshape(m.shape) - (m + torch.log(l))).abs().max())
+    return True, (f"{name}: the block's out and lse from an empty state "
+                  f"(lse off m + log l by {lse_err}); no carried state, no "
+                  "merge, no kv_len")
 
 
 def _library_block_bwd(x, b, h, kw):
@@ -1786,18 +1830,45 @@ _BLOCK_STRESS = ((2, 2, 2), (63, 65, 50), (65, 63, 63), (129, 100, 100),
 _BLOCK_SHIFTS = (0, 37, -37)
 
 
-def _block_bwd_stress(seed):
-    """The block dQ and dK/dV at the lengths and shifts of _BLOCK_STRESS
+def _fold_errors(got, want, tol, what):
+    """The fold's (acc, m, l) against block_update_plain's: acc and l
+    within tol of their largest value, m within 1e-5 with the same -inf
+    rows (where nothing was ever live). Returns (max abs error, max error
+    relative to the largest value), m's held absolutely and left out of
+    the relative one."""
+    err = rel = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i == 1:
+            check(torch.equal(torch.isneginf(g), torch.isneginf(w)),
+                  f"m's -inf rows differ at {what}")
+            g, w = g.clamp_min(-1e30), w.clamp_min(-1e30)
+            bound = 1e-5
+        else:
+            bound = tol * float(w.abs().max())
+        e = float((g - w).abs().max())
+        check(bool(torch.isfinite(g).all()) and e <= bound,
+              f"flash_block_fwd off its plain version by {e} at {what} "
+              f"(allowed {bound})")
+        err = max(err, e)
+        if i != 1 and float(w.abs().max()) > 0:
+            rel = max(rel, e / float(w.abs().max()))
+    return err, rel
+
+
+def _block_stress(seed):
+    """The three block kernels at the lengths and shifts of _BLOCK_STRESS
     and _BLOCK_SHIFTS, at the head dims of _BWD_STRESS_DIMS, in bf16 and
-    fp32: from zero accumulators within 1e-2 / 1e-5 of the largest value
-    of block_grads_plain (exactly zero where the block lies wholly in the
-    rows' future); from random accumulators, the dq rows that see no key
+    fp32: the fold from a state that has seen nothing and the dQ and
+    dK/dV from zero accumulators within 1e-2 / 1e-5 of the largest value
+    of block_update_plain / block_grads_plain (exactly equal where the
+    block lies wholly in the rows' future); from a random state (with
+    -0.0 entries in bf16), the fold's rows and the dq rows that see no key
     and the dk/dv rows that no query sees must keep their bits. Returns
     the records."""
-    from distributed_vgg_f_tpu_torch.ops.flash_attention import \
-        block_grads_plain
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import (
+        block_grads_plain, block_update_plain)
     from distributed_vgg_f_tpu_torch.ops.flash_cuda import (
-        flash_block_dkv_cuda, flash_block_dq_cuda)
+        flash_block_dkv_cuda, flash_block_dq_cuda, flash_block_fwd_cuda)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
                                device="cuda")
@@ -1810,32 +1881,55 @@ def _block_bwd_stress(seed):
                     q_off = 512 + max(shift, 0)
                     kw = {"q_off": q_off, "k_off": q_off - shift,
                           "causal": True, "kv_len": kv_len}
+                    site = f"block_stress_{tq}_{tk}_shift{shift}"
                     args = (f(b * h, tq, d).to(dtype),
                             f(b * h, tk, d).to(dtype),
                             f(b * h, tk, d).to(dtype),
                             f(b * h, tq, d).to(dtype),
                             f(b * h, tq, 1) + 3.0, f(b * h, tq, 1))
+                    # the fold from a state that has seen nothing
+                    fold = [torch.zeros(b * h, tq, d, device="cuda"),
+                            torch.full((b * h, tq, 1), -math.inf,
+                                       device="cuda"),
+                            torch.zeros(b * h, tq, 1, device="cuda")]
+                    want_f = block_update_plain(*args[:3], *fold, **kw)
+                    flash_block_fwd_cuda(*args[:3], *fold, **kw)
                     lens = (tq, tk, tk)
                     got = [torch.zeros(b * h, n, d, device="cuda")
                            for n in lens]
                     want = block_grads_plain(*args, *got, **kw)
                     flash_block_dq_cuda(*args, got[0], **kw)
                     flash_block_dkv_cuda(*args, *got[1:], **kw)
+                    # from a random state
+                    state = [f(b * h, tq, d), f(b * h, tq, 1),
+                             f(b * h, tq, 1).abs() + 0.5]
                     acc = [f(b * h, n, d) for n in lens]
+                    if dtype == torch.bfloat16:   # the fp32 kernels add
+                        for x in (state[0], *acc):  # +0.0 to -0.0 there
+                            x[:, ::3, ::5] = -0.0
+                    kept_f = [x.clone() for x in state]
                     kept = [a.clone() for a in acc]
+                    flash_block_fwd_cuda(*args[:3], *kept_f, **kw)
                     flash_block_dq_cuda(*args, kept[0], **kw)
                     flash_block_dkv_cuda(*args, *kept[1:], **kw)
                     torch.cuda.synchronize()
                     rows_q = torch.arange(tq, device="cuda")
                     rows_k = torch.arange(tk, device="cuda")
+                    dead_q = rows_q + shift < 0
                     dead_k = (rows_k >= kv_len) | (rows_k - shift >= tq)
-                    untouched = all(
+                    kept_fold = all(
+                        torch.equal(_bits(y[:, dead_q]),
+                                    _bits(x[:, dead_q]))
+                        for y, x in zip(kept_f, state))
+                    kept_grads = all(
                         torch.equal(_bits(y[:, rows]), _bits(a[:, rows]))
                         for y, a, rows in zip(kept, acc, (
-                            rows_q + shift < 0, dead_k, dead_k)))
-                    site = f"block_stress_{tq}_{tk}_shift{shift}"
-                    check(untouched, f"block dQ/dK/dV changed rows they do "
-                          f"not reach at {site} D = {d} {dtype}")
+                            dead_q, dead_k, dead_k)))
+                    check(kept_fold and kept_grads,
+                          f"block fold/dQ/dK/dV changed rows they do not "
+                          f"reach at {site} D = {d} {dtype}")
+                    errs = {"flash_block_fwd": _fold_errors(
+                        fold, want_f, tol, f"{site} D = {d} {dtype}")}
                     for name, gs, ws in (("flash_block_dq", got[:1],
                                           want[:1]),
                                          ("flash_block_dkv", got[1:],
@@ -1851,6 +1945,8 @@ def _block_bwd_stress(seed):
                                   f"{tol * scale})")
                             err = max(err, e)
                             rel = max(rel, e / scale if scale else 0.0)
+                        errs[name] = (err, rel)
+                    for name, (err, rel) in errs.items():
                         rec = {"name": name, "site": site,
                                "shape": [b, tq, h, d], "bh": b * h,
                                "tk": tk, "q_off": kw["q_off"],
@@ -1859,20 +1955,24 @@ def _block_bwd_stress(seed):
                                "dtype": str(dtype).replace("torch.", ""),
                                "tol_of_max": tol, "max_abs_err": err,
                                "max_rel_err": rel,
-                               "untouched_bit_equal": untouched}
+                               "untouched_bit_equal": (
+                                   kept_fold if name == "flash_block_fwd"
+                                   else kept_grads)}
                         records.append(rec)
                         emit("ring_kernel", **rec)
-                    del args, got, want, acc, kept
+                    del args, fold, want_f, got, want, state, acc, kept_f
+                    del kept
     return records
 
 
-def _block_bwd_repeat(seed):
-    """dq, dk and dv of two launches of the bf16 block dQ and dK/dV from
-    the same inputs and accumulators must be the same bits (no atomics):
-    a past and a diagonal block of the 4-rank ring's local shape, and a
-    ragged partly masked block at D = 256 with Tq != Tk."""
+def _block_repeat(seed):
+    """The fold's acc, m and l and the backward's dq, dk and dv of two
+    launches of the bf16 block kernels from the same inputs and state
+    must be the same bits (no atomics): a past and a diagonal block of
+    the 4-rank ring's local shape, and a ragged partly masked block at
+    D = 256 with Tq != Tk."""
     from distributed_vgg_f_tpu_torch.ops.flash_cuda import (
-        flash_block_dkv_cuda, flash_block_dq_cuda)
+        flash_block_dkv_cuda, flash_block_dq_cuda, flash_block_fwd_cuda)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     f = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
                                device="cuda")
@@ -1887,23 +1987,25 @@ def _block_bwd_repeat(seed):
         args = (f(bh, tq, d).bfloat16(), f(bh, tk, d).bfloat16(),
                 f(bh, tk, d).bfloat16(), f(bh, tq, d).bfloat16(),
                 f(bh, tq, 1) + 3.0, f(bh, tq, 1))
+        state = [f(bh, tq, d), f(bh, tq, 1), f(bh, tq, 1).abs() + 0.5]
         acc = [f(bh, n, d) for n in (tq, tk, tk)]
         runs = []
         for _ in range(2):
-            y = [a.clone() for a in acc]
-            flash_block_dq_cuda(*args, y[0], **kw)
-            flash_block_dkv_cuda(*args, *y[1:], **kw)
+            y = [a.clone() for a in state + acc]
+            flash_block_fwd_cuda(*args[:3], *y[:3], **kw)
+            flash_block_dq_cuda(*args, y[3], **kw)
+            flash_block_dkv_cuda(*args, *y[4:], **kw)
             runs.append(y)
         torch.cuda.synchronize()
-        same = [bool(torch.equal(_bits(a), _bits(c)))
-                for a, c in zip(*runs)]
-        check(all(same), f"block dQ, dK, dV of two launches differ at "
-              f"{site}: bit-equal {same}")
-        emit("ring_kernel", name="flash_block_bwd_repeat", site=site,
+        same = dict(zip(("acc", "m", "l", "dq", "dk", "dv"),
+                        (bool(torch.equal(_bits(a), _bits(c)))
+                         for a, c in zip(*runs))))
+        check(all(same.values()), f"block fold, dQ, dK, dV of two launches "
+              f"differ at {site}: bit-equal {same}")
+        emit("ring_kernel", name="flash_block_repeat", site=site,
              shape=[_LONG_B, tq, _VIT_H, d], tk=tk, q_off=q_off,
-             k_off=k_off, causal=causal, dtype="bfloat16",
-             bit_equal={"dq": same[0], "dk": same[1], "dv": same[2]})
-        del args, acc, runs
+             k_off=k_off, causal=causal, dtype="bfloat16", bit_equal=same)
+        del args, state, acc, runs
 
 
 def phase_ring_kernel(peaks):
@@ -1914,10 +2016,10 @@ def phase_ring_kernel(peaks):
     at the ragged local length 197 with a block-local kv_len (padded keys
     keep their accumulators' bits) and a partly masked block, at head
     dims 128 and 256, and at B*H = 65600; timed sites with TFLOP/s and,
-    for the backward in bf16, PyTorch's flash attention backward as the
-    library yardstick; then the block dQ and dK/dV stress
-    (_block_bwd_stress) and their bit-equal repeat; returns the
-    records."""
+    in bf16, PyTorch's flash attention forward (for the fold) and
+    backward (for dQ and dK/dV) as the library yardsticks; then the three
+    kernels' stress (_block_stress) and their bit-equal repeat
+    (_block_repeat); returns the records."""
     from distributed_vgg_f_tpu_torch.ops.flash_attention import (
         block_grads_plain, block_update_plain)
     from distributed_vgg_f_tpu_torch.ops.flash_cuda import (
@@ -1981,31 +2083,21 @@ def phase_ring_kernel(peaks):
             flash_block_dq_cuda(*args_g[:6], got_g[0], **kw)
             flash_block_dkv_cuda(*args_g[:6], *got_g[1:], **kw)
             torch.cuda.synchronize()
-            errs = {}
-            for name, got, want in (("flash_block_fwd", got_f, want_f),
-                                    ("flash_block_dq", got_g[:1],
+            errs = {"flash_block_fwd": _fold_errors(got_f, want_f, tol,
+                                                    f"{site} {dtype}")}
+            for name, got, want in (("flash_block_dq", got_g[:1],
                                      want_g[:1]),
                                     ("flash_block_dkv", got_g[1:],
                                      want_g[1:])):
                 err = rel = 0.0
-                for i, (g, w) in enumerate(zip(got, want)):
-                    m_row = name == "flash_block_fwd" and i == 1
-                    if m_row:
-                        # m: -inf where nothing was ever live, in both
-                        check(torch.equal(torch.isneginf(g),
-                                          torch.isneginf(w)),
-                              f"m's -inf rows differ at {site}")
-                        g, w = g.clamp_min(-1e30), w.clamp_min(-1e30)
-                        bound = 1e-5
-                    else:
-                        bound = tol * float(w.abs().max())
+                for g, w in zip(got, want):
+                    bound = tol * float(w.abs().max())
                     e = float((g - w).abs().max())
                     check(bool(torch.isfinite(g).all()) and e <= bound,
                           f"{name} off its plain version by {e} at {site} "
                           f"{dtype} (allowed {bound})")
                     err = max(err, e)
-                    if not m_row:   # m's error is held absolutely
-                        rel = max(rel, e / float(w.abs().max()))
+                    rel = max(rel, e / float(w.abs().max()))
                 errs[name] = (err, rel)
             check(all(torch.equal(_bits(g[:, kv_len:]), _bits(y[:, kv_len:]))
                       for g, y in zip(got_g[1:], args_g[7:])),
@@ -2046,17 +2138,22 @@ def phase_ring_kernel(peaks):
                             *(y[k] for k in ("q", "k", "v", "do", "lse",
                                              "delta", "dk", "dv")), **kw),
                         None)}
-                lib_ok, lib_what = False, ("none: PyTorch's flash "
-                                           "attention backward takes "
-                                           "fp16 and bf16 only")
+                lib = {name: (None, "none: PyTorch's flash attention "
+                                    "takes fp16 and bf16 only")
+                       for name in ("fwd", "bwd")}
                 if dtype == torch.bfloat16:
-                    lib_ok, lib_what = _library_block_bwd(x, b, h, kw)
-                lib_ms = None
-                if lib_ok:
-                    calls = [_sdpa_block_bwd(y, b, h, causal)[0]
-                             for y in sets]
-                    lib_ms = device_ms(lambda c: c(), calls)
-                    del calls
+                    ok, what = _library_block_fwd(x, b, h, kw)
+                    lib["fwd"] = (device_ms(
+                        lambda y: _sdpa_block_fwd(y, b, h, causal), sets)
+                        if ok else None, what)
+                    ok, what = _library_block_bwd(x, b, h, kw)
+                    if ok:
+                        calls = [_sdpa_block_bwd(y, b, h, causal)[0]
+                                 for y in sets]
+                        lib["bwd"] = (device_ms(lambda c: c(), calls), what)
+                        del calls
+                    else:
+                        lib["bwd"] = (None, what)
                 plain_grads = None
                 for name, (kern, plain) in fns.items():
                     rec = recs[name]
@@ -2070,13 +2167,8 @@ def phase_ring_kernel(peaks):
                                     if name == "flash_block_fwd" else
                                     "block_grads_plain (dq, dk and dv "
                                     "together)")
-                    if name == "flash_block_fwd":
-                        rec["library_ms"] = None
-                        rec["library"] = ("none: no single PyTorch call "
-                                          "folds a block into carried "
-                                          "softmax state")
-                    else:
-                        rec["library_ms"], rec["library"] = lib_ms, lib_what
+                    rec["library_ms"], rec["library"] = lib[
+                        "fwd" if name == "flash_block_fwd" else "bwd"]
                     rec["bound_ms"], rec["bound_by"] = block_bound_ms(
                         name, bh, t, t, d, dtype.itemsize, q_off, k_off,
                         causal, kv_len, peaks)
@@ -2090,8 +2182,8 @@ def phase_ring_kernel(peaks):
                 emit("ring_kernel", **rec)
             del x, args_f, args_g
             torch.cuda.empty_cache()
-    records += _block_bwd_stress(seed=15)
-    _block_bwd_repeat(seed=16)
+    records += _block_stress(seed=15)
+    _block_repeat(seed=16)
     return records
 
 
@@ -2333,10 +2425,19 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = {}
     libs = build.build_all(logs=logs)
+    ptxas = _ptxas_report(logs)
     emit("build", seconds=time.perf_counter() - t0,
          wall_s=time.perf_counter() - t_script, kernels=sorted(libs),
          flags=build.NVCC_FLAGS, nvcc_timeout_s=build.NVCC_TIMEOUT_S,
-         ptxas=_ptxas_report(logs))
+         ptxas=ptxas)
+    # the ring block kernels compiled here: 168 registers at each width
+    # and no note that ptxas serialised their wgmma
+    for source in sorted(set(logs) & set(_BLOCK_KERNELS)):
+        for dp in (64, 128, 256):
+            kernel = f"{source.replace('flash_', '')}_wgmma_kernel<{dp}>"
+            rep = ptxas.get(kernel, {})
+            check(rep.get("registers") == 168 and rep["ptxas_notes"] == [],
+                  f"ptxas reports {kernel} as {rep}")
 
     records = phase_kernel(peaks)
     bwd_records = phase_kernel_bwd(peaks)

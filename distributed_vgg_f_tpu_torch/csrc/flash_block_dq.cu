@@ -171,28 +171,6 @@ struct DqBarriers {
   uint64_t full[kStages], empty[kStages];  // K and V of a stage
 };
 
-// The walk of the block dQ, flash::query_walk's for a ring block step: kM
-// query rows of one bh walk the K/V tiles of kN keys up to block_key_end
-// (the diagonal shifted by shift = q_off - k_off), none when that is
-// <= 0. Causal tiles go longest first; otherwise a bh's tiles sit side by
-// side, so its K/V is read again from L2.
-__device__ __forceinline__ flash::Work block_query_walk(
-    long long t, int BH, int nq, int kM, int kN, int Tq, int shift,
-    int causal, int kv_len) {
-  int qb, bh;
-  if (causal) {
-    qb = nq - 1 - static_cast<int>(t / BH);
-    bh = static_cast<int>(t % BH);
-  } else {
-    bh = static_cast<int>(t / nq);
-    qb = static_cast<int>(t % nq);
-  }
-  const int q0 = qb * kM;
-  const int k_end =
-      flash::block_key_end(q0, kM, Tq, shift, 0, causal, kv_len);
-  return flash::Work{bh, 0, bh, q0, k_end > 0 ? (k_end + kN - 1) / kN : 0};
-}
-
 template <int DP>
 __global__ void __launch_bounds__(384, 1)
     block_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -254,8 +232,8 @@ __global__ void __launch_bounds__(384, 1)
     int it = 0;  // work tiles loaded so far
     for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
       const flash::Work w =
-          block_query_walk(t, BH, nq, kM, kN, Tq, shift, causal,
-                           kv_len);
+          flash::block_query_walk(t, BH, nq, kM, kN, Tq, shift, causal,
+                                  kv_len);
       if (w.n == 0) continue;  // no live key: nothing to load
       const int qb = it % C::kBufs;
       unsigned char* q_buf = sQ + 2 * qb * C::kRowsBytes;
@@ -300,7 +278,8 @@ __global__ void __launch_bounds__(384, 1)
   int it = 0;
   for (long long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const flash::Work w =
-        block_query_walk(t, BH, nq, kM, kN, Tq, shift, causal, kv_len);
+        flash::block_query_walk(t, BH, nq, kM, kN, Tq, shift, causal,
+                                kv_len);
     if (w.n == 0) continue;  // no live key: these rows stay as they are
     const int wg_row0 = w.r0 + 64 * cw;
     const int qb = it % C::kBufs;

@@ -6,11 +6,11 @@
 // smaller D on the next one up: the padding columns are zero-filled in
 // shared memory, so they add nothing to q.k, and are never written out.
 //
-// Grid of the fp32 kernels and the bf16 ring block fold: a block's (b*h,
-// row tile) pair is one index on the grid's x axis (tile_of), which allows
-// 2^31 - 1 blocks, so B*H is not limited by the y axis's 65535. The bf16
-// forward, dQ and dK/dV (the block steps' too) walk work tiles
-// persistently instead (the end of this file).
+// Grid of the fp32 kernels: a block's (b*h, row tile) pair is one index
+// on the grid's x axis (tile_of), which allows 2^31 - 1 blocks, so B*H is
+// not limited by the y axis's 65535. The bf16 forward, dQ and dK/dV and
+// the three ring block kernels walk work tiles persistently instead (the
+// end of this file).
 //
 // The fp32 versions run on the CUDA cores: a block of kThreads = 256
 // threads is a 16 x 16 grid, thread (ty, tx) owning rows ty*(R/16) ..
@@ -21,9 +21,8 @@
 // fp32 with a row stride of D+1 (or R+1), so the column reads of one
 // half-warp hit 16 distinct banks and the two half-warps of a warp read
 // either the same word or distinct banks. Products are fp32 fused
-// multiply-adds. In bf16 the ring block fold runs mma.sync on the tensor
-// cores (below); the forward, dQ and dK/dV and the block steps' dQ and
-// dK/dV run wgmma (hopper.cuh).
+// multiply-adds. In bf16 the forward, dQ and dK/dV and the three ring
+// block kernels run wgmma (hopper.cuh).
 //
 // q, k and v are (B, T, H, D) with a contiguous D axis and any strides
 // over (B, T, H): the model passes the three slices of its fused QKV
@@ -41,7 +40,6 @@
 
 namespace flash {
 
-constexpr int kTile = 64;
 constexpr int kThreads = 256;
 constexpr int kMaxHeadDim = 256;
 
@@ -213,35 +211,7 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// The ring block fold's bf16 version (flash_block_fwd.cu): mma.sync
-// m16n8k16 with bf16 operands and fp32 accumulators. A block of kWarps =
-// 4 warps owns a kTile = 64-row tile, 16 rows a warp. Tiles live in shared
-// memory as bf16 with a row stride of (columns + 8), so the 32 lanes'
-// fragment reads hit 32 distinct banks. Fragment layouts (PTX ISA,
-// mma.m16n8k16 .bf16), with g = lane / 4 and t = lane % 4:
-//   A (16 x 16, row-major): reg0 (g, 2t..2t+1), reg1 (g+8, 2t..), reg2
-//     (g, 2t+8..), reg3 (g+8, 2t+8..)
-//   B (16 x 8, element (k, n)): reg0 (k = 2t..2t+1, n = g), reg1
-//     (k = 2t+8.., n = g), read from a matrix stored as [n][k]
-//   C (16 x 8, fp32): c0, c1 at (g, 2t..2t+1), c2, c3 at (g+8, 2t..)
-// A C tile pair of 16 x 16 fp32 scores converts in registers to the A
-// fragment of the next product (p or dS rounded to bf16, as the JAX
-// kernels cast them), so P and dS never go through shared memory. The
-// tiles are in dynamic shared memory (above 48 KB at D = 128 and 256). At
-// D = 128 and 256 a warp's fragments and sums outgrow the 255 registers a
-// thread may hold and spill to local memory: right, and slower.
-constexpr int kWarps = 4;
-constexpr int kMmaThreads = 32 * kWarps;
-
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// Pieces of the bf16 kernels' epilogues and launchers.
 
 // Two fp32 values rounded to bf16 and packed, the first in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -265,10 +235,6 @@ __device__ __forceinline__ void add_pair(float* x, float v0, float v1,
   }
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Whether a tensor map can read bf16 (B, T, H, D) tensors with element
 // strides s in place: bases on 16 bytes and the (B, T, H) strides
 // multiples of 8 elements (TMA's 16-byte rules).
@@ -278,100 +244,6 @@ inline bool tma_rows(Strides s, Ptr... ptrs) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   return s.b % 8 == 0 && s.t % 8 == 0 && s.h % 8 == 0 && (al(ptrs) && ...);
-}
-
-// Whether every row of these tensors starts on 16 bytes (pointers, the
-// (B, T, H) strides and the head dim d), so a tile loads as 16-byte
-// vectors.
-inline bool rows_aligned16(int d, Strides s, const void* a, const void* b,
-                           const void* c, const void* e = nullptr) {
-  const auto al = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  return d % 8 == 0 && s.b % 8 == 0 && s.t % 8 == 0 && s.h % 8 == 0 &&
-         al(a) && al(b) && al(c) && (e == nullptr || al(e));
-}
-
-// Rows row0 .. row0+kTile-1 of x for one (b, h) at `base` into sm as bf16:
-// row-major [row][c] with stride D+8, or transposed [c][row] with stride
-// kTile+8; rows at or past T and columns at or past d read as zeros.
-// `vec`: rows start on 16 bytes and d is a multiple of 8, so each thread
-// moves 8 values at a time.
-template <int D, bool kTransposed>
-__device__ __forceinline__ void load_tile_bf16(
-    uint16_t* sm, const __nv_bfloat16* __restrict__ x, long long base,
-    Strides s, int row0, int T_len, int d, bool vec) {
-  if (vec) {
-    for (int idx = threadIdx.x; idx < kTile * D / 8; idx += kMmaThreads) {
-      const int r = idx / (D / 8);
-      const int c = (idx % (D / 8)) * 8;
-      const int t = row0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (t < T_len && c < d) {
-        v = *reinterpret_cast<const uint4*>(x + base + t * s.t + c);
-      }
-      if (kTransposed) {
-        const uint16_t* e = reinterpret_cast<const uint16_t*>(&v);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sm[(c + j) * (kTile + 8) + r] = e[j];
-      } else {
-        *reinterpret_cast<uint4*>(sm + r * (D + 8) + c) = v;
-      }
-    }
-    return;
-  }
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kMmaThreads) {
-    const int r = idx / D;
-    const int c = idx % D;
-    const int t = row0 + r;
-    const uint16_t v = t < T_len && c < d
-                           ? __bfloat16_as_ushort(x[base + t * s.t + c])
-                           : static_cast<uint16_t>(0);
-    if (kTransposed) {
-      sm[c * (kTile + 8) + r] = v;
-    } else {
-      sm[r * (D + 8) + c] = v;
-    }
-  }
-}
-
-// Shared memory of a bf16 kernel with `rows` kTile x (D+8) row-major
-// tiles and `cols` D x (kTile+8) transposed ones, in bytes.
-template <int D>
-constexpr size_t smem_bytes_bf16(int rows, int cols) {
-  return sizeof(uint16_t) *
-         (static_cast<size_t>(rows) * kTile * (D + 8) +
-          static_cast<size_t>(cols) * D * (kTile + 8));
-}
-
-// A fragment of rows r0..r0+15, columns k0..k0+15 of a row-major tile.
-template <int kStride>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint16_t* sm,
-                                       int r0, int k0, int lane) {
-  const uint16_t* p = sm + (r0 + lane / 4) * kStride + k0 + 2 * (lane % 4);
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * kStride);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * kStride + 8);
-}
-
-// B fragment (k0..k0+15) x (n0..n0+7) of a matrix stored as [n][k].
-template <int kStride>
-__device__ __forceinline__ void load_b(uint32_t (&b)[2], const uint16_t* sm,
-                                       int n0, int k0, int lane) {
-  const uint16_t* p = sm + (n0 + lane / 4) * kStride + k0 + 2 * (lane % 4);
-  b[0] = ld_pair(p);
-  b[1] = ld_pair(p + 8);
-}
-
-// The A fragment of columns 16*kk .. 16*kk+15 of a 16 x 64 fp32 C tile row
-// (held as 8 C fragments of 8 columns), rounded to bf16.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4],
-                                       const float (&c)[8][4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
 // Reductions over the 4 lanes of a quad (the lanes holding one C row).
@@ -422,11 +294,11 @@ __device__ __forceinline__ int block_query_start(int k0, int rows, int q_off,
 
 // ---------------------------------------------------------------------------
 // The persistent bf16 kernels (flash_fwd.cu, flash_dq.cu, flash_dkv.cu,
-// and the block steps' in flash_block_dq.cu and flash_block_dkv.cu): one
-// block an SM takes work tiles t = blockIdx.x, blockIdx.x + gridDim.x,
-// ... A work tile is rows r0 .. r0 + kM - 1 of one (b, h) — query rows in
-// the forward and dQ, key rows in dK/dV — and the n tiles of the other
-// operand that it walks.
+// and the ring block kernels' in flash_block_fwd.cu, flash_block_dq.cu and
+// flash_block_dkv.cu): one block an SM takes work tiles t = blockIdx.x,
+// blockIdx.x + gridDim.x, ... A work tile is rows r0 .. r0 + kM - 1 of
+// one (b, h) — query rows in the forward and dQ, key rows in dK/dV — and
+// the n tiles of the other operand that it walks.
 struct Work {
   int b, h, bh, r0, n;
 };
@@ -448,6 +320,28 @@ __device__ __forceinline__ Work query_walk(long long t, int BH, int H,
   const int q0 = qb * kM;
   const int k_end = causal ? min(kv_len, q0 + kM) : kv_len;
   return Work{bh / H, bh % H, bh, q0, (k_end + kN - 1) / kN};
+}
+
+// The walk of the block fold and the block dQ, query_walk's for a ring
+// block step: kM query rows of one bh walk the K/V tiles of kN keys up to
+// block_key_end (the diagonal shifted by shift = q_off - k_off), none
+// when that is <= 0. Causal tiles go longest first; otherwise a bh's
+// tiles sit side by side, so its K/V is read again from L2.
+__device__ __forceinline__ Work block_query_walk(long long t, int BH, int nq,
+                                                 int kM, int kN, int Tq,
+                                                 int shift, int causal,
+                                                 int kv_len) {
+  int qb, bh;
+  if (causal) {
+    qb = nq - 1 - static_cast<int>(t / BH);
+    bh = static_cast<int>(t % BH);
+  } else {
+    bh = static_cast<int>(t / nq);
+    qb = static_cast<int>(t % nq);
+  }
+  const int q0 = qb * kM;
+  const int k_end = block_key_end(q0, kM, Tq, shift, 0, causal, kv_len);
+  return Work{bh, 0, bh, q0, k_end > 0 ? (k_end + kN - 1) / kN : 0};
 }
 
 }  // namespace flash

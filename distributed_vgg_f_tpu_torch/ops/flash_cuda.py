@@ -16,12 +16,13 @@ warp-specialised and persistent: a producer warp loads tiles by TMA into a
 ring of shared-memory stages and two consumer warpgroups run every product
 as wgmma, reading the transposed operands through the wgmma descriptor
 (csrc/flash_fwd.cu, csrc/flash_dq.cu, csrc/flash_dkv.cu on
-csrc/hopper.cuh). The ring block dQ and dK/dV steps in bf16 have the
-same design (csrc/flash_block_dq.cu, csrc/flash_block_dkv.cu), with the
-block's own key length, the causal diagonal shifted by q_off - k_off and
-an epilogue that adds into the carried fp32 accumulators; the block fold
-runs mma.sync on the tensor cores in bf16; fp32 runs everything on the
-CUDA cores. Where the TPU kernels carry
+csrc/hopper.cuh). The three ring block kernels in bf16 have the same
+design (csrc/flash_block_fwd.cu, csrc/flash_block_dq.cu,
+csrc/flash_block_dkv.cu), with the block's own key length, the causal
+diagonal shifted by q_off - k_off, and the carried fp32 state (the
+fold's acc, m and l, the backward's accumulators) read into registers
+and written back in place; fp32 runs everything on the CUDA cores.
+Where the TPU kernels carry
 (acc, m, l) or the gradient sums in scratch along a sequential grid axis,
 a block here owns a tile of rows of one (b, h) and loops over the other
 operand's tiles itself, staging them through shared memory; the (T, T)
@@ -47,11 +48,11 @@ increasing from H to B. Where q, k or v breaks that (a head dim that is
 not a multiple of 8, a permuted view), the bf16 wrappers make one
 contiguous copy of the three, its rows padded to a multiple of 8
 elements, and launch on that; dO, which has a tensor map of its own, is
-copied alone when it breaks it (`_tma_inputs`). The block steps' bf16
-dQ and dK/dV copy, once, each of q, k, v and dO whose rows a tensor map
-cannot read in place (`_block_tma_inputs`: a head dim that is not a
-multiple of 8, a base off 16 bytes); the fp32 accumulators are never
-copied. Nothing else copies.
+copied alone when it breaks it (`_tma_inputs`). The bf16 ring block
+fold, dQ and dK/dV copy, once, each of q, k, v and dO (the fold has no
+dO) whose rows a tensor map cannot read in place (`_block_tma_inputs`:
+a head dim that is not a multiple of 8, a base off 16 bytes); the fp32
+state and accumulators are never copied. Nothing else copies.
 The grid puts (b*h, row tile) on one axis, so B*H has no limit of its own.
 
 Each wrapper checks device, dtype (float32 or bfloat16, one for all
@@ -338,16 +339,30 @@ def _block_args(q, k_blk, q_off, k_off, causal, kv_len) -> list:
             q.device.index, torch.cuda.current_stream(q.device).cuda_stream]
 
 
+def _block_tma_inputs(q, k_blk, v_blk, do=None):
+    """q, k_blk, v_blk and dO (or None: the fold has none) as the bf16
+    block kernels' tensor maps read them: each that is not `_tma_ready` is
+    copied alone (`_tma_copy`). The kernels take every row ld = D rounded
+    up to 8 elements apart: D itself when a tensor is read in place (its D
+    is then a multiple of 8), the copy's padded width otherwise."""
+    return tuple(x if x is None or _tma_ready(x) else _tma_copy(x)
+                 for x in (q, k_blk, v_blk, do))
+
+
 def flash_block_fwd_cuda(q, k_blk, v_blk, acc, m, l, *, q_off: int,
                          k_off: int, causal: bool, kv_len: int = None):
     """Fold one K/V block into (acc, m, l) in place on the current stream.
-    Same semantics as ops.flash_attention.block_update_plain."""
+    Same semantics as ops.flash_attention.block_update_plain. In bf16,
+    each of q, k_blk and v_blk that a tensor map cannot read in place is
+    copied, once (`_block_tma_inputs`); acc, m and l never are."""
     global BLOCK_FWD_LAUNCHES
     kv_len = _check_block(q, k_blk, v_blk, kv_len)
     bh, tq, d = q.shape
     _check_dense("acc", acc, (bh, tq, d), torch.float32, q.device)
     _check_dense("m", m, (bh, tq, 1), torch.float32, q.device)
     _check_dense("l", l, (bh, tq, 1), torch.float32, q.device)
+    if q.dtype == torch.bfloat16:
+        q, k_blk, v_blk, _ = _block_tma_inputs(q, k_blk, v_blk)
     fn = _entry("flash_block_fwd", _BLOCK_FWD_ARGS)
     rc = fn(q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(),
             acc.data_ptr(), m.data_ptr(), l.data_ptr(),
@@ -356,16 +371,6 @@ def flash_block_fwd_cuda(q, k_blk, v_blk, acc, m, l, *, q_off: int,
         _raise_launch("flash block forward", rc)
     BLOCK_FWD_LAUNCHES += 1
     return acc, m, l
-
-
-def _block_tma_inputs(q, k_blk, v_blk, do):
-    """q, k_blk, v_blk and dO as the bf16 block dQ and dK/dV kernels'
-    tensor maps read them: each that is not `_tma_ready` is copied alone
-    (`_tma_copy`). The kernels take every row ld = D rounded up to 8
-    elements apart: D itself when a tensor is read in place (its D is then
-    a multiple of 8), the copy's padded width otherwise."""
-    return tuple(x if _tma_ready(x) else _tma_copy(x)
-                 for x in (q, k_blk, v_blk, do))
 
 
 def _check_block_rows(do, lse, delta, q) -> None:

@@ -606,11 +606,12 @@ def test_block_kernels_match_plain_on_card(cuda_device, bh, tq, tk, d,
     assert (got[5][:, kw["kv_len"]:] == 0).all()
 
 
-def _block_grads_case(device, bh, tq, tk, d, dtype, seed):
-    """Inputs of one ring block backward step: q, k, v, dO in `dtype`, lse
-    and delta, and random fp32 accumulators with some -0.0 entries (a
-    kernel that adds +0.0 to a row it should leave alone flips their
-    sign bit)."""
+def _block_case(device, bh, tq, tk, d, dtype, seed):
+    """Inputs of one ring block step: q, k, v, dO in `dtype`, lse and
+    delta, the fold's state (acc, m, l; its first 5 rows have seen no key
+    yet: acc 0, m -inf, l 0) and the backward's accumulators, all random
+    fp32 with some -0.0 entries (a kernel that adds +0.0 to a row it
+    should leave alone flips their sign bit)."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def draw(*shape):
@@ -619,10 +620,27 @@ def _block_grads_case(device, bh, tq, tk, d, dtype, seed):
     x = {"q": draw(bh, tq, d).to(dtype), "k": draw(bh, tk, d).to(dtype),
          "v": draw(bh, tk, d).to(dtype), "do": draw(bh, tq, d).to(dtype),
          "lse": draw(bh, tq, 1) + 3.0, "delta": draw(bh, tq, 1),
+         "acc": draw(bh, tq, d), "m": draw(bh, tq, 1),
+         "l": draw(bh, tq, 1).abs() + 0.5,
          "dq": draw(bh, tq, d), "dk": draw(bh, tk, d), "dv": draw(bh, tk, d)}
-    for key in ("dq", "dk", "dv"):
+    for key in ("acc", "dq", "dk", "dv"):
         x[key][:, ::3, ::5] = -0.0
+    x["acc"][:, :5], x["m"][:, :5], x["l"][:, :5] = 0.0, -float("inf"), 0.0
     return x
+
+
+def _block_fold_run(x, kw, virgin=False):
+    """acc, m and l after one launch of the block fold, from the state of
+    x (or a state that has seen nothing: acc 0, m -inf, l 0)."""
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda
+    state = [x[k].clone() for k in ("acc", "m", "l")]
+    if virgin:
+        state[0].zero_()
+        state[1].fill_(-float("inf"))
+        state[2].zero_()
+    flash_cuda.flash_block_fwd_cuda(x["q"], x["k"], x["v"], *state, **kw)
+    torch.cuda.synchronize()
+    return state
 
 
 def _block_grads_run(x, kw, zero=False):
@@ -638,6 +656,21 @@ def _block_grads_run(x, kw, zero=False):
     return acc
 
 
+def _fold_close(got, want, tol):
+    """The fold's (acc, m, l) against block_update_plain's: acc and l
+    within tol of their largest value (exactly equal where nothing was
+    live), m within 1e-5 with the same -inf rows."""
+    for name, g, w in zip(("acc", "m", "l"), got, want):
+        if name == "m":   # -inf where no key was ever live, in both
+            assert torch.equal(torch.isneginf(g), torch.isneginf(w))
+            g, w = g.clamp_min(-1e30), w.clamp_min(-1e30)
+            assert float((g - w).abs().max()) <= 1e-5, name
+        elif float(w.abs().max()) > 0:
+            _close(g, w, tol)
+        else:
+            assert torch.equal(g, w), name
+
+
 #: the block steps' stress: (Tq, Tk, kv_len) around the 64- and 128-row
 #: tiles and the rings' stages, each at a zero, a ragged and a negative
 #: diagonal shift (q_off - k_off = 0, 37, -37) and causal
@@ -651,21 +684,32 @@ _BLOCK_STRESS = ((2, 2, 2), (63, 65, 50), (65, 63, 63), (129, 100, 100),
 @pytest.mark.parametrize("shift", [0, 37, -37])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
-def test_block_backward_takes_every_head_dim_and_shift_on_card(
+def test_block_kernels_take_every_head_dim_and_shift_on_card(
         cuda_device, d, tq, tk, kv_len, shift, dtype, tol):
-    """The block dQ and dK/dV at every head dim the flash kernels are
-    checked at (100: rows a tensor map cannot read in place, copied by the
-    wrapper), at lengths around the tiles with Tq != Tk and kv_len, and
-    at diagonals shifted by 0, by no multiple of a tile and negatively,
-    causal: from zero accumulators within tol of the largest value of
-    block_grads_plain; from random accumulators, the rows that see no
-    key (dq) or that no query sees (dk, dv) keep their values."""
-    from distributed_vgg_f_tpu_torch.ops.flash_attention import \
-        block_grads_plain
+    """The block fold, dQ and dK/dV at every head dim the flash kernels
+    are checked at (100: rows a tensor map cannot read in place, copied by
+    the wrapper), at lengths around the tiles with Tq != Tk and kv_len,
+    and at diagonals shifted by 0, by no multiple of a tile and
+    negatively, causal: from a state that has seen nothing (zero
+    accumulators) within tol of the largest value of block_update_plain
+    and block_grads_plain; from a random state, the fold within the same
+    tol, and the rows that see no key (fold, dq) or that no query sees
+    (dk, dv) keep their bits (bf16) or values (fp32)."""
+    from distributed_vgg_f_tpu_torch.ops.flash_attention import (
+        block_grads_plain, block_update_plain)
     q_off = 512 + max(shift, 0)
     k_off = q_off - shift
     kw = {"q_off": q_off, "k_off": k_off, "causal": True, "kv_len": kv_len}
-    x = _block_grads_case(cuda_device, 2, tq, tk, d, dtype, seed=d + tq)
+    x = _block_case(cuda_device, 2, tq, tk, d, dtype, seed=d + tq)
+    qkv = [x[k] for k in ("q", "k", "v")]
+    virgin = _block_fold_run(x, kw, virgin=True)
+    state0 = (torch.zeros_like(x["acc"]),
+              torch.full_like(x["m"], -float("inf")),
+              torch.zeros_like(x["l"]))
+    _fold_close(virgin, block_update_plain(*qkv, *state0, **kw), tol)
+    state = [x[k] for k in ("acc", "m", "l")]
+    fold = _block_fold_run(x, kw)
+    _fold_close(fold, block_update_plain(*qkv, *state, **kw), tol)
     args = [x[k] for k in ("q", "k", "v", "do", "lse", "delta")]
     zeros = [torch.zeros_like(x[k]) for k in ("dq", "dk", "dv")]
     want = block_grads_plain(*args, *zeros, **kw)
@@ -675,14 +719,23 @@ def test_block_backward_takes_every_head_dim_and_shift_on_card(
             _close(g, w, tol)
         else:   # the whole block lies in every row's future
             assert torch.equal(g, w), name
-    # dq rows that see no key; dk, dv rows that no query sees
+    # fold and dq rows that see no key; dk, dv rows that no query sees:
+    # the bf16 kernels keep their bits; the fp32 ones keep their values
+    # (they add +0.0 there, which turns a -0.0 into +0.0)
+    def same(a, b):
+        if dtype == torch.bfloat16:
+            return torch.equal(_bits(a), _bits(b))
+        return torch.equal(a, b)
+
     dead_q = torch.arange(tq, device=cuda_device) + shift < 0
     rows_k = torch.arange(tk, device=cuda_device)
     dead_k = (rows_k >= kv_len) | (rows_k - shift >= tq)
+    for g, s in zip(fold, state):
+        assert same(g[:, dead_q], s[:, dead_q])
     got = _block_grads_run(x, kw)
-    assert torch.equal(got[0][:, dead_q], x["dq"][:, dead_q])
+    assert same(got[0][:, dead_q], x["dq"][:, dead_q])
     for g, key in zip(got[1:], ("dk", "dv")):
-        assert torch.equal(g[:, dead_k], x[key][:, dead_k])
+        assert same(g[:, dead_k], x[key][:, dead_k])
 
 
 @pytest.mark.cuda
@@ -691,38 +744,42 @@ def test_block_backward_takes_every_head_dim_and_shift_on_card(
     (24, 2048, 2048, 64, 4096, 4096, True),    # the diagonal
     (6, 197, 197, 128, 197, 147, True),        # ragged, partly masked
     (4, 130, 70, 256, 0, 40, True)])           # Tq != Tk, column split
-def test_block_backward_is_deterministic_on_card(cuda_device, bh, tq, tk, d,
+def test_block_kernels_are_deterministic_on_card(cuda_device, bh, tq, tk, d,
                                                  q_off, k_off, causal):
-    """dq, dk and dv of two launches from the same bf16 inputs and
-    accumulators are the same bits: each element is added to once by the
-    thread that owns it, with no atomics."""
+    """The fold's acc, m and l and the backward's dq, dk and dv of two
+    launches from the same bf16 inputs and state are the same bits: each
+    element is written once by the thread that owns it, with no
+    atomics."""
     kw = {"q_off": q_off, "k_off": k_off, "causal": causal, "kv_len": tk}
-    x = _block_grads_case(cuda_device, bh, tq, tk, d, torch.bfloat16,
-                          seed=bh + d)
-    for a, b in zip(_block_grads_run(x, kw), _block_grads_run(x, kw)):
-        assert torch.equal(_bits(a), _bits(b))
+    x = _block_case(cuda_device, bh, tq, tk, d, torch.bfloat16, seed=bh + d)
+    for run in (_block_fold_run, _block_grads_run):
+        for a, b in zip(run(x, kw), run(x, kw)):
+            assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 100, 128, 256])
 @pytest.mark.parametrize("site", ["future", "padded_keys"])
-def test_block_backward_leaves_what_it_does_not_reach_bit_equal_on_card(
+def test_block_kernels_leave_what_they_do_not_reach_bit_equal_on_card(
         cuda_device, d, site):
-    """The bf16 block dQ and dK/dV never write what they do not reach: a
-    block wholly in the local rows' future leaves dq, dk and dv the same
-    bits, -0.0 included; keys past kv_len (here most of the block) keep
-    their dk and dv bits while the live keys' rows change."""
+    """The bf16 block fold, dQ and dK/dV never write what they do not
+    reach: a block wholly in the local rows' future leaves acc, m, l, dq,
+    dk and dv the same bits, -0.0 included; keys past kv_len (here most
+    of the block) keep their dk and dv bits while the live keys' rows
+    change, and the fold, which sees the live keys, changes every row."""
     tq, tk = 197, 197
     kw = ({"q_off": 0, "k_off": 197, "causal": True, "kv_len": tk}
           if site == "future" else
           {"q_off": 394, "k_off": 0, "causal": False, "kv_len": 40})
-    x = _block_grads_case(cuda_device, 6, tq, tk, d, torch.bfloat16,
-                          seed=d)
+    x = _block_case(cuda_device, 6, tq, tk, d, torch.bfloat16, seed=d)
+    fold = _block_fold_run(x, kw)
     got = _block_grads_run(x, kw)
     if site == "future":
-        for g, key in zip(got, ("dq", "dk", "dv")):
+        for g, key in zip(fold + got, ("acc", "m", "l", "dq", "dk", "dv")):
             assert torch.equal(_bits(g), _bits(x[key])), key
     else:
+        for g, key in zip(fold, ("acc", "m", "l")):
+            assert not torch.equal(g, x[key]), key
         for g, key in zip(got[1:], ("dk", "dv")):
             assert torch.equal(_bits(g[:, 40:]), _bits(x[key][:, 40:])), key
             assert not torch.equal(g[:, :40], x[key][:, :40]), key

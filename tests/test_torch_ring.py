@@ -55,22 +55,27 @@ def _close(got, want, tol, what):
 
 
 # ------------------------------------------------------------ block steps
-# (tq, tk, q_off, k_off, causal, kv_len, virgin state, head dim); the
+# (tq, tk, q_off, k_off, causal, kv_len, state, head dim); the state is
+# "random", "virgin" (nothing seen yet: acc 0, m -inf, l 0) or "m_wins"
+# (random, with every fourth row's m above every score of the block); the
 # head dims are those of the JAX tests (8, 16) and the widest (256)
 BLOCK_CASES = {
-    "past_block": (64, 64, 64, 0, False, None, False, 16),
-    "past_block_kv_len": (64, 64, 64, 0, False, 40, False, 16),
-    "diagonal_causal": (128, 128, 128, 128, True, None, True, 16),
-    "partly_masked_causal": (64, 128, 64, 100, True, 100, False, 16),
-    "fully_past_causal": (64, 64, 256, 0, True, None, False, 16),
-    "past_block_d8": (64, 64, 64, 0, False, None, False, 8),
-    "diagonal_causal_d8": (64, 64, 64, 64, True, None, True, 8),
-    "past_block_kv_len_d256": (64, 64, 64, 0, False, 40, False, 256),
-    "diagonal_causal_d256": (128, 128, 0, 0, True, None, True, 256),
+    "past_block": (64, 64, 64, 0, False, None, "random", 16),
+    "past_block_kv_len": (64, 64, 64, 0, False, 40, "random", 16),
+    "diagonal_causal": (128, 128, 128, 128, True, None, "virgin", 16),
+    "partly_masked_causal": (64, 128, 64, 100, True, 100, "random", 16),
+    "fully_past_causal": (64, 64, 256, 0, True, None, "random", 16),
+    "past_block_d8": (64, 64, 64, 0, False, None, "random", 8),
+    "diagonal_causal_d8": (64, 64, 64, 64, True, None, "virgin", 8),
+    "past_block_kv_len_d256": (64, 64, 64, 0, False, 40, "random", 256),
+    "diagonal_causal_d256": (128, 128, 0, 0, True, None, "virgin", 256),
     # diagonals shifted by no multiple of a tile (q_off - k_off = 37 and
     # -37), the second with Tq != Tk: the bf16 kernels' walks and masks
-    "shifted_causal_kv_len_d64": (130, 130, 37, 0, True, 100, False, 64),
-    "negative_shift_causal_d128": (130, 70, 0, 37, True, 61, False, 128),
+    "shifted_causal_kv_len_d64": (130, 130, 37, 0, True, 100, "random", 64),
+    "negative_shift_causal_d128": (130, 70, 0, 37, True, 61, "random", 128),
+    # a carried m that no score of the block reaches: those rows keep m's
+    # bits (the bf16 fold compares in the scaled domain to keep them)
+    "carried_m_wins_causal_d64": (130, 130, 37, 0, True, 100, "m_wins", 64),
 }
 
 
@@ -93,8 +98,11 @@ def _block_inputs(tq, tk, virgin, seed, bh=3, d=16):
                                        ("bfloat16", 3e-2)])
 @pytest.mark.parametrize("case", sorted(BLOCK_CASES))
 def test_block_update_and_grads_match_jax(interpret, case, dtype, tol):
-    tq, tk, q_off, k_off, causal, kv_len, virgin, d = BLOCK_CASES[case]
-    x = _block_inputs(tq, tk, virgin, seed=len(case) + tq, d=d)
+    tq, tk, q_off, k_off, causal, kv_len, state, d = BLOCK_CASES[case]
+    x = _block_inputs(tq, tk, state == "virgin", seed=len(case) + tq, d=d)
+    if state == "m_wins":      # above every scaled score, masked or not
+        top = np.abs(x["q"]).sum(-1).max() * np.abs(x["k"]).max() / d ** 0.5
+        x["m"][:, ::4] = top + 1.0
     if kv_len is not None:     # padded keys start their accumulators at 0
         x["dk"][:, kv_len:] = 0.0
         x["dv"][:, kv_len:] = 0.0
@@ -117,6 +125,9 @@ def test_block_update_and_grads_match_jax(interpret, case, dtype, tol):
                               tx["dv"], **kw)
     # the state is updated in place and returned
     assert got_f[0] is tx["acc"] and got_g[2] is tx["dv"]
+    if state == "m_wins":
+        assert torch.equal(got_f[1][:, ::4],
+                           torch.from_numpy(x["m"][:, ::4]))
     for name, g, w in zip(("acc", "m", "l", "dq", "dk", "dv"),
                           (*got_f, *got_g), (*want_f, *want_g)):
         w = np.asarray(w)
@@ -212,14 +223,20 @@ def _bf16_rows(*shape, offset=0):
     ("narrow", (True, True, True, True)),         # D = 12: no row on 16
     ("ragged_tk", (False, False, False, False)),  # Tq != Tk, D = 64
     ("misaligned_k", (False, True, False, False)),
-    ("misaligned_do", (False, False, False, True))])
+    ("misaligned_do", (False, False, False, True)),
+    # the fold's call: q, k_blk and v_blk, no dO
+    ("fold_dense", (False, False, False)),
+    ("fold_narrow", (True, True, True)),
+    ("fold_misaligned_k", (False, True, False))])
 def test_block_tma_inputs_copy_only_what_a_tensor_map_cannot_read(layout,
                                                                   copied):
-    """The bf16 block dQ and dK/dV wrappers' layout rule: each of q, k_blk,
-    v_blk and dO that a tensor map cannot read in place is copied alone;
-    every tensor the kernels get holds the same values, is readable in
-    place and has rows d rounded up to 8 elements apart (the row stride
-    the kernels assume)."""
+    """The bf16 block wrappers' layout rule: each of q, k_blk, v_blk and
+    dO (the fold passes none) that a tensor map cannot read in place is
+    copied alone; every tensor the kernels get holds the same values, is
+    readable in place and has rows d rounded up to 8 elements apart (the
+    row stride the kernels assume)."""
+    fold = layout.startswith("fold_")
+    layout = layout.removeprefix("fold_")
     bh, tq, d = 3, 5, 12 if layout == "narrow" else 64
     tk = 7 if layout == "ragged_tk" else tq
     off = {name: 1 if layout == f"misaligned_{name}" else 0
@@ -228,7 +245,12 @@ def test_block_tma_inputs_copy_only_what_a_tensor_map_cannot_read(layout,
           _bf16_rows(bh, tk, d, offset=off["k"]),
           _bf16_rows(bh, tk, d, offset=off["v"]),
           _bf16_rows(bh, tq, d, offset=off["do"]))
-    got = flash_cuda._block_tma_inputs(*xs)
+    if fold:
+        *got, do = flash_cuda._block_tma_inputs(*xs[:3])
+        assert do is None
+        xs = xs[:3]
+    else:
+        got = flash_cuda._block_tma_inputs(*xs)
     ld = -(-d // 8) * 8
     for x, y in zip(xs, got):
         assert torch.equal(x, y) and flash_cuda._tma_ready(y)
