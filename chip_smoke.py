@@ -54,6 +54,24 @@ Phases, one JSON line each:
             every loss finite and the
             loss falling; then step ms, images/s, peak device memory and
             a torch.profiler breakdown of 3 more steps
+  train_zero2 the flagship's gradient exchange on the card, through a
+            one-rank NCCL group that the script keeps to its end: (a)
+            build_train_step with the preset's ZeRO-2 over 4 MB buckets
+            (zero1, shard_gradients, comm_bucket_mb=4.0; the trainer
+            would downgrade them at one rank, so the phase calls the step
+            itself), full width in fp32 with TF32 off, dropout and
+            augment off, batch 2, 3 steps, held against the replicated
+            step from the same weights (losses, parameters and the
+            momentum: the same bits expected, within 1e-6 relative L2
+            held), and the (T,) flat momentum against `to_global` of the
+            replicated step's per-leaf momentum; (b) the same path in
+            bf16 at batch 1024 with dropout, flip and mixup for 20 steps
+            on phase train's seeded u8 batch: step ms and images/s beside
+            phase train's, peak memory, 40 + 40 LRN launches (all of the
+            vector variant), the bucket count and wire bytes of
+            `comm_meta`, and a torch.profiler breakdown of 3 more steps
+            with the device µs of the NCCL kernels and of the copy
+            kernels (phase train's copy µs beside them)
   flash_kernel the flash attention forward, dQ and dK/dV kernels against
             their plain versions on the card, at ViT-S/16's shapes
             (T = 197, 6 heads of 64) at batch 32 and 1024, at a ragged
@@ -113,7 +131,8 @@ Phases, one JSON line each:
             (Tq != Tk among them) and diagonal shifts 0, 37 and -37,
             causal, at head dims 64 and 256 (rows they do not reach keep
             their bits); and their bit-equal repeat
-  ring_flash (a) initialize_distributed on a one-rank NCCL group, then
+  ring_flash (a) initialize_distributed finds phase train_zero2's
+            one-rank NCCL group up and keeps it, then
             ring_flash_attention, ring_self_attention and
             ulysses_self_attention (flash) at (4, 8192, 6, 64) bf16, causal
             and not, forward and backward, each held against
@@ -136,6 +155,7 @@ exits non-zero without the last line; without a CUDA device it exits 2
 before doing anything.
 """
 
+import gc
 import json
 import math
 import re
@@ -443,6 +463,13 @@ def _trace_breakdown(prof, count, top):
             "idle_share": (1.0 - busy / window) if window else None,
             "lrn_fwd_us": sum(v for k, v in by_name.items()
                               if "lrn_fwd" in k) / count,
+            # the exchange: NCCL's kernels, and every copy on the device
+            # (the bucket packing and the gather's unpacking among them)
+            "nccl_us": sum(v for k, v in by_name.items()
+                           if "nccl" in k.lower()) / count,
+            "copy_us": sum(v for k, v in by_name.items()
+                           if "copy" in k.lower() or "memcpy" in k.lower())
+            / count,
             "lrn_bwd_us": sum(v for k, v in by_name.items()
                               if "lrn_bwd" in k) / count,
             # every ReLU pass outside the LRN kernels: torch's relu is a
@@ -858,6 +885,9 @@ def phase_train_parity(tree):
             "vec_launches": (lrn_cuda.VEC_LAUNCHES,
                              lrn_cuda.VEC_BWD_LAUNCHES)}
         del model, opt, state
+    # autograd leaves reference cycles: free the card's copies now, not at
+    # some later collection inside phase train's peak-memory window
+    gc.collect()
     torch.cuda.empty_cache()
     cpu, card = out["cpu"], out["cuda"]
     check(card["launches"] == (2, 2) and cpu["launches"] == (0, 0),
@@ -908,6 +938,8 @@ def _profile_train(trainer, state, batch, steps=3):
             "lrn_bwd_us_per_step": t["lrn_bwd_us"],
             "relu_us_per_step": t["relu_us"],
             "flash_us_per_step": t["flash_us"],
+            "nccl_us_per_step": t["nccl_us"],
+            "copy_us_per_step": t["copy_us"],
             "top_device_us_per_step": t["top_us"]}
 
 
@@ -931,6 +963,9 @@ def phase_train():
         time.perf_counter()))
     state = trainer.init_state(0)
     torch.cuda.synchronize()
+    # the peak counts what is allocated when the fit starts: the state,
+    # and anything an earlier phase left on the card
+    allocated_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
     lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
@@ -962,7 +997,8 @@ def phase_train():
          step_ms_median=median_ms, step_ms=step_ms,
          images_per_s=b / (median_ms / 1e3),
          meter_images_per_sec=recs[-1]["images_per_sec"],
-         peak_memory_bytes=peak, losses=losses,
+         peak_memory_bytes=peak, allocated_before_fit_bytes=allocated_before,
+         losses=losses,
          grad_norms=[r["grad_norm"] for r in recs],
          loss_first5_mean=first, loss_last5_mean=last,
          lrn_launches=launches, lrn_vec_launches=vec_launches,
@@ -980,6 +1016,203 @@ def phase_train():
     check(last < first, f"loss did not fall on a fixed batch: mean of the "
           f"first 5 steps {first}, of the last 5 {last}")
     del trainer, state, data
+    torch.cuda.empty_cache()
+    return launches, {"step_ms_median": median_ms,
+                      "copy_us_per_step": profile["copy_us_per_step"]}
+
+
+def phase_train_zero2(tree, train_ref):
+    """The flagship's ZeRO-2 exchange over 4 MB buckets on the card,
+    through a one-rank NCCL group the script keeps: (a) against the
+    replicated step, full width in fp32; (b) in bf16 at batch 1024 with
+    dropout, flip and mixup for 20 steps, timed beside phase train
+    (`train_ref`). Returns (b)'s LRN launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from distributed_vgg_f_tpu_torch.config import ModelConfig, get_config
+    from distributed_vgg_f_tpu_torch.data.device_ingest import \
+        make_device_finish
+    from distributed_vgg_f_tpu_torch.data.synthetic import SyntheticU8
+    from distributed_vgg_f_tpu_torch.models.registry import build_model
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.parallel.distributed import \
+        initialize_distributed
+    from distributed_vgg_f_tpu_torch.parallel.zero import zero_layout
+    from distributed_vgg_f_tpu_torch.train.schedule import (build_optimizer,
+                                                            build_schedule)
+    from distributed_vgg_f_tpu_torch.train.state import TrainState
+    from distributed_vgg_f_tpu_torch.train.step import build_train_step
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    from distributed_vgg_f_tpu_torch.weights import load_params
+    cfg = get_config("vggf_imagenet_dp")
+    mesh, size = cfg.mesh, cfg.data.image_size
+    check(mesh.sharding_label == "zero2" and mesh.comm_bucket_mb == 4.0,
+          f"the flagship's mesh is {mesh}")
+    zero_kw = dict(zero1=True, shard_gradients=True,
+                   comm_bucket_mb=mesh.comm_bucket_mb)
+    t0 = time.perf_counter()
+    up = initialize_distributed(f"localhost:{_free_port()}", 1, 0,
+                                device="cuda")
+    check(up and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "initialize_distributed did not start a one-rank NCCL group")
+    init_s = time.perf_counter() - t0
+
+    # (a) ZeRO-2 against the replicated step, fp32
+    model_cfg = ModelConfig(num_classes=cfg.model.num_classes,
+                            compute_dtype="float32", dropout_rate=0.0)
+    rng = np.random.default_rng(4)
+    batches = [{"image": rng.integers(0, 256, (2, size, size, 3), np.uint8),
+                "label": rng.integers(0, cfg.model.num_classes, (2,))}
+               for _ in range(3)]
+    finish = make_device_finish(cfg.data.mean_rgb, cfg.data.stddev_rgb)
+    runs = {}
+    # the replicated step twice: its own run-to-run bits are the control
+    for path in ("replicated", "replicated_again", "zero2"):
+        model = load_params(build_model(model_cfg, image_size=size),
+                            tree).to("cuda")
+        if path == "zero2":
+            layout = zero_layout(model, 1, mesh.comm_bucket_mb)
+            state = TrainState.create_sharded(
+                model, lambda ps: build_optimizer(cfg, ps)[0], layout)
+            schedule = build_schedule(cfg)
+        else:
+            opt, schedule = build_optimizer(cfg, model.parameters())
+            state = TrainState.create(model, opt)
+        step = build_train_step(
+            schedule, cfg.optim.weight_decay, skip_nonfinite=True,
+            device_finish=finish, device="cuda",
+            **(zero_kw if path == "zero2" else {}))
+        lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+        losses = []
+        for b in batches:
+            state, metrics = step(state, b, 0)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        runs[path] = {
+            "losses": losses, "grad_norm": float(metrics["grad_norm"]),
+            "params": {k: p.detach().clone()
+                       for k, p in model.named_parameters()},
+            "momentum": state.momentum(),
+            "flat": (state.momentum_global() if path == "zero2" else None),
+            "launches": (lrn_cuda.LAUNCHES, lrn_cuda.BWD_LAUNCHES),
+            "comm_meta": dict(step.comm_meta)}
+        del model, state, step
+    rep, z2 = runs["replicated"], runs["zero2"]
+    again = runs["replicated_again"]
+    control = {"losses": rep["losses"] == again["losses"],
+               "params": all(torch.equal(again["params"][k], v)
+                             for k, v in rep["params"].items())}
+    bits = {"losses": rep["losses"] == z2["losses"],
+            "params": all(torch.equal(z2["params"][k], v)
+                          for k, v in rep["params"].items()),
+            "momentum": all(torch.equal(z2["momentum"][k], v)
+                            for k, v in rep["momentum"].items())}
+    param_err = max(_rel_l2(z2["params"][k], v)
+                    for k, v in rep["params"].items())
+    mom_err = max(_rel_l2(z2["momentum"][k], v)
+                  for k, v in rep["momentum"].items())
+    laid_out = layout.to_global(layout.leaves(rep["momentum"]))
+    flat_err = _rel_l2(z2["flat"], laid_out)
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(z2["losses"], rep["losses"]))
+    emit("train_zero2", part="a", batch=2, image_size=size, dtype="float32",
+         tf32=False, steps=len(batches), backend="nccl", world=1,
+         init_s=init_s, comm_meta=z2["comm_meta"],
+         losses_zero2=z2["losses"], losses_replicated=rep["losses"],
+         grad_norm_zero2=z2["grad_norm"],
+         grad_norm_replicated=rep["grad_norm"], bit_equal=bits,
+         replicated_rerun_bit_equal=control,
+         replicated_rerun_param_rel_l2_max=max(
+             _rel_l2(again["params"][k], v) for k, v in rep["params"].items()),
+         loss_rel_err=loss_err, param_rel_l2_max=param_err,
+         momentum_rel_l2_max=mom_err,
+         flat_momentum_vs_layout_rel_l2=flat_err,
+         flat_momentum_bit_equal=bool(torch.equal(z2["flat"], laid_out)),
+         lrn_launches={"replicated": rep["launches"],
+                       "zero2": z2["launches"]},
+         tolerance_rel_l2=1e-6)
+    check(z2["launches"] == (6, 6), f"ZeRO-2 LRN launches {z2['launches']}")
+    check(z2["comm_meta"]["sharding"] == "zero2"
+          and z2["comm_meta"]["buckets"] == layout.num_buckets > 2,
+          f"comm_meta {z2['comm_meta']}")
+    check(max(loss_err, param_err, mom_err, flat_err) <= 1e-6,
+          f"ZeRO-2 off the replicated step: losses {loss_err}, params "
+          f"{param_err}, momentum {mom_err}, flat momentum {flat_err}")
+    del runs, rep, z2, again, laid_out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the flagship in bf16 at batch 1024 on the ZeRO-2 path
+    steps = 20
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, log_every=1, seed=0))
+    b = cfg.data.global_batch_size
+    data = SyntheticU8(b, size, cfg.model.num_classes, seed=0, pin=True)
+    stamps = []
+    trainer = Trainer(cfg, log=lambda event, rec: stamps.append(
+        time.perf_counter()))
+    trainer.train_step = build_train_step(
+        trainer.schedule, cfg.optim.weight_decay,
+        grad_clip_norm=cfg.optim.grad_clip_norm,
+        ema_decay=cfg.train.ema_decay,
+        skip_nonfinite=cfg.train.skip_nonfinite,
+        device_finish=trainer.device_finish,
+        device_augment=trainer.device_augment, device="cuda", **zero_kw)
+    model = trainer.init_state(0).model
+    state = TrainState.create_sharded(
+        model, lambda ps: build_optimizer(cfg, ps)[0],
+        zero_layout(model, 1, mesh.comm_bucket_mb))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+    lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    state = trainer.fit(state, data, num_steps=steps)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"fwd": lrn_cuda.LAUNCHES, "bwd": lrn_cuda.BWD_LAUNCHES}
+    vec_launches = {"fwd": lrn_cuda.VEC_LAUNCHES,
+                    "bwd": lrn_cuda.VEC_BWD_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    recs = [r for r in trainer.records if r["event"] == "train"]
+    losses = [r["loss"] for r in recs]
+    stamps.insert(0, t0)
+    step_ms = [(t1 - t0_) * 1e3 for t0_, t1 in zip(stamps, stamps[1:])]
+    median_ms = statistics.median(step_ms[4:])
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    meta = dict(trainer.train_step.comm_meta)
+    profile = _profile_train(trainer, state, next(iter(data)))
+    emit("train_zero2", part="b", config=cfg.name, image_size=size, batch=b,
+         compute_dtype=cfg.model.compute_dtype,
+         dropout_rate=cfg.model.dropout_rate,
+         augment={"hflip": cfg.data.augment.hflip,
+                  "mixup_alpha": cfg.data.augment.mixup_alpha},
+         steps=steps, wall_s=wall_s, first_step_ms=step_ms[0],
+         step_ms_median=median_ms, step_ms=step_ms,
+         images_per_s=b / (median_ms / 1e3),
+         train_step_ms_median=train_ref["step_ms_median"],
+         vs_train=median_ms / train_ref["step_ms_median"] - 1.0,
+         peak_memory_bytes=peak, losses=losses,
+         loss_first5_mean=first, loss_last5_mean=last,
+         lrn_launches=launches, lrn_vec_launches=vec_launches,
+         buckets=meta["buckets"], wire_bytes=meta["wire_bytes"],
+         comm_meta=meta, train_copy_us_per_step=train_ref["copy_us_per_step"],
+         profile=profile)
+    check(state.step == steps + profile["steps"] and len(recs) == steps,
+          f"{state.step} steps, {len(recs)} records")
+    check(launches == {"fwd": 2 * steps, "bwd": 2 * steps}
+          and vec_launches == launches,
+          f"LRN launches {launches} (vector {vec_launches}) over {steps} "
+          "steps, expected 2 forward and 2 backward a step, all vector")
+    check(meta["sharding"] == "zero2" and meta["bucketed"],
+          f"comm_meta {meta}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(all(r["bad_step"] == 0.0 for r in recs), "a step was skipped")
+    check(last < first, f"loss did not fall on a fixed batch: mean of the "
+          f"first 5 steps {first}, of the last 5 {last}")
+    del trainer, state, data, model
     torch.cuda.empty_cache()
     return launches
 
@@ -2253,7 +2486,9 @@ def phase_ring_flash():
         torch.cuda.synchronize()
         return [out.detach(), *(x.grad for x in xs)]
 
-    # (a) a one-rank NCCL group: NCCL puts no two ranks on one card
+    # (a) the one-rank NCCL group phase train_zero2 started (NCCL puts no
+    # two ranks on one card); initialize_distributed leaves it as it is
+    check(dist.is_initialized(), "no process group is up")
     t0 = time.perf_counter()
     up = initialize_distributed(f"localhost:{_free_port()}", 1, 0,
                                 device="cuda")
@@ -2452,8 +2687,9 @@ def main() -> int:
     phase_model(tree)
     serve_launches = phase_serve(tree)
     phase_train_parity(tree)
+    train_launches, train_ref = phase_train()
+    zero2_launches = phase_train_zero2(tree, train_ref)
     del tree
-    train_launches = phase_train()
 
     flash_records = phase_flash_kernel(peaks)
     t0 = time.perf_counter()
@@ -2589,8 +2825,9 @@ def main() -> int:
     lrn_fwd_row = summary(
         "lrn_fwd", "distributed_vgg_f_tpu_torch/csrc/lrn_fwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records, "bucket", 32,
-        serve_launches + train_launches["fwd"],
-        {"serve": serve_launches, "train": train_launches["fwd"]},
+        serve_launches + train_launches["fwd"] + zero2_launches["fwd"],
+        {"serve": serve_launches, "train": train_launches["fwd"],
+         "train_zero2": zero2_launches["fwd"]},
         "both LRN sites of one bf16 forward at bucket 32, ReLU fused")
     at32 = lrn_times(lrn_sites(records, "bucket", 32), "relu_ms")
     lrn_fwd_row.update(
@@ -2600,8 +2837,9 @@ def main() -> int:
     lrn_bwd_row = summary(
         "lrn_bwd", "distributed_vgg_f_tpu_torch/csrc/lrn_bwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:74", bwd_records, "batch",
-        1024, train_launches["bwd"],
-        {"serve": 0, "train": train_launches["bwd"]},
+        1024, train_launches["bwd"] + zero2_launches["bwd"],
+        {"serve": 0, "train": train_launches["bwd"],
+         "train_zero2": zero2_launches["bwd"]},
         "both LRN sites of one bf16 training step at batch 1024, the ReLU's "
         "backward fused")
     at1024 = lrn_times(lrn_sites(bwd_records, "batch", 1024), "relu_bwd_ms")

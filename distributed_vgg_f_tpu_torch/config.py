@@ -4,8 +4,9 @@ slices.
 Own copies of the parts of the JAX package's `config.py` these slices
 read: `ModelConfig` (with its `extra` overrides), `OptimConfig`,
 `AugmentConfig`, the `DataConfig` fields serving and the training step
-use, `MeshConfig` and `TrainConfig` limited to the fields the
-single-device step and the core loop read, a `ServingConfig` limited to
+use, `MeshConfig` (the gradient exchange: ZeRO-1/2, buckets, the wire)
+and `TrainConfig` limited to the fields the step and the core loop read,
+a `ServingConfig` limited to
 the fields the port honours, `resolve_serving_buckets`, the derived
 `scaled_lr` / `steps_per_epoch` / `total_steps`, and the
 `vggf_imagenet_dp`, `vggf_teacher` and `vit_s16_imagenet` presets.
@@ -99,22 +100,67 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class ElasticConfig:
+    """Live elastic resize on preemption: not ported (ROADMAP A13); the
+    trainer refuses `enabled=True`."""
+    enabled: bool = False
+
+
+@dataclass(frozen=True)
 class MeshConfig:
-    """The one gradient-exchange field the single-device step reads: a
-    bfloat16 exchange wire is refused until the exchange is ported
-    (ROADMAP A7). The flagship's ZeRO-2 and 4 MB bucket settings return
-    with the exchange."""
+    """The gradient exchange over the data-parallel process group
+    (train/step.py, parallel/buckets.py, parallel/zero.py). One process
+    drives one card; the group's size is the shard count N, and with
+    N = 1 the trainer downgrades ZeRO to replicated SGD."""
+    # ZeRO-1: the optimizer state (momentum) held as 1/N flat shards
+    shard_opt_state: bool = False
+    # ZeRO-2: gradient state held only as 1/N flat shards as well — each
+    # bucket's reduce-scatter consumes its gradients as they land, and
+    # under grad accumulation the accumulator is the 1/N shard. Without
+    # shard_opt_state there is no shard to hold it, and it downgrades
+    shard_gradients: bool = False
+    # ZeRO-3 (params held as 1/N shards): not ported (ROADMAP A13); the
+    # trainer and the step refuse it
+    shard_params: bool = False
+    # bucketed exchange: buckets of ~this many MB in reverse-backward
+    # order, each issued as its gradients exist; 0 = one exchange per leaf
+    # (DP) or one flat reduce-scatter (ZeRO)
+    comm_bucket_mb: float = 0.0
+    # gradient wire dtype ("float32" | "bfloat16"): the cast happens after
+    # the local backward and before the cross-replica mean; momentum,
+    # params and the ZeRO param all-gather stay fp32
     reduce_dtype: str = "float32"
+    elastic: ElasticConfig = field(default_factory=ElasticConfig)
 
     def __post_init__(self):
         if self.reduce_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"mesh.reduce_dtype {self.reduce_dtype!r} not "
                              "one of ('float32', 'bfloat16')")
+        if self.comm_bucket_mb < 0:
+            raise ValueError(
+                f"mesh.comm_bucket_mb {self.comm_bucket_mb} < 0 (0 = "
+                "single-bucket kill-switch, >0 = bucket size target)")
+        if self.shard_params and not self.shard_gradients:
+            raise ValueError(
+                "mesh.shard_params (ZeRO-3) requires mesh.shard_gradients "
+                "(ZeRO-2) — the sharding ladder is cumulative")
+
+    @property
+    def sharding_label(self) -> str:
+        """The CONFIGURED (dp | zero1 | zero2 | zero3) basis, through the
+        derivation the step's `comm_meta` uses (parallel/buckets.py
+        sharding_basis). The step reports the EFFECTIVE basis, which a
+        one-process run downgrades to dp."""
+        from distributed_vgg_f_tpu_torch.parallel.buckets import \
+            sharding_basis
+        zero1 = self.shard_opt_state
+        zero2 = zero1 and self.shard_gradients
+        return sharding_basis(zero1, zero2, zero2 and self.shard_params)
 
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The fields the single-device train step and the core loop read."""
+    """The fields the train step and the core loop read."""
     epochs: float = 90.0               # training length (fractional allowed)
     steps: int = 0                     # if > 0 overrides epochs
     seed: int = 0                      # params, augmentation and dropout
@@ -125,7 +171,14 @@ class TrainConfig:
     # after max_nonfinite_steps consecutive skips.
     skip_nonfinite: bool = True
     max_nonfinite_steps: int = 10
-    grad_accum_steps: int = 1          # micro-batching: ROADMAP A6, must be 1
+    # micro-batching: each rank's batch is split into k micro-batches whose
+    # gradients accumulate before the one exchange of the step
+    grad_accum_steps: int = 1
+    # ZeRO-flavoured accumulation (needs mesh.shard_opt_state and
+    # grad_accum_steps > 1; the trainer checks): each micro-gradient is
+    # reduce-scattered at once and only the 1/N shard accumulates, at k
+    # scatter legs a step instead of one
+    grad_accum_shard: bool = False
     ema_decay: float = 0.0             # param EMA; 0 disables
 
     def __post_init__(self):
@@ -243,10 +296,11 @@ class ExperimentConfig:
 def _vggf_imagenet_dp() -> ExperimentConfig:
     """The flagship: VGG-F on ImageNet-1k at 224 px, bf16 compute with
     fp32 params, global batch 1024, step LR at 30/60/80 epochs, flips and
-    mixup on the device, the packed stem layout, served on the power-of-two
-    ladder up to 32. The JAX preset's ZeRO-2 with 4 MB buckets, ingest
-    autotuner and native-decoder wire have no counterpart in the port yet
-    (ROADMAP A7, A8, A14)."""
+    mixup on the device, the packed stem layout, ZeRO-2 with 4 MB buckets
+    (downgraded to replicated SGD on one process), served on the
+    power-of-two ladder up to 32. The JAX preset's ingest autotuner and
+    native-decoder wire have no counterpart in the port yet (ROADMAP A8,
+    A14)."""
     return ExperimentConfig(
         name="vggf_imagenet_dp",
         model=ModelConfig(name="vggf", num_classes=1000),
@@ -257,6 +311,8 @@ def _vggf_imagenet_dp() -> ExperimentConfig:
                         space_to_depth=True,
                         augment=AugmentConfig(enabled=True, hflip=True,
                                               mixup_alpha=0.2)),
+        mesh=MeshConfig(shard_opt_state=True, shard_gradients=True,
+                        comm_bucket_mb=4.0),
         train=TrainConfig(epochs=90.0),
         serving=ServingConfig())
 
@@ -284,9 +340,12 @@ def _vit_s16_imagenet() -> ExperimentConfig:
     weights: 0), SGD with momentum at 1e-3 per 1024 images on a cosine
     schedule after 5 warmup epochs, 300 epochs. The attention layout is
     the model's default, head_major, as in the JAX preset; the flash path
-    passes ``extra={"attention_layout": "flash"}``."""
+    passes ``extra={"attention_layout": "flash"}``. The mesh is the
+    flagship's (ZeRO-2, 4 MB buckets): the preset replaces its base, as
+    the JAX one does."""
     base = _vggf_imagenet_dp()
-    return ExperimentConfig(
+    return replace(
+        base,
         name="vit_s16_imagenet",
         model=ModelConfig(name="vit_s16", num_classes=1000,
                           dropout_rate=0.1),
@@ -294,8 +353,7 @@ def _vit_s16_imagenet() -> ExperimentConfig:
                           momentum=0.9, weight_decay=1e-4,
                           schedule="cosine", warmup_epochs=5.0),
         data=replace(base.data, space_to_depth=False),
-        train=TrainConfig(epochs=300.0),
-        serving=base.serving)
+        train=TrainConfig(epochs=300.0))
 
 
 PRESETS = {"vggf_imagenet_dp": _vggf_imagenet_dp,

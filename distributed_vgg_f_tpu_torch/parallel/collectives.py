@@ -1,15 +1,27 @@
-"""The collectives of the sequence-parallel path, over torch.distributed —
-the counterparts of `lax.ppermute` to the next device on the ring and of
-`lax.all_to_all(..., tiled=True)`. (The JAX module's pmean, buckets and
-ZeRO parts wait for ROADMAP A7.)
+"""Collectives over torch.distributed — the counterparts of the JAX
+package's parallel/collectives.py and of the ring's `lax.ppermute` and
+`lax.all_to_all(..., tiled=True)`.
 
-Without a process group every function runs as on one rank: the shift
-and the all-to-all return their input.
+The gradient exchange: `cast_to_wire` / `cast_from_wire` (the one place
+where every exchange leg narrows to mesh.reduce_dtype; the ZeRO param
+all-gather never calls it), `all_reduce_gradients` (the per-leaf mean),
+`cross_replica_mean` (the step's metrics, packed into one all-reduce),
+`replica_index`, and the sum legs `all_reduce_sum`, `reduce_scatter_sum`
+and `all_gather_flat` that parallel/buckets.py issues. A mean is the sum
+divided by the group size, as `lax.pmean` is: NCCL and gloo both sum,
+and gloo has no average.
+
+The sequence-parallel path: `ring_pass` / `ring_shift` and `all_to_all`.
+
+Without a process group every function runs as on one rank: the means,
+the shift and the all-to-all return their input, the sum legs leave
+their buffers as they are. `check_backend` holds a group to the device:
+NCCL for CUDA tensors, gloo for the CPU.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -23,6 +35,113 @@ def rank_and_size(group=None) -> Tuple[int, int]:
                              "distributed is not initialized")
         return 0, 1
     return dist.get_rank(group), dist.get_world_size(group)
+
+
+def _group_up() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def replica_index(group=None) -> int:
+    """This process's index in the data-parallel group (the reference's
+    `lax.axis_index`); 0 without a group."""
+    return rank_and_size(group)[0]
+
+
+def check_backend(group, device: torch.device) -> None:
+    """Refuse a group that cannot carry `device`'s tensors: a CUDA run
+    exchanges over NCCL and never drops to gloo, a CPU run over gloo."""
+    if not _group_up():
+        return
+    backend = str(dist.get_backend(group)).lower()
+    want = "nccl" if device.type == "cuda" else "gloo"
+    if backend != want:
+        raise RuntimeError(f"the process group runs {backend!r}; a "
+                           f"{device.type} run exchanges over {want!r}")
+
+
+def cast_to_wire(x: torch.Tensor,
+                 wire_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """THE gradient-wire cast (mesh.reduce_dtype): every exchange leg —
+    per-leaf and per-bucket all-reduce, flat and per-bucket
+    reduce-scatter — narrows here. None or the same dtype: `x` itself."""
+    if wire_dtype is None or x.dtype == wire_dtype:
+        return x
+    return x.to(wire_dtype)
+
+
+def cast_from_wire(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The way back from the wire to the optimizer's dtype."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
+def all_reduce_sum(x: torch.Tensor, group=None, async_op: bool = False):
+    """In-place sum over the group; the work handle with `async_op`
+    (None without a group: `x` is already the sum)."""
+    if not _group_up():
+        rank_and_size(group)
+        return None
+    return dist.all_reduce(x, group=group, async_op=async_op)
+
+
+def reduce_scatter_sum(out: torch.Tensor, x: torch.Tensor, group=None,
+                       async_op: bool = False):
+    """`out` (x.numel() / n,) gets this rank's piece of the sum of `x`:
+    rank r the elements [r * len(out), (r + 1) * len(out)) — the tiled
+    `lax.psum_scatter`. Without a group `out` takes `x`."""
+    if not _group_up():
+        rank_and_size(group)
+        out.copy_(x)
+        return None
+    return dist.reduce_scatter_tensor(out, x, group=group,
+                                      async_op=async_op)
+
+
+def all_gather_flat(out: torch.Tensor, x: torch.Tensor, group=None,
+                    async_op: bool = False):
+    """`out` (n * len(x),) gets every rank's `x` in rank order — the tiled
+    `lax.all_gather`. Without a group `out` takes `x`."""
+    if not _group_up():
+        rank_and_size(group)
+        out.copy_(x)
+        return None
+    return dist.all_gather_into_tensor(out, x, group=group,
+                                       async_op=async_op)
+
+
+def all_reduce_gradients(grads: Sequence[torch.Tensor], group=None,
+                         reduce_dtype: Optional[torch.dtype] = None
+                         ) -> None:
+    """Mean-all-reduce each gradient in place, one collective per leaf.
+    `reduce_dtype` (e.g. torch.bfloat16) narrows each leaf for the wire
+    only; the mean lands back in the leaf's own dtype."""
+    _, n = rank_and_size(group)
+    for g in grads:
+        wire = cast_to_wire(g, reduce_dtype)
+        all_reduce_sum(wire, group)
+        if wire is not g:
+            g.copy_(wire)
+        g.div_(n)
+
+
+Metrics = Union[torch.Tensor, Mapping[str, torch.Tensor]]
+
+
+def cross_replica_mean(x: Metrics, group=None) -> Metrics:
+    """Mean over the group of one tensor or of a dict of scalar tensors;
+    a dict rides one all-reduce, its values packed into one vector.
+    Without a group (or in a group of one) the input comes back."""
+    _, n = rank_and_size(group)
+    if n == 1:
+        return x
+    if isinstance(x, torch.Tensor):
+        out = x.detach().clone()
+        all_reduce_sum(out, group)
+        return out / n
+    keys = list(x)
+    packed = torch.stack([x[k].detach().float().reshape(()) for k in keys])
+    all_reduce_sum(packed, group)
+    packed = packed / n
+    return {k: packed[i] for i, k in enumerate(keys)}
 
 
 def _peer(group, rank: int) -> int:

@@ -88,7 +88,10 @@ def build_schedule(cfg: ExperimentConfig) -> Callable[[int], float]:
 def build_optimizer(cfg: ExperimentConfig,
                     params: Iterable[torch.nn.Parameter], *,
                     lr_scale: float = 1.0):
-    """(SGD with momentum over `params`, the schedule). `lr_scale`
+    """(SGD with momentum over `params`, the schedule). `params` may be
+    the model's parameters or, under ZeRO-1/2, the one (S,) flat
+    parameter shard of train/state.py `TrainState.create_sharded`: the
+    same SGD, elementwise, so the momentum is the shard. `lr_scale`
     multiplies the whole schedule (the linear-scaling rule for a changed
     global batch). The LR in the optimizer's param group is a placeholder
     until the train step sets it before each update."""

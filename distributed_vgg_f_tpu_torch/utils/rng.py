@@ -25,3 +25,17 @@ def fold_seed(*key: int) -> int:
 def generator(*key: int, device="cpu") -> torch.Generator:
     """A fresh generator on `device` seeded from `key`."""
     return torch.Generator(device=device).manual_seed(fold_seed(*key))
+
+
+#: Stream constant that folds a replica's rank into the step's seed.
+REPLICA_RNG_FOLD = 0x5EED
+
+
+def replica_seed(seed: int, rank: int) -> int:
+    """The seed replica `rank` keys its dropout and augment draws with —
+    the port's `fold_in(key, axis_index)`: the seed itself on rank 0, so
+    a one-process run draws what it always drew, and a seed folded from
+    (seed, rank) on every other rank. Every draw of a step then comes
+    from (seed, step, rank) and replays from it."""
+    return int(seed) if rank == 0 else fold_seed(seed, REPLICA_RNG_FOLD,
+                                                 rank)

@@ -19,13 +19,23 @@ order, as Flax does.
 `train/distill.py save_params` writes; `init_params` makes a seeded tree
 with the Flax initializers for runs without a weights file.
 `momentum_from_optax` maps optax's SGD momentum trace (a param-shaped
-tree) through the same maps, so a port run can continue a JAX run.
+tree) through the same maps, so a port run can continue a JAX run;
+`momentum_shard_from_optax` takes the trace of a JAX ZeRO state (the
+(T,) bucket-major flat vector, parallel/buckets.py) to one rank's (S,)
+shard, and `momentum_global_from_shards` joins the ranks' shards back.
+
+`flax_leaves` and `flax_view` give the Flax leaf order
+(`jax.tree.leaves`: sorted names, so ``conv1/bias`` before
+``conv1/kernel``) and, for each of the port's tensors, a view whose
+C-order elements are the Flax leaf's: the gradient exchange lays its flat
+vectors out on them (parallel/buckets.py, parallel/zero.py), so they
+equal the JAX package's element for element.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,15 +123,73 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def momentum_from_optax(opt_state) -> Dict[str, torch.Tensor]:
-    """optax.sgd's state (numpy leaves, Flax layout) -> the port's momentum
-    buffers keyed like its state_dict: the one element of the state
-    tuple that holds a momentum `trace`, through the params' maps."""
+def _optax_trace(opt_state):
+    """The momentum `trace` of optax.sgd's state tuple (its one element
+    that has one)."""
     traces = [s for s in opt_state if hasattr(s, "trace")]
     if len(traces) != 1:
         raise ValueError(f"expected one momentum trace in the optax state, "
                          f"found {len(traces)}")
-    return params_from_flax(traces[0].trace)
+    return traces[0].trace
+
+
+def momentum_from_optax(opt_state) -> Dict[str, torch.Tensor]:
+    """optax.sgd's state (numpy leaves, Flax layout) -> the port's momentum
+    buffers keyed like its state_dict, through the params' maps."""
+    return params_from_flax(_optax_trace(opt_state))
+
+
+def momentum_shard_from_optax(opt_state, rank: int,
+                              num_shards: int) -> torch.Tensor:
+    """The momentum of a JAX ZeRO-1/2 state -> rank `rank`'s (S,) fp32
+    shard: the trace is the (T,) flat vector (bucket-major under
+    buckets, the canonical ravel otherwise) and rank r holds row r of
+    its (num_shards, S) view."""
+    vec = np.asarray(_optax_trace(opt_state), np.float32)
+    if vec.ndim != 1 or vec.size % num_shards:
+        raise ValueError(f"a ZeRO momentum trace is one flat vector that "
+                         f"splits over {num_shards} ranks, got shape "
+                         f"{vec.shape}")
+    if not 0 <= rank < num_shards:
+        raise ValueError(f"rank {rank} outside [0, {num_shards})")
+    return torch.from_numpy(vec.reshape(num_shards, -1)[rank].copy())
+
+
+def momentum_global_from_shards(shards: Sequence[torch.Tensor]
+                                ) -> np.ndarray:
+    """The inverse: the ranks' (S,) shards, in rank order -> the (T,) flat
+    vector a JAX ZeRO state holds."""
+    return np.concatenate([s.detach().cpu().float().numpy()
+                           for s in shards])
+
+
+def flax_leaves(shapes: Mapping[str, Sequence[int]], *,
+                num_heads: Optional[int] = None
+                ) -> List[Tuple[str, str, Tuple[int, ...]]]:
+    """The port's parameter names and shapes -> (Flax name such as
+    ``conv1/kernel``, the port's name, the Flax shape) for every leaf, in
+    the JAX package's `jax.tree.leaves` order (sorted paths)."""
+    out = []
+    for key, shape in shapes.items():
+        path, arr = _leaf_to_flax(key, np.empty(tuple(shape), np.uint8),
+                                  num_heads)
+        out.append((path, key, tuple(arr.shape)))
+    out.sort(key=lambda leaf: leaf[0])
+    return [("/".join(path), key, shape) for path, key, shape in out]
+
+
+def flax_view(key: str, t: torch.Tensor) -> torch.Tensor:
+    """A view of the port's tensor `key` whose C-order elements are those
+    of its Flax leaf (the maps of `_leaf_to_flax`): conv weights OIHW ->
+    HWIO and 2-D weights (dense, ViT's qkv and out) transposed; every
+    other leaf is already in Flax order. Writing into the view writes the
+    tensor."""
+    layer, _, leaf = key.rpartition(".")
+    if layer and leaf == "weight" and t.dim() == 4:
+        return t.permute(2, 3, 1, 0)
+    if layer and leaf == "weight" and t.dim() == 2:
+        return t.t()
+    return t
 
 
 def params_to_flax(state_dict: Mapping[str, torch.Tensor], *,

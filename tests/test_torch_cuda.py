@@ -896,3 +896,123 @@ def test_sequence_parallel_across_four_cards(cuda_device, tmp_path):
                 torch.from_numpy(got[f"{c['name']}/{key}"]),
                 w.float().cpu(), rtol=tol, atol=tol,
                 msg=lambda m: f"{c['name']} {key}: {m}")
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).double().norm() / max(float(b.double().norm()),
+                                                1e-30))
+
+
+@pytest.mark.cuda
+def test_zero2_flagship_across_four_cards(cuda_device, tmp_path,
+                                          monkeypatch):
+    """The full-width flagship with the preset's own mesh (ZeRO-2 over
+    4 MB buckets) in a 4-rank NCCL group, one card a rank, started by
+    tests/_torch_dp_worker.py: fp32 with TF32 off, dropout and augment
+    off, global batch 1024 (256 a card), 3 steps, held against one card
+    at the same global batch: losses within 1e-4 relative, all the
+    parameters together and every leaf that does not start at zero within
+    1e-4 relative L2, every replica's parameters the same. The updates
+    (a zero-started bias is all update) are held to the one card's own
+    spread: random labels make the conv gradients nearly cancel over 1024
+    images, so the order cuDNN sums them in moves an update by 1–4e-2
+    relative L2 (measured: one card against itself accumulating 4
+    micro-batches of 256, each rank's rows), and the four cards' updates
+    must lie within twice that of the one-card step. Then the
+    Trainer on the flagship preset itself (bf16, dropout, flip, mixup;
+    ZeRO-2 since the group has 4 ranks) for 20 steps, printing step ms,
+    images/s, each card's peak memory and a profile of 3 more steps.
+    Needs 4 cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices, one a rank of the NCCL group")
+    import json
+
+    from _torch_dp_worker import (global_batch, initial_tree, make_config,
+                                  make_model, make_step_finish, run_group)
+
+    from distributed_vgg_f_tpu_torch.config import get_config
+    from distributed_vgg_f_tpu_torch.train.schedule import build_optimizer
+    from distributed_vgg_f_tpu_torch.train.state import TrainState
+    from distributed_vgg_f_tpu_torch.train.step import build_train_step
+    from distributed_vgg_f_tpu_torch.weights import params_from_flax
+    mesh = get_config("vggf_imagenet_dp").mesh
+    steps, world = 3, 4
+    spec = {"widths": {}, "size": 224, "classes": 1000, "batch": 1024,
+            "lr": 0.04, "weight_decay": 5e-4, "init_seed": 0, "u8_seed": 20,
+            "rank0_params": True,
+            "cases": [dict(name="zero2", zero1=mesh.shard_opt_state,
+                           zero2=mesh.shard_gradients,
+                           bucket_mb=mesh.comm_bucket_mb, steps=steps),
+                      dict(name="trainer", trainer="vggf_imagenet_dp",
+                           steps=20)]}
+    outs = run_group(world, spec, {}, str(tmp_path), timeout=1200,
+                     device="cuda")
+    # one card, the replicated step, the same global batch
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    tree = initial_tree(spec, None)
+    one = {}
+    for accum in (world, 1):
+        model = make_model(spec, tree).to(cuda_device)
+        state = TrainState.create(model, build_optimizer(
+            make_config(spec), model.parameters())[0])
+        step = build_train_step(lambda s: spec["lr"], spec["weight_decay"],
+                                device_finish=make_step_finish(spec),
+                                grad_accum_steps=accum, device="cuda")
+        losses = []
+        for i in range(steps):
+            image, label = global_batch(spec, None, i)
+            state, m = step(state, {"image": image, "label": label}, 0)
+            losses.append(float(m["loss"]))
+        one[accum] = (np.array(losses), {k: v.detach().cpu() for k, v in
+                                         model.state_dict().items()})
+        del model, state, step
+    init = params_from_flax(tree)
+    r0 = outs[0]
+    group = {k: torch.from_numpy(r0[f"zero2/params/{k}"]) for k in init}
+
+    def errs(got_loss, got, want_loss, want):
+        return (float(np.abs(got_loss / want_loss - 1).max()),
+                {k: _rel_l2(got[k], want[k]) for k in init},
+                {k: _rel_l2(got[k] - init[k], want[k] - init[k])
+                 for k in init})
+
+    vs_accum = errs(r0["zero2/loss"], group, *one[world])
+    vs_plain = errs(r0["zero2/loss"], group, *one[1])
+    accum_vs_plain = errs(one[world][0], one[world][1], *one[1])
+    meta = json.loads(str(r0["zero2/comm_meta"]))
+    sums = [float(o["zero2/param_sum"]) for o in outs]
+    trainer = {
+        "device": str(r0["trainer/device"]),
+        "step_ms_median": [float(np.median(o["trainer/step_ms"][4:]))
+                           for o in outs],
+        "peak_memory_bytes": [int(o["trainer/peak_memory_bytes"])
+                              for o in outs],
+        "images_per_s_meter": float(r0["trainer/images_per_sec"]),
+        "comm_meta": json.loads(str(r0["trainer/comm_meta"])),
+        "profile": [json.loads(str(o["trainer/profile"])) for o in outs]}
+    trainer["images_per_s"] = 1024 / (max(trainer["step_ms_median"]) / 1e3)
+    print(json.dumps({"four_cards": {
+        "losses_group": r0["zero2/loss"].tolist(),
+        "losses_one_card_accum4": one[world][0].tolist(),
+        "losses_one_card": one[1][0].tolist(),
+        "vs_one_card_accum4": vs_accum, "vs_one_card": vs_plain,
+        "one_card_accum4_vs_one_card": accum_vs_plain,
+        "trainer": trainer}}), flush=True)
+    assert meta["sharding"] == "zero2" and meta["buckets"] > 2
+    assert vs_plain[0] <= 1e-4 and vs_accum[0] <= 1e-4
+    flat = lambda sd: torch.cat([sd[k].flatten() for k in init])  # noqa
+    assert _rel_l2(flat(group), flat(one[1][1])) <= 1e-4
+    for k in init:
+        if bool(init[k].abs().max() > 0):
+            assert vs_plain[1][k] <= 1e-4, k
+        assert vs_plain[2][k] <= 2 * accum_vs_plain[2][k] + 1e-4, k
+    assert sums == [sums[0]] * world
+    for o in outs:
+        assert bool(o["trainer/sharded"]) and int(o["trainer/local_batch"]) \
+            == 1024 // world
+        assert np.isfinite(o["trainer/loss"]).all()
+        assert not o["trainer/bad_step"].any()
+        assert o["trainer/lrn_launches"].tolist() == [40, 40]
+    assert trainer["comm_meta"]["sharding"] == "zero2"
+

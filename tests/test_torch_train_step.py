@@ -330,12 +330,52 @@ def test_eval_step_counts_and_valid_mask():
     assert int(ema["top1"]) == want1
 
 
-@pytest.mark.parametrize("kw,match", [
-    ({"grad_accum_steps": 2}, "ROADMAP A6"),
-    ({"reduce_dtype": "bfloat16"}, "ROADMAP A7")])
-def test_unported_options_are_refused(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("kw,error,match", [
+    ({"zero1": True, "shard_gradients": True, "shard_params": True},
+     NotImplementedError, "ROADMAP A13"),
+    ({"grad_accum_steps": 2, "grad_accum_shard": True}, ValueError,
+     "grad_accum_shard requires zero1"),
+    ({"zero1": True, "grad_accum_shard": True}, ValueError,
+     "grad_accum_steps > 1")])
+def test_unported_options_are_refused(kw, error, match):
+    """ZeRO-3 is not ported; a sharded accumulator needs ZeRO and k > 1."""
+    with pytest.raises(error, match=match):
         build_train_step(lambda s: 0.1, 0.0, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("bucket_mb", [0.0, 0.004])
+def test_zero2_step_on_one_process_is_the_replicated_step(bucket_mb):
+    """ZeRO-2 with no process group (a group of one): the flat shard is
+    the whole (T,) vector, and 3 steps give the replicated step's losses,
+    parameters and momentum; load_momentum and momentum() round-trip
+    through the flat layout."""
+    from distributed_vgg_f_tpu_torch.parallel.zero import zero_layout
+    runs = []
+    for zero in (False, True):
+        state, cfg, schedule = _fresh(seed=2, dropout=0.0)
+        if zero:
+            layout = zero_layout(state.model, 1, bucket_mb)
+            state = TrainState.create_sharded(
+                state.model, lambda ps: build_optimizer(cfg, ps)[0], layout)
+        step = build_train_step(schedule, cfg.optim.weight_decay,
+                                zero1=zero, shard_gradients=zero,
+                                comm_bucket_mb=bucket_mb, device="cpu")
+        losses = [float(step(state, b, 0)[1]["loss"])
+                  for b in _batches(3, seed=4)]
+        runs.append((losses, state))
+    (want, rep), (got, z2) = runs
+    assert got == want
+    for k, v in rep.model.state_dict().items():
+        assert torch.equal(z2.model.state_dict()[k], v), k
+    momentum = rep.momentum()
+    for k, v in z2.momentum().items():
+        assert torch.equal(v, momentum[k]), k
+    assert z2.momentum_global().shape == (layout.total_padded,)
+    z2.load_momentum({k: v * 2 for k, v in momentum.items()})
+    for k, v in z2.momentum().items():
+        assert torch.equal(v, momentum[k] * 2), k
+    assert z2.param_shard.grad is None
+    assert all(p.grad is None for p in z2.model.parameters())
 
 
 def test_train_step_refuses_without_cuda(monkeypatch):

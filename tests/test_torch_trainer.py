@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from distributed_vgg_f_tpu_torch.config import get_config
+from distributed_vgg_f_tpu_torch.config import ElasticConfig, get_config
 from distributed_vgg_f_tpu_torch.data.synthetic import SyntheticU8
 from distributed_vgg_f_tpu_torch.resilience.guard import NonFiniteStepError
 from distributed_vgg_f_tpu_torch.train.trainer import Trainer
@@ -89,14 +89,21 @@ def test_nonfinite_batches_are_counted_then_abort_the_run():
         tr.fit(tr.init_state(), [bad] * 6, num_steps=6)
 
 
-@pytest.mark.parametrize("section,field,value,match", [
-    ("train", "grad_accum_steps", 2, "ROADMAP A6"),
-    ("mesh", "reduce_dtype", "bfloat16", "ROADMAP A7")])
-def test_unported_options_are_refused(section, field, value, match):
-    cfg = _small()
+@pytest.mark.parametrize("preset,section,field,value,error,match", [
+    ("vggf_imagenet_dp", "mesh", "shard_params", True, NotImplementedError,
+     "ROADMAP A13"),
+    ("vggf_teacher", "mesh", "elastic", ElasticConfig(enabled=True),
+     NotImplementedError, "ROADMAP A13"),
+    ("vggf_imagenet_dp", "train", "grad_accum_shard", True, ValueError,
+     "grad_accum_steps > 1")])
+def test_unported_options_are_refused(preset, section, field, value, error,
+                                      match):
+    """ZeRO-3 and elastic resize are not ported; a sharded accumulator
+    needs ZeRO and k > 1."""
+    cfg = _small(preset)
     cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
         getattr(cfg, section), **{field: value})})
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
 
 
