@@ -72,6 +72,27 @@ Phases, one JSON line each:
             `comm_meta`, and a torch.profiler breakdown of 3 more steps
             with the device µs of the NCCL kernels and of the copy
             kernels (phase train's copy µs beside them)
+  train_feed the flagship's host-to-card feed: the 16 fixture JPEGs
+            (tests/data/jpeg_fixture, 500x375) packed by
+            tools/tfrecord_write.py into 4 TFRecord shards of 1024
+            records in a temp dir, then Trainer.fit(state, num_steps=20)
+            with data.data_dir there and no dataset passed: the native
+            index, the native decode on the u8 wire into the pinned ring,
+            the H2D copy on the prefetcher's side stream, the device
+            finish, augment and step; step ms and images/s beside phase
+            train's, host_wait_fraction, prefetch/wait_ns a step, 40 + 40
+            LRN launches (all vector), finite losses, zero decode errors;
+            the decoder alone (8 batches into a pinned buffer, images/s,
+            os.cpu_count() and its thread count) and the libjpeg it
+            linked; 4 batches pulled through the prefetcher (its side
+            stream stalled 2 s first, the consumer's slowed after each)
+            byte-equal to a CPU-only decode of the same cursors; a
+            torch.profiler breakdown of 3 steps through a live feed with
+            the pinned H2D copy µs a step and the share of it that
+            overlaps kernels; and the same feed with data.name="synthetic" (phase train's
+            seeded batch through the prefetcher's pinned ring and side
+            stream, where the host keeps up): step ms and the copy's
+            overlap share
   flash_kernel the flash attention forward, dQ and dK/dV kernels against
             their plain versions on the card, at ViT-S/16's shapes
             (T = 197, 6 heads of 64) at batch 32 and 1024, at a ragged
@@ -158,6 +179,7 @@ before doing anything.
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1215,6 +1237,270 @@ def phase_train_zero2(tree, train_ref):
     del trainer, state, data, model
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------ the feed
+#: the fixture JPEGs phase train_feed packs into TFRecords
+_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "jpeg_fixture")
+
+
+def _pack_fixture(out_dir, shards=4, per_shard=1024):
+    """The fixture's JPEGs repeated into `shards` TFRecord shards of
+    `per_shard` records (1-based labels, one per image)."""
+    from tools.tfrecord_write import write_shards
+    paths = sorted(f for f in os.listdir(_FIXTURE) if f.endswith(".jpg"))
+    check(len(paths) == 16, f"fixture holds {len(paths)} JPEGs")
+    jpegs = []
+    for f in paths:
+        with open(os.path.join(_FIXTURE, f), "rb") as fh:
+            jpegs.append(fh.read())
+    labels = [1 + (61 * k) % 1000 for k in range(len(jpegs))]
+    return write_shards(out_dir, jpegs, labels, shards=shards,
+                        per_shard=per_shard)
+
+
+def _h2d_overlap(prof, count):
+    """From a torch.profiler run over `count` steps: the device µs a step
+    of the pinned host-to-device copies (the feed's; the step's own small
+    uploads are pageable), and the share of that copy time during which a
+    kernel ran on the card."""
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [(e.time_range.start, e.time_range.end) for e in device
+              if "HtoD" in e.name and "Pinned" in e.name]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in device
+                     if "Memcpy" not in e.name and "Memset" not in e.name)
+    merged = []
+    for s0, e0 in kernels:
+        if merged and s0 <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e0)
+        else:
+            merged.append([s0, e0])
+    copy_us = sum(e0 - s0 for s0, e0 in copies)
+    overlap_us = sum(max(0, min(e0, e1) - max(s0, s1))
+                     for s0, e0 in copies for s1, e1 in merged)
+    return {"h2d_copies": len(copies), "h2d_us_per_step": copy_us / count,
+            "h2d_overlap_share": overlap_us / copy_us if copy_us else None}
+
+
+def phase_train_feed(train_ref):
+    """The flagship's host-to-card training feed: the fixture packed into
+    4 TFRecord shards of 1024 records, then Trainer.fit(state,
+    num_steps=20) with data.data_dir there — the native index and
+    decode on the u8 wire, the pinned ring, the H2D copy on the
+    prefetcher's side stream — timed beside phase train (`train_ref`);
+    the decoder alone; 4 prefetched batches against a CPU decode of the
+    same cursors; a profile of 3 steps through a live feed. Returns the
+    LRN launches of the fit."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from distributed_vgg_f_tpu_torch.config import get_config
+    from distributed_vgg_f_tpu_torch.data import native_jpeg, native_tfrecord
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.telemetry import get_registry
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config("vggf_imagenet_dp")
+    steps = 20
+    tmp = tempfile.mkdtemp(prefix="train_feed_")
+    try:
+        t0 = time.perf_counter()
+        files = _pack_fixture(tmp)
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native_tfrecord.load_native_tfrecord()
+        native_jpeg.load_native_jpeg()
+        native_build_s = time.perf_counter() - t0
+        with open("/proc/self/maps") as maps:
+            libjpeg = sorted({os.path.basename(line.split()[-1])
+                              for line in maps if "libjpeg" in line})
+        cfg = dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, data_dir=tmp),
+            train=dataclasses.replace(cfg.train, log_every=1, seed=0))
+        b = cfg.data.global_batch_size
+        stamps = []
+        trainer = Trainer(cfg, log=lambda event, rec: stamps.append(
+            time.perf_counter()) if event == "train" else None)
+        state = trainer.init_state(0)
+
+        # the decoder alone: 8 batches drained into a pinned buffer, at
+        # the config's thread count (0: min(8, CPUs))
+        images = torch.empty((b, cfg.data.image_size, cfg.data.image_size,
+                              3), dtype=torch.uint8, pin_memory=True)
+        labels = torch.empty((b,), dtype=torch.int32, pin_memory=True)
+        src = trainer.make_dataset("train")
+        src.next_into(images, labels)  # starts the decode threads
+        t0 = time.perf_counter()
+        for _ in range(8):
+            src.next_into(images, labels)
+        decode_rate = 8 * b / (time.perf_counter() - t0)
+        threads = src.num_threads()
+        src.close()
+        del images, labels
+
+        reg = get_registry()
+        wait0 = reg.counter_value("prefetch/wait_ns", 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+        lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        state = trainer.fit(state, num_steps=steps)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {"fwd": lrn_cuda.LAUNCHES, "bwd": lrn_cuda.BWD_LAUNCHES}
+        vec_launches = {"fwd": lrn_cuda.VEC_LAUNCHES,
+                        "bwd": lrn_cuda.VEC_BWD_LAUNCHES}
+        wait_ns = reg.counter_value("prefetch/wait_ns", 0) - wait0
+        decode_errors = trainer.ingest.decode_errors()
+        peak = torch.cuda.max_memory_allocated()
+        recs = [r for r in trainer.records if r["event"] == "train"]
+        losses = [r["loss"] for r in recs]
+        stamps.insert(0, t0)
+        step_ms = [(t1 - t0_) * 1e3 for t0_, t1 in zip(stamps, stamps[1:])]
+        median_ms = statistics.median(step_ms[4:])
+
+        # 4 batches through the prefetcher at cursors 20..23, its side
+        # stream stalled 2 s before its first copy and the consumer's
+        # stream slowed after each batch, against a CPU-only decode of
+        # the same cursors: a slot reused before its copy, or device
+        # memory handed back before the step read it, shows here
+        start = state.step
+        ingest, feed = trainer.open_feed(start)
+        with torch.cuda.stream(feed.stream):
+            torch.cuda._sleep(int(2.0 * _SLEEP_HZ))
+        got = []
+        for _ in range(4):
+            batch = next(feed)
+            torch.cuda._sleep(int(0.1 * _SLEEP_HZ))
+            got.append({k: v.clone() for k, v in batch.items()})
+            del batch
+        torch.cuda.synchronize()
+        feed.close()
+        ingest.close()
+        ref_src = trainer.make_dataset("train")
+        check(ref_src.restore_state(start), "the CPU decode did not seek")
+        want = [next(ref_src) for _ in range(4)]
+        ref_src.close()
+        byte_equal = [
+            bool(torch.equal(g["image"].cpu(), torch.from_numpy(w["image"]))
+                 and torch.equal(g["label"].cpu(),
+                                 torch.from_numpy(w["label"])))
+            for g, w in zip(got, want)]
+        del got, want
+
+        # where a step's time goes through a live feed: 3 steps after 3
+        ingest, feed = trainer.open_feed(state.step)
+        for _ in range(3):
+            state, _ = trainer.train_step(state, next(feed), cfg.train.seed)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                state, _ = trainer.train_step(state, next(feed),
+                                              cfg.train.seed)
+            torch.cuda.synchronize()
+        feed.close()
+        ingest.close()
+        t = _trace_breakdown(prof, 3, top=15)
+        h2d = _h2d_overlap(prof, 3)
+        del trainer, state
+        gc.collect()
+        synthetic = _feed_synthetic(cfg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("train_feed", config=cfg.name, image_size=cfg.data.image_size,
+         batch=b, source={"jpegs": 16, "shards": len(files),
+                          "records_per_shard": 1024, "pixels": "500x375",
+                          "quality": 90},
+         pack_s=pack_s, native_build_s=native_build_s, libjpeg=libjpeg,
+         cpu_count=os.cpu_count(), native_threads=threads,
+         decode_only_images_per_s=decode_rate, decode_only_batches=8,
+         steps=steps, wall_s=wall_s, first_step_ms=step_ms[0],
+         step_ms_median=median_ms, step_ms=step_ms,
+         images_per_s=b / (median_ms / 1e3),
+         train_step_ms_median=train_ref["step_ms_median"],
+         train_images_per_s=b / (train_ref["step_ms_median"] / 1e3),
+         vs_train=median_ms / train_ref["step_ms_median"] - 1.0,
+         host_wait_fraction=recs[-1]["host_wait_fraction"],
+         prefetch_wait_ns_per_step=wait_ns / steps,
+         prefetch_to_device=cfg.train.prefetch_to_device,
+         decode_errors=decode_errors, peak_memory_bytes=peak,
+         losses=losses, lrn_launches=launches,
+         lrn_vec_launches=vec_launches, byte_equal_cursors=list(
+             range(start, start + 4)), byte_equal=byte_equal,
+         profile={"steps": 3, "window_us_per_step": t["window_us"],
+                  "device_busy_us_per_step": t["busy_us"],
+                  "device_idle_share": t["idle_share"],
+                  "copy_us_per_step": t["copy_us"], **h2d,
+                  "top_device_us_per_step": t["top_us"]},
+         synthetic_source=synthetic)
+    check(len(recs) == steps, f"{len(recs)} records over {steps} steps")
+    check(launches == {"fwd": 2 * steps, "bwd": 2 * steps}
+          and vec_launches == launches,
+          f"LRN launches {launches} (vector {vec_launches}) over {steps} "
+          "steps, expected 2 forward and 2 backward a step, all vector")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(decode_errors == 0, f"{decode_errors} decode errors")
+    check(all(byte_equal), f"prefetched batches against the CPU decode of "
+          f"the same cursors: {byte_equal}")
+    check(all(math.isfinite(v) for v in synthetic["losses"]),
+          f"synthetic-source losses {synthetic['losses']}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _feed_synthetic(cfg, steps=20):
+    """The same trainer-owned feed with `data.name="synthetic"`: phase
+    train's seeded batch drawn through the prefetcher (copied into its
+    pinned ring, then H2D on its side stream), where the host keeps up —
+    whether the side stream hides the copy under the step. Step ms over
+    `steps` steps and a profile of 3 through a live feed."""
+    import dataclasses
+
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, name="synthetic"))
+    stamps = []
+    trainer = Trainer(cfg, log=lambda event, rec: stamps.append(
+        time.perf_counter()) if event == "train" else None)
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, num_steps=steps)
+    torch.cuda.synchronize()
+    recs = [r for r in trainer.records if r["event"] == "train"]
+    stamps.insert(0, t0)
+    step_ms = [(t1 - t0_) * 1e3 for t0_, t1 in zip(stamps, stamps[1:])]
+    ingest, feed = trainer.open_feed(state.step)
+    for _ in range(3):
+        state, _ = trainer.train_step(state, next(feed), cfg.train.seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            state, _ = trainer.train_step(state, next(feed), cfg.train.seed)
+        torch.cuda.synchronize()
+    feed.close()
+    ingest.close()
+    t = _trace_breakdown(prof, 3, top=5)
+    out = {"steps": steps, "step_ms_median": statistics.median(step_ms[4:]),
+           "step_ms": step_ms,
+           "images_per_s": cfg.data.global_batch_size
+           / (statistics.median(step_ms[4:]) / 1e3),
+           "host_wait_fraction": recs[-1]["host_wait_fraction"],
+           "losses": [r["loss"] for r in recs],
+           "profile": {"window_us_per_step": t["window_us"],
+                       "device_busy_us_per_step": t["busy_us"],
+                       "device_idle_share": t["idle_share"],
+                       **_h2d_overlap(prof, 3)}}
+    del trainer, state
+    gc.collect()
+    return out
 
 
 # ------------------------------------------------------------- ViT phases
@@ -2689,6 +2975,7 @@ def main() -> int:
     phase_train_parity(tree)
     train_launches, train_ref = phase_train()
     zero2_launches = phase_train_zero2(tree, train_ref)
+    feed_launches = phase_train_feed(train_ref)
     del tree
 
     flash_records = phase_flash_kernel(peaks)
@@ -2825,9 +3112,11 @@ def main() -> int:
     lrn_fwd_row = summary(
         "lrn_fwd", "distributed_vgg_f_tpu_torch/csrc/lrn_fwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records, "bucket", 32,
-        serve_launches + train_launches["fwd"] + zero2_launches["fwd"],
+        serve_launches + train_launches["fwd"] + zero2_launches["fwd"]
+        + feed_launches["fwd"],
         {"serve": serve_launches, "train": train_launches["fwd"],
-         "train_zero2": zero2_launches["fwd"]},
+         "train_zero2": zero2_launches["fwd"],
+         "train_feed": feed_launches["fwd"]},
         "both LRN sites of one bf16 forward at bucket 32, ReLU fused")
     at32 = lrn_times(lrn_sites(records, "bucket", 32), "relu_ms")
     lrn_fwd_row.update(
@@ -2837,9 +3126,11 @@ def main() -> int:
     lrn_bwd_row = summary(
         "lrn_bwd", "distributed_vgg_f_tpu_torch/csrc/lrn_bwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:74", bwd_records, "batch",
-        1024, train_launches["bwd"] + zero2_launches["bwd"],
+        1024, train_launches["bwd"] + zero2_launches["bwd"]
+        + feed_launches["bwd"],
         {"serve": 0, "train": train_launches["bwd"],
-         "train_zero2": zero2_launches["bwd"]},
+         "train_zero2": zero2_launches["bwd"],
+         "train_feed": feed_launches["bwd"]},
         "both LRN sites of one bf16 training step at batch 1024, the ReLU's "
         "backward fused")
     at1024 = lrn_times(lrn_sites(bwd_records, "batch", 1024), "relu_bwd_ms")

@@ -8,9 +8,13 @@ test_torch_isolation.py pins that in a subprocess).
 It serves VGG-F: u8 payloads over HTTP (serving/server.py) through the
 dynamic batcher (serving/batcher.py) into a bucketed engine
 (serving/engine.py) that runs the device finish, the model and an fp32
-softmax (train/predict.py). It trains VGG-F on one device: the core loop
-(train/trainer.py) feeds seeded u8 batches (data/synthetic.py) to the
-train step (train/step.py): finish, flip and mixup (data/augment.py), the
+softmax (train/predict.py). It trains VGG-F: the core loop
+(train/trainer.py) feeds the train step (train/step.py) from the
+flagship's ImageNet TFRecords through the native decoder (data/
+native_tfrecord.py, data/native_jpeg.py, built by data/native_build.py)
+into pinned host buffers, copied to the card on a side stream
+(data/prefetch.py), or from seeded u8 batches (data/synthetic.py); the
+step runs finish, flip and mixup (data/augment.py), the
 forward with dropout, CE plus coupled L2 (ops/losses.py), the backward,
 clipping, SGD with momentum on the schedule (train/schedule.py), the EMA
 and the non-finite skip (resilience/guard.py). Both LRN sites of the

@@ -3,10 +3,10 @@ slices.
 
 Own copies of the parts of the JAX package's `config.py` these slices
 read: `ModelConfig` (with its `extra` overrides), `OptimConfig`,
-`AugmentConfig`, the `DataConfig` fields serving and the training step
-use, `MeshConfig` (the gradient exchange: ZeRO-1/2, buckets, the wire)
-and `TrainConfig` limited to the fields the step and the core loop read,
-a `ServingConfig` limited to
+`AugmentConfig`, the `DataConfig` fields serving, the training step and
+the trainer's feed use, `MeshConfig` (the gradient exchange: ZeRO-1/2,
+buckets, the wire) and `TrainConfig` limited to the fields the step, the
+core loop and its feed read, a `ServingConfig` limited to
 the fields the port honours, `resolve_serving_buckets`, the derived
 `scaled_lr` / `steps_per_epoch` / `total_steps`, and the
 `vggf_imagenet_dp`, `vggf_teacher` and `vit_s16_imagenet` presets.
@@ -78,13 +78,27 @@ class AugmentConfig:
             raise ValueError(
                 f"data.augment.rand_ops must be >= 0, got {self.rand_ops}")
 
+    @property
+    def owns_hflip(self) -> bool:
+        """True when the device owns the horizontal flip: the predicate
+        the host decoder reads before it flips."""
+        return self.enabled and self.hflip
+
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The data fields serving and the training step read: the payload
-    size, the batch and epoch geometry the schedule derives from, the
-    device finish's normalize constants and output dtype, the packed stem
-    layout and the on-device augmentation."""
+    """The data fields serving, the training step and the trainer's feed
+    read: the source (`build_dataset`: "synthetic" seeded u8 batches or
+    "imagenet" TFRecords through the native decoder), the payload size,
+    the batch and epoch geometry the schedule derives from, the device
+    finish's normalize constants and output dtype, the packed stem layout
+    and the on-device augmentation."""
+    # the train stream's source (data.build_dataset): "synthetic" |
+    # "imagenet"; another name (the JAX presets' "teacher") raises there
+    name: str = "synthetic"
+    data_dir: str = ""       # imagenet: the directory of train-*/validation-*
+    # native decode threads a loader; 0 = min(8, the host's CPUs)
+    native_threads: int = 0
     image_size: int = 224    # square input resolution (the u8 payload side)
     global_batch_size: int = 256          # the optimizer's batch
     num_train_examples: int = 1_281_167   # ImageNet-1k default
@@ -97,6 +111,11 @@ class DataConfig:
     # after the augmentation (finish -> augment -> space-to-depth)
     space_to_depth: bool = False
     augment: AugmentConfig = field(default_factory=AugmentConfig)
+
+    def __post_init__(self):
+        if self.native_threads < 0:
+            raise ValueError(f"data.native_threads must be >= 0, got "
+                             f"{self.native_threads}")
 
 
 @dataclass(frozen=True)
@@ -180,6 +199,15 @@ class TrainConfig:
     # scatter legs a step instead of one
     grad_accum_shard: bool = False
     ema_decay: float = 0.0             # param EMA; 0 disables
+    # The trainer-owned feed (fit without a dataset): device batches kept
+    # ahead of the step by the prefetch thread (data/prefetch.py).
+    prefetch_to_device: int = 2
+    # Data watchdog of the prefetch thread: each batch waits at most
+    # data_timeout_s, retried data_timeout_retries times with the wait
+    # doubling, then DataStallError; 0 disables the timeout (a dead worker
+    # is detected regardless).
+    data_timeout_s: float = 0.0
+    data_timeout_retries: int = 2
 
     def __post_init__(self):
         if self.grad_accum_steps < 1:
@@ -191,6 +219,13 @@ class TrainConfig:
         if self.max_nonfinite_steps < 1:
             raise ValueError(f"train.max_nonfinite_steps must be >= 1, got "
                              f"{self.max_nonfinite_steps}")
+        if self.prefetch_to_device < 1:
+            raise ValueError(f"train.prefetch_to_device must be >= 1, got "
+                             f"{self.prefetch_to_device}")
+        if self.data_timeout_s < 0 or self.data_timeout_retries < 0:
+            raise ValueError(
+                "train.data_timeout_s and data_timeout_retries must be >= 0, "
+                f"got {self.data_timeout_s}/{self.data_timeout_retries}")
 
 
 def resolve_serving_buckets(buckets: Sequence[int],
@@ -298,16 +333,18 @@ def _vggf_imagenet_dp() -> ExperimentConfig:
     fp32 params, global batch 1024, step LR at 30/60/80 epochs, flips and
     mixup on the device, the packed stem layout, ZeRO-2 with 4 MB buckets
     (downgraded to replicated SGD on one process), served on the
-    power-of-two ladder up to 32. The JAX preset's ingest autotuner and
-    native-decoder wire have no counterpart in the port yet (ROADMAP A8,
-    A14)."""
+    power-of-two ladder up to 32. Its train stream is ImageNet's TFRecords
+    under `data.data_dir` through the native decoder on the u8 wire. The
+    JAX preset's ingest autotuner has no counterpart in the port yet
+    (ROADMAP A14)."""
     return ExperimentConfig(
         name="vggf_imagenet_dp",
         model=ModelConfig(name="vggf", num_classes=1000),
         optim=OptimConfig(base_lr=0.01, reference_batch_size=256,
                           weight_decay=5e-4,
                           decay_epochs=(30.0, 60.0, 80.0)),
-        data=DataConfig(image_size=224, global_batch_size=1024,
+        data=DataConfig(name="imagenet", image_size=224,
+                        global_batch_size=1024,
                         space_to_depth=True,
                         augment=AugmentConfig(enabled=True, hflip=True,
                                               mixup_alpha=0.2)),
@@ -320,8 +357,9 @@ def _vggf_imagenet_dp() -> ExperimentConfig:
 def _vggf_teacher() -> ExperimentConfig:
     """The JAX package's offline generalization preset, at 32 px and 10
     classes: fp32 compute, dropout 0.2, warmup, clipping. The port's CPU
-    trajectory tests train it (on seeded batches; the teacher-label data
-    set itself is not ported)."""
+    trajectory tests train it on seeded batches they pass to `fit`: the
+    teacher-label data set itself is not ported, so `fit` without a
+    dataset raises."""
     return ExperimentConfig(
         name="vggf_teacher",
         model=ModelConfig(name="vggf", num_classes=10,
@@ -329,8 +367,8 @@ def _vggf_teacher() -> ExperimentConfig:
         optim=OptimConfig(base_lr=0.02, reference_batch_size=64,
                           weight_decay=5e-5, warmup_epochs=1.0,
                           grad_clip_norm=1.0, decay_epochs=(24.0, 30.0)),
-        data=DataConfig(image_size=32, global_batch_size=64,
-                        num_train_examples=4096),
+        data=DataConfig(name="teacher", image_size=32,
+                        global_batch_size=64, num_train_examples=4096),
         train=TrainConfig(epochs=32.0, log_every=64))
 
 

@@ -1,5 +1,5 @@
-"""Seeded u8 batches — the port's training input until the native decoder
-feed is ported (ROADMAP A8).
+"""Seeded u8 batches: the `"synthetic"` source of `build_dataset`, and a
+fixed batch for timing the train step without the host feed.
 
 The batch is drawn once, in bulk, with numpy from the seed (uniform pixels
 0..255, uniform labels), then repeated: making data counts as set-up, not
@@ -19,6 +19,8 @@ class SyntheticU8:
     """An endless iterator over one seeded batch of
     ``{"image": (B, S, S, 3) uint8, "label": (B,) int64}`` tensors."""
 
+    image_dtype = "uint8"
+
     def __init__(self, batch_size: int, image_size: int, num_classes: int,
                  seed: int = 0, *, pin: bool = False):
         rng = np.random.default_rng(seed)
@@ -31,5 +33,7 @@ class SyntheticU8:
         self.batch = {"image": images, "label": labels}
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
-        while True:
-            yield self.batch
+        return self
+
+    def __next__(self) -> Dict[str, torch.Tensor]:
+        return self.batch

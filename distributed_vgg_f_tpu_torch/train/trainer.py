@@ -18,8 +18,19 @@ flat shard under ZeRO) and the optional EMA — each state owns its model;
 steps from `state.step` to `num_steps`, feeding the NonFiniteGuard and the
 throughput meter, and writes one train record at every `log_every`
 window and at the last step, with the reference's keys: `step`, the step
-metrics, the meter's rates, `host_wait_fraction`, and `nonfinite_skips`
-once there are any. `evaluate` scores `num_batches` eval batches.
+metrics, the meter's rates, `host_wait_fraction`, `nonfinite_skips`
+once there are any and `data_decode_errors` once the decoder has
+counted any. `evaluate` scores `num_batches` eval batches.
+
+The feed (JAX `trainer.py:880–985`, in its order): `fit(state)` with no
+dataset builds the trainer-owned one with `open_feed` — the
+`ResumableIngest` over `build_dataset` (data.name: ImageNet TFRecords
+through the native decoder, or seeded batches), seeked to `state.step`
+(replayed when the source cannot seek), then the `DevicePrefetchIterator`
+(train.prefetch_to_device batches ahead, the H2D copy on a side CUDA
+stream, the data watchdog), all closed when `fit` returns. A dataset the
+caller passes is fed as it is, unprefetched. On either source the first
+batch's labels are checked against the model head before its step.
 
 Records go to `self.records` (as ``{"event": ..., **payload}``) and to
 the optional `log(event, payload)` callable. Checkpoints, the eval
@@ -32,9 +43,14 @@ from __future__ import annotations
 import time
 from typing import Callable, Iterable, Mapping, Optional
 
+import torch
+
 from distributed_vgg_f_tpu_torch.config import ExperimentConfig
+from distributed_vgg_f_tpu_torch.data import build_dataset
 from distributed_vgg_f_tpu_torch.data.augment import make_device_augment
 from distributed_vgg_f_tpu_torch.data.device_ingest import make_device_finish
+from distributed_vgg_f_tpu_torch.data.iterator_state import ResumableIngest
+from distributed_vgg_f_tpu_torch.data.prefetch import DevicePrefetchIterator
 from distributed_vgg_f_tpu_torch.device import resolve_device
 from distributed_vgg_f_tpu_torch.models.registry import build_model
 from distributed_vgg_f_tpu_torch.parallel.collectives import rank_and_size
@@ -56,6 +72,10 @@ class Trainer:
         self.device = resolve_device("cuda" if device is None else device)
         self._log = log
         self.records: list = []
+        #: the trainer-owned train stream of the last `fit` without a
+        #: dataset (closed when that fit returned; its decode_errors()
+        #: stays readable)
+        self.ingest = None
         mesh, k = cfg.mesh, cfg.train.grad_accum_steps
         if mesh.shard_params or mesh.elastic.enabled:
             raise NotImplementedError(
@@ -119,22 +139,86 @@ class Trainer:
         opt, _ = build_optimizer(cfg, model.parameters())
         return TrainState.create(model, opt, ema=ema)
 
-    def fit(self, state: TrainState, dataset: Iterable,
+    # ------------------------------------------------------------------ data
+    def make_dataset(self, split: str = "train", data_cfg=None):
+        """This rank's `build_dataset` iterator for `split`; `data_cfg`
+        overrides the data section for this build only."""
+        cfg = self.cfg
+        rank, _ = rank_and_size()
+        return build_dataset(data_cfg if data_cfg is not None else cfg.data,
+                             split, seed=cfg.train.seed,
+                             num_shards=self.num_shards, shard_index=rank,
+                             num_classes=cfg.model.num_classes)
+
+    def _make_train_ingest(self) -> ResumableIngest:
+        """The trainer-owned train stream: the cursor-counting
+        ResumableIngest over `make_dataset("train")`."""
+        cfg = self.cfg
+        return ResumableIngest(
+            lambda dc: self.make_dataset("train", data_cfg=dc), cfg.data,
+            seed=cfg.train.seed, batches_per_epoch=cfg.steps_per_epoch)
+
+    def open_feed(self, start_step: int = 0):
+        """(ingest, feed): the trainer-owned train stream positioned so its
+        next batch is batch `start_step`, behind the device prefetcher.
+        The seek comes first (a source that cannot seek is replayed): the
+        prefetcher's worker draws at once, and a seek is exact only before
+        the first draw. The caller closes the feed, then the ingest."""
+        cfg = self.cfg
+        ingest = self._make_train_ingest()
+        try:
+            if start_step > 0:
+                restored = ingest.restore_state(start_step)
+                self.log("data_iterator_restore",
+                         {"step": start_step, "restored": restored})
+                if not restored:
+                    for _ in range(start_step):
+                        next(ingest)
+                    self.log("data_fast_forward", {"batches": start_step})
+            feed = DevicePrefetchIterator(
+                ingest, self.device, cfg.train.prefetch_to_device,
+                batch_timeout_s=cfg.train.data_timeout_s,
+                timeout_retries=cfg.train.data_timeout_retries)
+        except BaseException:
+            ingest.close()
+            raise
+        return ingest, feed
+
+    def fit(self, state: TrainState, dataset: Optional[Iterable] = None,
             num_steps: Optional[int] = None) -> TrainState:
         """Train from `state.step` up to step `num_steps` (the config's
-        total when None), one batch of `dataset` (this rank's rows) a
-        step."""
+        total when None), one batch (this rank's rows) a step: of
+        `dataset` when one is passed, else of the trainer-owned feed
+        (`open_feed`)."""
         cfg = self.cfg
         total = cfg.total_steps if num_steps is None else int(num_steps)
         guard = (NonFiniteGuard(cfg.train.max_nonfinite_steps, log=self.log)
                  if cfg.train.skip_nonfinite else None)
+        if dataset is None:
+            self.ingest, it = self.open_feed(state.step)
+            decode_errors = self.ingest.decode_errors
+        else:
+            it, decode_errors = iter(dataset), None
+        try:
+            state = self._run(state, it, total, guard, decode_errors)
+        finally:
+            if dataset is None:
+                it.close()
+                self.ingest.close()
+        return state
+
+    def _run(self, state: TrainState, it, total: int,
+             guard: Optional[NonFiniteGuard], decode_errors) -> TrainState:
+        cfg = self.cfg
         meter = ThroughputMeter(self.num_shards)
         host_wait = 0.0
-        it = iter(dataset)
-        for step in range(state.step, total):
+        first = state.step
+        for step in range(first, total):
             t0 = time.monotonic()
             batch = next(it)
             host_wait += time.monotonic() - t0
+            if step == first:
+                self._check_first_labels(batch["label"])
             state, metrics = self.train_step(state, batch, cfg.train.seed)
             if guard is not None:
                 guard.observe(step + 1, metrics["bad_step"])
@@ -147,10 +231,25 @@ class Trainer:
                              host_wait / meter.elapsed, 4)}
                 if guard is not None and guard.total:
                     entry["nonfinite_skips"] = guard.total
+                errors = decode_errors() if callable(decode_errors) else 0
+                if errors:
+                    entry["data_decode_errors"] = errors
                 self.log("train", entry)
         if guard is not None:
             guard.drain()
         return state
+
+    def _check_first_labels(self, labels) -> None:
+        """A label past the model head makes the cross-entropy gather read
+        past the logits: checked on the first batch of a fit (one sync)."""
+        labels = torch.as_tensor(labels)
+        n = self.cfg.model.num_classes
+        if labels.numel() and int(labels.max()) >= n:
+            raise ValueError(
+                f"dataset yields label {int(labels.max())} but the model "
+                f"head has num_classes={n}; out-of-range labels make the "
+                "cross-entropy gather produce nan — align model.num_classes "
+                "with the dataset's label space")
 
     def evaluate(self, state: TrainState, dataset: Iterable,
                  num_batches: int, use_ema: Optional[bool] = None) -> dict:

@@ -38,7 +38,10 @@ in the flash backward and in the block steps.
 The sequence-parallel entry points on one card (no process group: a ring
 of one) against `flash_self_attention`: fp32 2e-5 (output) and 5e-5
 (gradients), bf16 3e-2, the JAX ring tests' tolerances. A narrow ViT's fp32 train step through the flash kernels:
-every gradient and update within 1e-4 relative L2 of the CPU step."""
+every gradient and update within 1e-4 relative L2 of the CPU step.
+The training feed (`-k prefetch`): the prefetcher's device batches equal
+the CPU decode of the same cursors byte for byte, its copies overlap a
+kernel, and close() leaves no worker and no pinned slot."""
 
 import numpy as np
 import pytest
@@ -1016,3 +1019,153 @@ def test_zero2_flagship_across_four_cards(cuda_device, tmp_path,
         assert o["trainer/lrn_launches"].tolist() == [40, 40]
     assert trainer["comm_meta"]["sharding"] == "zero2"
 
+
+
+# ------------------------------------------------------------------ the feed
+def _fixture_tfrecords(out_dir, shards=2, per_shard=24):
+    """The fixture JPEGs (tests/data/jpeg_fixture) packed into TFRecord
+    shards; returns (files, ranges, 0-based labels) through the port's
+    indexer."""
+    import os
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    from tools.tfrecord_write import write_shards
+
+    from distributed_vgg_f_tpu_torch.data.native_tfrecord import \
+        index_tfrecords
+    fixture = os.path.join(repo, "tests", "data", "jpeg_fixture")
+    jpegs = []
+    for f in sorted(os.listdir(fixture)):
+        with open(os.path.join(fixture, f), "rb") as fh:
+            jpegs.append(fh.read())
+    files = write_shards(str(out_dir), jpegs,
+                         [1 + k for k in range(len(jpegs))], shards=shards,
+                         per_shard=per_shard)
+    path_idx, offsets, lengths, labels = index_tfrecords(files)
+    return files, (path_idx, offsets, lengths), (labels - 1).astype(np.int32)
+
+
+def _native_train(items, batch=32, size=96):
+    from distributed_vgg_f_tpu_torch.data.native_jpeg import \
+        NativeJpegTrainIterator
+    files, ranges, labels = items
+    return NativeJpegTrainIterator(
+        files, labels, batch=batch, image_size=size, seed=1,
+        mean=np.zeros(3, np.float32), std=np.ones(3, np.float32),
+        image_dtype="uint8", num_threads=4, ranges=ranges, hflip=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 3])
+def test_prefetched_batches_equal_the_cpu_decode_on_card(cuda_device,
+                                                         tmp_path, depth):
+    """The prefetcher's device batches, byte for byte, are the CPU decode
+    of the same cursors — with the side stream stalled before its first
+    copy (a pinned slot refilled before its copy ran would show) and the
+    consumer's stream slowed after each batch (device memory handed back
+    to the side stream before the consumer read it would show)."""
+    from distributed_vgg_f_tpu_torch.data.iterator_state import \
+        ResumableIngest
+    from distributed_vgg_f_tpu_torch.data.prefetch import \
+        DevicePrefetchIterator
+    items = _fixture_tfrecords(tmp_path)
+    ingest = ResumableIngest(lambda cfg: _native_train(items), None, seed=1,
+                             batches_per_epoch=1)
+    assert ingest.restore_state(5)
+    feed = DevicePrefetchIterator(ingest, cuda_device, buffer_size=depth)
+    with torch.cuda.stream(feed.stream):
+        torch.cuda._sleep(int(0.5 * 2.2e9))
+    got = []
+    for _ in range(8):
+        batch = next(feed)
+        assert batch["image"].device.type == "cuda"
+        torch.cuda._sleep(int(0.05 * 2.2e9))
+        got.append({k: v.clone() for k, v in batch.items()})
+        del batch
+    torch.cuda.synchronize()
+    feed.close()
+    ingest.close()
+    ref = _native_train(items)
+    assert ref.restore_state(5)
+    for g in got:
+        want = next(ref)
+        assert torch.equal(g["image"].cpu(), torch.from_numpy(want["image"]))
+        assert torch.equal(g["label"].cpu(), torch.from_numpy(want["label"]))
+    ref.close()
+    assert ingest.decode_errors() == 0
+
+
+class _BigBatches:
+    """Endless 64 MB u8 batches, each filled with its index."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.n += 1
+        return {"image": torch.full((64, 1024, 1024), self.n % 256,
+                                    dtype=torch.uint8)}
+
+
+@pytest.mark.cuda
+def test_prefetch_copy_overlaps_a_kernel_on_card(cuda_device):
+    """The host-to-device copies run on the side stream while a kernel
+    runs on the consumer's stream: in the profiler's trace a pinned
+    HtoD copy lies inside a 300 ms kernel. Batches 2 and 3 are queued
+    before the trace starts; taking them lets the worker copy 4 and 5
+    during the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_vgg_f_tpu_torch.data.prefetch import \
+        DevicePrefetchIterator
+    feed = DevicePrefetchIterator(_BigBatches(), cuda_device, buffer_size=2)
+    next(feed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(0.3 * 2.2e9))
+        for _ in range(2):
+            batch = next(feed)
+        torch.cuda.synchronize()
+    feed.close()
+    assert int(batch["image"][0, 0, 0]) == 3
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e.time_range for e in device
+              if "HtoD" in e.name and "Pinned" in e.name]
+    spins = [e.time_range for e in device if "spin" in e.name.lower()]
+    assert copies and len(spins) == 1
+    inside = [c for c in copies if spins[0].start <= c.start
+              and c.end <= spins[0].end]
+    assert inside, (copies, spins)
+
+
+@pytest.mark.cuda
+def test_prefetch_close_mid_stream_leaves_nothing_behind(cuda_device):
+    """close() with batches queued and the worker mid-stream: the worker
+    is joined, and the pinned slots and the queued device batches are
+    freed."""
+    import gc
+    import time
+    import weakref
+
+    from distributed_vgg_f_tpu_torch.data.prefetch import \
+        DevicePrefetchIterator
+    feed = DevicePrefetchIterator(_BigBatches(), cuda_device, buffer_size=2)
+    batch = next(feed)
+    deadline = time.monotonic() + 30
+    while len(feed._slots) < 3 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    pinned = [weakref.ref(t) for s in feed._slots
+              for t in s.tensors.values()]
+    assert len(pinned) == 3
+    del batch
+    feed.close()
+    gc.collect()
+    assert not feed.worker_alive
+    assert feed._slots == [] and feed._queue.empty()
+    assert all(r() is None for r in pinned)

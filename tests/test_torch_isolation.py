@@ -58,7 +58,11 @@ def test_importing_every_port_module_pulls_in_no_jax():
             f"{PORT}.ops.flash_attention", f"{PORT}.ops.flash_cuda",
             f"{PORT}.parallel.distributed", f"{PORT}.parallel.collectives",
             f"{PORT}.parallel.ring_attention", f"{PORT}.parallel.ring_flash",
-            f"{PORT}.parallel.ulysses"} <= set(mods)
+            f"{PORT}.parallel.ulysses", f"{PORT}.data.native_build",
+            f"{PORT}.data.native_tfrecord", f"{PORT}.data.native_jpeg",
+            f"{PORT}.data.imagenet", f"{PORT}.data.iterator_state",
+            f"{PORT}.data.prefetch", f"{PORT}.resilience.errors",
+            f"{PORT}.telemetry.schema"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
