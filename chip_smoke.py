@@ -93,6 +93,27 @@ Phases, one JSON line each:
             seeded batch through the prefetcher's pinned ring and side
             stream, where the host keeps up): step ms and the copy's
             overlap share
+  train_ckpt checkpoint and resume of the flagship on train_feed's
+            shards, cuDNN deterministic for this phase only:
+            Trainer.fit(num_steps=10) with a checkpoint directory in a
+            temp dir and checkpoint_every_steps=5 (saves at 1, the first
+            save, at 5 and the forced 10 with its wait()): step ms with
+            and without a save, each save's dispatch ms on the training
+            thread, the writer's and the manifests' seconds, the bytes a
+            step holds; the D2H copy of a save timed with CUDA events
+            (allocating the pinned buffers and reusing them) and the
+            seconds until its manifest is on disk and intact, no wait()
+            called; a fresh
+            Trainer's restore_or_init() bit-equal to the live state at
+            the save and its iterator blob equal to the saved one, its
+            seconds; one byte of step 10's largest file flipped and a
+            fresh Trainer falling back to step 5 (the fallback logged);
+            the restored Trainer's fit to 15 through the blob (no batch
+            replayed), bit-equal to an uninterrupted run of 15 without
+            checkpoints; 2 + 2 LRN launches a step over the 15 steps,
+            all of the vector variant; then 20 steps on phase train's
+            fixed batch with a save every 10 (at 1, 10, 20), their step
+            ms beside phase train's; the card's name and power limit
   flash_kernel the flash attention forward, dQ and dK/dV kernels against
             their plain versions on the card, at ViT-S/16's shapes
             (T = 197, 6 heads of 64) at batch 32 and 1024, at a ragged
@@ -181,9 +202,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -1284,18 +1307,16 @@ def _h2d_overlap(prof, count):
             "h2d_overlap_share": overlap_us / copy_us if copy_us else None}
 
 
-def phase_train_feed(train_ref):
+def phase_train_feed(train_ref, tmp):
     """The flagship's host-to-card training feed: the fixture packed into
-    4 TFRecord shards of 1024 records, then Trainer.fit(state,
-    num_steps=20) with data.data_dir there — the native index and
-    decode on the u8 wire, the pinned ring, the H2D copy on the
-    prefetcher's side stream — timed beside phase train (`train_ref`);
-    the decoder alone; 4 prefetched batches against a CPU decode of the
-    same cursors; a profile of 3 steps through a live feed. Returns the
-    LRN launches of the fit."""
+    4 TFRecord shards of 1024 records in `tmp` (the caller deletes it),
+    then Trainer.fit(state, num_steps=20) with data.data_dir there — the
+    native index and decode on the u8 wire, the pinned ring, the H2D copy
+    on the prefetcher's side stream — timed beside phase train
+    (`train_ref`); the decoder alone; 4 prefetched batches against a CPU
+    decode of the same cursors; a profile of 3 steps through a live feed.
+    Returns the LRN launches of the fit."""
     import dataclasses
-    import shutil
-    import tempfile
 
     from distributed_vgg_f_tpu_torch.config import get_config
     from distributed_vgg_f_tpu_torch.data import native_jpeg, native_tfrecord
@@ -1305,113 +1326,109 @@ def phase_train_feed(train_ref):
     from torch.profiler import ProfilerActivity, profile
     cfg = get_config("vggf_imagenet_dp")
     steps = 20
-    tmp = tempfile.mkdtemp(prefix="train_feed_")
-    try:
-        t0 = time.perf_counter()
-        files = _pack_fixture(tmp)
-        pack_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        native_tfrecord.load_native_tfrecord()
-        native_jpeg.load_native_jpeg()
-        native_build_s = time.perf_counter() - t0
-        with open("/proc/self/maps") as maps:
-            libjpeg = sorted({os.path.basename(line.split()[-1])
-                              for line in maps if "libjpeg" in line})
-        cfg = dataclasses.replace(
-            cfg, data=dataclasses.replace(cfg.data, data_dir=tmp),
-            train=dataclasses.replace(cfg.train, log_every=1, seed=0))
-        b = cfg.data.global_batch_size
-        stamps = []
-        trainer = Trainer(cfg, log=lambda event, rec: stamps.append(
-            time.perf_counter()) if event == "train" else None)
-        state = trainer.init_state(0)
+    t0 = time.perf_counter()
+    files = _pack_fixture(tmp)
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_tfrecord.load_native_tfrecord()
+    native_jpeg.load_native_jpeg()
+    native_build_s = time.perf_counter() - t0
+    with open("/proc/self/maps") as maps:
+        libjpeg = sorted({os.path.basename(line.split()[-1])
+                          for line in maps if "libjpeg" in line})
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, data_dir=tmp),
+        train=dataclasses.replace(cfg.train, log_every=1, seed=0))
+    b = cfg.data.global_batch_size
+    stamps = []
+    trainer = Trainer(cfg, log=lambda event, rec: stamps.append(
+        time.perf_counter()) if event == "train" else None)
+    state = trainer.init_state(0)
 
-        # the decoder alone: 8 batches drained into a pinned buffer, at
-        # the config's thread count (0: min(8, CPUs))
-        images = torch.empty((b, cfg.data.image_size, cfg.data.image_size,
-                              3), dtype=torch.uint8, pin_memory=True)
-        labels = torch.empty((b,), dtype=torch.int32, pin_memory=True)
-        src = trainer.make_dataset("train")
-        src.next_into(images, labels)  # starts the decode threads
-        t0 = time.perf_counter()
-        for _ in range(8):
-            src.next_into(images, labels)
-        decode_rate = 8 * b / (time.perf_counter() - t0)
-        threads = src.num_threads()
-        src.close()
-        del images, labels
+    # the decoder alone: 8 batches drained into a pinned buffer, at
+    # the config's thread count (0: min(8, CPUs))
+    images = torch.empty((b, cfg.data.image_size, cfg.data.image_size,
+                          3), dtype=torch.uint8, pin_memory=True)
+    labels = torch.empty((b,), dtype=torch.int32, pin_memory=True)
+    src = trainer.make_dataset("train")
+    src.next_into(images, labels)  # starts the decode threads
+    t0 = time.perf_counter()
+    for _ in range(8):
+        src.next_into(images, labels)
+    decode_rate = 8 * b / (time.perf_counter() - t0)
+    threads = src.num_threads()
+    src.close()
+    del images, labels
 
-        reg = get_registry()
-        wait0 = reg.counter_value("prefetch/wait_ns", 0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
-        lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
-        t0 = time.perf_counter()
-        state = trainer.fit(state, num_steps=steps)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        launches = {"fwd": lrn_cuda.LAUNCHES, "bwd": lrn_cuda.BWD_LAUNCHES}
-        vec_launches = {"fwd": lrn_cuda.VEC_LAUNCHES,
-                        "bwd": lrn_cuda.VEC_BWD_LAUNCHES}
-        wait_ns = reg.counter_value("prefetch/wait_ns", 0) - wait0
-        decode_errors = trainer.ingest.decode_errors()
-        peak = torch.cuda.max_memory_allocated()
-        recs = [r for r in trainer.records if r["event"] == "train"]
-        losses = [r["loss"] for r in recs]
-        stamps.insert(0, t0)
-        step_ms = [(t1 - t0_) * 1e3 for t0_, t1 in zip(stamps, stamps[1:])]
-        median_ms = statistics.median(step_ms[4:])
+    reg = get_registry()
+    wait0 = reg.counter_value("prefetch/wait_ns", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+    lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    state = trainer.fit(state, num_steps=steps)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"fwd": lrn_cuda.LAUNCHES, "bwd": lrn_cuda.BWD_LAUNCHES}
+    vec_launches = {"fwd": lrn_cuda.VEC_LAUNCHES,
+                    "bwd": lrn_cuda.VEC_BWD_LAUNCHES}
+    wait_ns = reg.counter_value("prefetch/wait_ns", 0) - wait0
+    decode_errors = trainer.ingest.decode_errors()
+    peak = torch.cuda.max_memory_allocated()
+    recs = [r for r in trainer.records if r["event"] == "train"]
+    losses = [r["loss"] for r in recs]
+    stamps.insert(0, t0)
+    step_ms = [(t1 - t0_) * 1e3 for t0_, t1 in zip(stamps, stamps[1:])]
+    median_ms = statistics.median(step_ms[4:])
 
-        # 4 batches through the prefetcher at cursors 20..23, its side
-        # stream stalled 2 s before its first copy and the consumer's
-        # stream slowed after each batch, against a CPU-only decode of
-        # the same cursors: a slot reused before its copy, or device
-        # memory handed back before the step read it, shows here
-        start = state.step
-        ingest, feed = trainer.open_feed(start)
-        with torch.cuda.stream(feed.stream):
-            torch.cuda._sleep(int(2.0 * _SLEEP_HZ))
-        got = []
-        for _ in range(4):
-            batch = next(feed)
-            torch.cuda._sleep(int(0.1 * _SLEEP_HZ))
-            got.append({k: v.clone() for k, v in batch.items()})
-            del batch
-        torch.cuda.synchronize()
-        feed.close()
-        ingest.close()
-        ref_src = trainer.make_dataset("train")
-        check(ref_src.restore_state(start), "the CPU decode did not seek")
-        want = [next(ref_src) for _ in range(4)]
-        ref_src.close()
-        byte_equal = [
-            bool(torch.equal(g["image"].cpu(), torch.from_numpy(w["image"]))
-                 and torch.equal(g["label"].cpu(),
-                                 torch.from_numpy(w["label"])))
-            for g, w in zip(got, want)]
-        del got, want
+    # 4 batches through the prefetcher at cursors 20..23, its side
+    # stream stalled 2 s before its first copy and the consumer's
+    # stream slowed after each batch, against a CPU-only decode of
+    # the same cursors: a slot reused before its copy, or device
+    # memory handed back before the step read it, shows here
+    start = state.step
+    ingest, feed = trainer.open_feed(start)
+    with torch.cuda.stream(feed.stream):
+        torch.cuda._sleep(int(2.0 * _SLEEP_HZ))
+    got = []
+    for _ in range(4):
+        batch = next(feed)
+        torch.cuda._sleep(int(0.1 * _SLEEP_HZ))
+        got.append({k: v.clone() for k, v in batch.items()})
+        del batch
+    torch.cuda.synchronize()
+    feed.close()
+    ingest.close()
+    ref_src = trainer.make_dataset("train")
+    check(ref_src.restore_state(start), "the CPU decode did not seek")
+    want = [next(ref_src) for _ in range(4)]
+    ref_src.close()
+    byte_equal = [
+        bool(torch.equal(g["image"].cpu(), torch.from_numpy(w["image"]))
+             and torch.equal(g["label"].cpu(),
+                             torch.from_numpy(w["label"])))
+        for g, w in zip(got, want)]
+    del got, want
 
-        # where a step's time goes through a live feed: 3 steps after 3
-        ingest, feed = trainer.open_feed(state.step)
+    # where a step's time goes through a live feed: 3 steps after 3
+    ingest, feed = trainer.open_feed(state.step)
+    for _ in range(3):
+        state, _ = trainer.train_step(state, next(feed), cfg.train.seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
-            state, _ = trainer.train_step(state, next(feed), cfg.train.seed)
+            state, _ = trainer.train_step(state, next(feed),
+                                          cfg.train.seed)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                state, _ = trainer.train_step(state, next(feed),
-                                              cfg.train.seed)
-            torch.cuda.synchronize()
-        feed.close()
-        ingest.close()
-        t = _trace_breakdown(prof, 3, top=15)
-        h2d = _h2d_overlap(prof, 3)
-        del trainer, state
-        gc.collect()
-        synthetic = _feed_synthetic(cfg)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    feed.close()
+    ingest.close()
+    t = _trace_breakdown(prof, 3, top=15)
+    h2d = _h2d_overlap(prof, 3)
+    del trainer, state
+    gc.collect()
+    synthetic = _feed_synthetic(cfg)
     emit("train_feed", config=cfg.name, image_size=cfg.data.image_size,
          batch=b, source={"jpegs": 16, "shards": len(files),
                           "records_per_shard": 1024, "pixels": "500x375",
@@ -1450,7 +1467,7 @@ def phase_train_feed(train_ref):
     check(all(math.isfinite(v) for v in synthetic["losses"]),
           f"synthetic-source losses {synthetic['losses']}")
     torch.cuda.empty_cache()
-    return launches
+    return launches, median_ms
 
 
 def _feed_synthetic(cfg, steps=20):
@@ -1501,6 +1518,319 @@ def _feed_synthetic(cfg, steps=20):
     del trainer, state
     gc.collect()
     return out
+
+
+def _largest_file(root):
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs]
+    return max(files, key=os.path.getsize)
+
+
+def _same_tree(got, want):
+    """Names whose tensors differ in any bit (CPU copies)."""
+    if set(got) != set(want):
+        return sorted(set(got) ^ set(want))
+    return [k for k in want if not torch.equal(got[k], want[k])]
+
+
+def phase_train_ckpt(train_step_ms, feed_step_ms, feed_dir, smi):
+    """Checkpoint and resume of the flagship on its TFRecord feed
+    (`feed_dir`, phase train_feed's shards), cuDNN deterministic for this
+    phase only: (a) Trainer.fit(num_steps=10) with a checkpoint directory
+    in a temp dir and checkpoint_every_steps=5 (saves at 1, the first, 5,
+    and the forced 10 with its wait()); (b) the D2H copy of a save on the
+    compute stream, timed with CUDA events, with and without allocating
+    the pinned buffers, and the time until the save's manifest is on
+    disk, without a wait(); (c) a fresh Trainer's restore_or_init() held
+    bit for bit to the live state at the save and to its iterator blob,
+    then (e) its fit to 15, held bit for bit against an uninterrupted run
+    of 15; (d) one byte of step 10's largest file flipped, and a fresh
+    Trainer falls back to step 5; (f) 20 steps on phase train's fixed
+    batch with checkpoint_every_steps=10, the step times beside phase
+    train's (`train_step_ms`). Returns the LRN launches of (a) and (e).
+    """
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from distributed_vgg_f_tpu_torch.checkpoint.manager import \
+        CheckpointManager
+    from distributed_vgg_f_tpu_torch.config import get_config
+    from distributed_vgg_f_tpu_torch.data.synthetic import SyntheticU8
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.resilience.integrity import (
+        list_manifest_steps, step_dir, step_size_bytes, verify_step_manifest)
+    from distributed_vgg_f_tpu_torch.telemetry import get_recorder
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    cfg = get_config("vggf_imagenet_dp")
+    base = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, data_dir=feed_dir),
+        train=dataclasses.replace(cfg.train, log_every=1, seed=0))
+    b = cfg.data.global_batch_size
+    root = tempfile.mkdtemp(prefix="train_ckpt_")
+    ck_cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, checkpoint_dir=os.path.join(root, "ck"),
+        checkpoint_every_steps=5))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def timed_trainer(c):
+        stamps = []
+        tr = Trainer(c, log=lambda event, rec: stamps.append(
+            (rec["step"], time.perf_counter())) if event == "train" else None)
+        return tr, stamps
+
+    def spans(name, since):
+        return [d / 1e6 for n, _, t0, d, *_ in get_recorder().snapshot()
+                if n == name and t0 >= since]
+
+    def step_ms(stamps, t0):
+        prev, out = t0, {}
+        for step, t in stamps:
+            out[step] = (t - prev) * 1e3
+            prev = t
+        return out
+
+    def cpu_tree(state):
+        return {k: v.detach().cpu().clone()
+                for k, v in state.checkpoint_tree().items()}
+
+    def counts():
+        return {"fwd": lrn_cuda.LAUNCHES, "bwd": lrn_cuda.BWD_LAUNCHES,
+                "vec_fwd": lrn_cuda.VEC_LAUNCHES,
+                "vec_bwd": lrn_cuda.VEC_BWD_LAUNCHES}
+
+    def zero_counts():
+        lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+        lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
+
+    try:
+        # (a) 10 steps with checkpoints
+        extras, saves = {}, []
+
+        def record_saves(trainer):
+            mgr, save = trainer.checkpoints, trainer.checkpoints.save
+
+            def recorded_save(state, extra=None, **kw):
+                t0 = time.perf_counter()
+                taken = save(state, extra=extra, **kw)
+                if taken and "wait_s" in mgr.timings:
+                    extras[state.step] = json.loads(json.dumps(extra))
+                    saves.append({
+                        "step": state.step,
+                        "save_ms": (time.perf_counter() - t0) * 1e3,
+                        "wait_ms": mgr.timings.pop("wait_s") * 1e3,
+                        "snapshot_ms": mgr.timings["snapshot_s"] * 1e3})
+                return taken
+
+            mgr.save = recorded_save
+
+        a, stamps_a = timed_trainer(ck_cfg)
+        record_saves(a)
+        torch.cuda.synchronize()
+        since = time.monotonic_ns()
+        zero_counts()
+        t0 = time.perf_counter()
+        state_a = a.fit(num_steps=10)
+        torch.cuda.synchronize()
+        fit_a_s = time.perf_counter() - t0
+        launches_a = counts()
+        live = cpu_tree(state_a)
+        ms_a = step_ms(stamps_a, t0)
+        dispatch_ms = spans("checkpoint_save_dispatch", since)
+        wait_ms = spans("checkpoint_wait", since)
+        timings_a = dict(a.checkpoints.timings)
+        steps_a = a.checkpoints.all_steps()
+        bytes_step = step_size_bytes(ck_cfg.train.checkpoint_dir, 10)
+        # fp32 params and momentum, 4 bytes each
+        state_bytes = 8 * sum(p.numel() for p in state_a.model.parameters())
+        losses_a = [r["loss"] for r in a.records if r["event"] == "train"]
+
+        # (b) the snapshot's D2H copy on the compute stream, device time,
+        # and the manifest that the writer leaves without a wait()
+        d2h, probe_dir = {}, os.path.join(root, "d2h")
+        probe = CheckpointManager(probe_dir, max_to_keep=1)
+        for i, label in enumerate(("allocating", "reused")):
+            tree = dict(state_a.checkpoint_tree())
+            tree["step"] = torch.tensor(100 + i, dtype=torch.int32)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev0.record()
+            check(probe.save(tree, force=True), "the probe save was dropped")
+            ev1.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            ev1.synchronize()
+            while (100 + i not in list_manifest_steps(probe_dir)
+                   and time.perf_counter() - t0 < 120):
+                time.sleep(0.005)
+            manifest_s = time.perf_counter() - t0
+            d2h[label] = {"device_ms": ev0.elapsed_time(ev1),
+                          "dispatch_ms": host_ms,
+                          "manifest_on_disk_s": manifest_s,
+                          "manifest_verdict": verify_step_manifest(
+                              probe_dir, 100 + i)[0]}
+            probe.wait()
+        d2h["write_s"] = probe.timings.get("write_s")
+        d2h["manifest_s"] = probe.timings.get("manifest_s")
+        d2h["gb_per_s"] = bytes_step / 1e9 / (d2h["reused"]["device_ms"]
+                                              / 1e3)
+        probe.close()
+        shutil.rmtree(os.path.join(root, "d2h"), ignore_errors=True)
+        del probe, tree
+        a.checkpoints.close()
+        del a, state_a
+
+        # (c) a fresh Trainer restores; the manager's verify and read alone
+        reader = CheckpointManager(ck_cfg.train.checkpoint_dir)
+        t0 = time.perf_counter()
+        check(reader.best_step() == 10, "step 10 is not the newest intact")
+        verify_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reader.restore(10)
+        read_s = time.perf_counter() - t0
+        del reader
+        bt, stamps_b = timed_trainer(ck_cfg)
+        record_saves(bt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state_b = bt.restore_or_init()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_diff = _same_tree(cpu_tree(state_b), live)
+        blob_equal = (bt._restored_iterator_state
+                      == extras[10].get("iterator_state"))
+
+        # (d) the newest step damaged: a fresh Trainer falls back
+        damaged = _largest_file(step_dir(ck_cfg.train.checkpoint_dir, 10))
+        with open(damaged, "r+b") as f:
+            f.seek(os.path.getsize(damaged) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0x01]))
+        dt = Trainer(ck_cfg)
+        state_d = dt.restore_or_init()
+        fallback_step = state_d.step
+        fallback = [r for r in dt.records
+                    if r["event"] == "checkpoint_integrity_fallback"]
+        dt.checkpoints.close()
+        del dt, state_d
+
+        # (e) the resumed run to 15, then an uninterrupted one
+        since = time.monotonic_ns()
+        zero_counts()
+        t0 = time.perf_counter()
+        state_b = bt.fit(state_b, num_steps=15)
+        torch.cuda.synchronize()
+        launches_b = counts()
+        ms_b = step_ms(stamps_b, t0)
+        dispatch_ms_b = spans("checkpoint_save_dispatch", since)
+        resume_events = [r for r in bt.records if r["event"] != "train"]
+        losses_b = [r["loss"] for r in bt.records if r["event"] == "train"]
+        resumed = cpu_tree(state_b)
+        bt.checkpoints.close()
+        del bt, state_b
+        ct = Trainer(base)
+        state_c = ct.fit(num_steps=15)
+        torch.cuda.synchronize()
+        straight = cpu_tree(state_c)
+        losses_c = [r["loss"] for r in ct.records if r["event"] == "train"]
+        del ct, state_c
+        shutil.rmtree(ck_cfg.train.checkpoint_dir, ignore_errors=True)
+
+        # (f) phase train's fixed batch, a save every 10 steps
+        torch.backends.cudnn.deterministic = deterministic
+        f_cfg = dataclasses.replace(base, train=dataclasses.replace(
+            base.train, checkpoint_dir=os.path.join(root, "f"),
+            checkpoint_every_steps=10))
+        ft, stamps_f = timed_trainer(f_cfg)
+        data = SyntheticU8(b, cfg.data.image_size, cfg.model.num_classes,
+                           seed=0, pin=True)
+        state_f = ft.init_state(0)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        state_f = ft.fit(state_f, data, num_steps=20)
+        torch.cuda.synchronize()
+        launches_f = counts()
+        ms_f = step_ms(stamps_f, t0)
+        steps_f = ft.checkpoints.all_steps()
+        losses_f = [r["loss"] for r in ft.records if r["event"] == "train"]
+        ft.checkpoints.close()
+        del ft, state_f, data
+        gc.collect()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    resume_diff = _same_tree(resumed, straight)
+    max_rel = max(float((resumed[k].double() - straight[k].double()).norm()
+                        / max(float(straight[k].double().norm()), 1e-30))
+                  for k in straight if straight[k].is_floating_point())
+    # the steps whose interval holds a save's dispatch: the cadence's
+    with_save = {s: ms for s, ms in list(ms_a.items()) + list(ms_b.items())
+                 if s == 1 or s % 5 == 0}
+    no_save = [ms for s, ms in list(ms_a.items()) + list(ms_b.items())
+               if s not in with_save and s != 11]
+    f_with_save = {s: ms for s, ms in ms_f.items() if s in (1, 10, 20)}
+    f_no_save = [ms for s, ms in ms_f.items()
+                 if s >= 5 and s not in f_with_save]
+    emit("train_ckpt", card=smi, config=cfg.name, batch=b,
+         image_size=cfg.data.image_size, checkpoint_every_steps=5,
+         cudnn_deterministic=True, fit_s=fit_a_s, saved_steps=steps_a,
+         save_steps=sorted(extras),
+         step_ms={"a": ms_a, "b": ms_b}, step_ms_with_save=with_save,
+         step_ms_without_save_median=statistics.median(no_save),
+         train_feed_step_ms_median=feed_step_ms,
+         save_dispatch_ms=dispatch_ms + dispatch_ms_b, saves=saves,
+         d2h=d2h, writer_s=timings_a.get("write_s"),
+         manifest_s=timings_a.get("manifest_s"),
+         final_wait_ms=wait_ms[-1] if wait_ms else None,
+         restore_s=restore_s, restore_verify_s=verify_s,
+         restore_read_s=read_s, bytes_per_step=bytes_step,
+         state_bytes=state_bytes,
+         restored_bit_equal=not restored_diff, restored_diff=restored_diff,
+         blob_equal=blob_equal, resume_events=resume_events,
+         resumed_bit_equal=not resume_diff, resumed_diff=resume_diff[:8],
+         resumed_max_rel_l2=max_rel, losses_resumed=losses_b,
+         losses_straight=losses_c, losses_first=losses_a,
+         fallback_step=fallback_step, fallback=fallback,
+         damaged_file=os.path.relpath(damaged, root),
+         fixed_batch={"step_ms": ms_f, "step_ms_with_save": f_with_save,
+                      "step_ms_without_save_median":
+                      statistics.median(f_no_save),
+                      "train_step_ms_median": train_step_ms,
+                      "saved_steps": steps_f, "lrn_launches": launches_f},
+         lrn_launches={"fit_0_10": launches_a, "fit_10_15": launches_b})
+    check(steps_a == [1, 5, 10], f"steps on disk after the fit: {steps_a}")
+    check(not restored_diff, f"restored state differs in {restored_diff}")
+    check(blob_equal, "the restored iterator blob is not the saved one")
+    check(any(e["event"] == "iterator_state_restore"
+              and e["replayed_batches"] == 0 for e in resume_events),
+          f"the resume did not go through the blob: {resume_events}")
+    check(not resume_diff and losses_b == losses_c[10:],
+          f"resumed run differs from the uninterrupted one in "
+          f"{resume_diff[:8]} (max rel L2 {max_rel}); losses {losses_b} "
+          f"against {losses_c[10:]}")
+    check(fallback_step == 5 and fallback
+          and fallback[0]["chosen"] == 5,
+          f"damaged step 10 restored step {fallback_step}, {fallback}")
+    check(0 <= bytes_step - state_bytes < 1e6,
+          f"{bytes_step} bytes on disk a step for {state_bytes} of state")
+    check(all(d2h[k]["manifest_verdict"] is True
+              for k in ("allocating", "reused")),
+          f"a save's manifest was not on disk and intact before wait(): "
+          f"{d2h}")
+    both = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    check(both == {"fwd": 30, "bwd": 30, "vec_fwd": 30, "vec_bwd": 30},
+          f"LRN launches {both} over 15 steps, expected 2 + 2 a step, "
+          "every one of the vector variant")
+    check(launches_f == {"fwd": 40, "bwd": 40, "vec_fwd": 40, "vec_bwd": 40},
+          f"LRN launches {launches_f} over (f)'s 20 steps")
+    check(steps_f == [1, 10, 20], f"(f) saved {steps_f}")
+    check(all(math.isfinite(v) for v in losses_a + losses_b + losses_f),
+          "non-finite loss")
+    torch.cuda.empty_cache()
+    return both
 
 
 # ------------------------------------------------------------- ViT phases
@@ -2975,7 +3305,13 @@ def main() -> int:
     phase_train_parity(tree)
     train_launches, train_ref = phase_train()
     zero2_launches = phase_train_zero2(tree, train_ref)
-    feed_launches = phase_train_feed(train_ref)
+    feed_dir = tempfile.mkdtemp(prefix="train_feed_")
+    try:
+        feed_launches, feed_ms = phase_train_feed(train_ref, feed_dir)
+        ckpt_launches = phase_train_ckpt(train_ref["step_ms_median"],
+                                         feed_ms, feed_dir, smi)
+    finally:
+        shutil.rmtree(feed_dir, ignore_errors=True)
     del tree
 
     flash_records = phase_flash_kernel(peaks)
@@ -3113,10 +3449,11 @@ def main() -> int:
         "lrn_fwd", "distributed_vgg_f_tpu_torch/csrc/lrn_fwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records, "bucket", 32,
         serve_launches + train_launches["fwd"] + zero2_launches["fwd"]
-        + feed_launches["fwd"],
+        + feed_launches["fwd"] + ckpt_launches["fwd"],
         {"serve": serve_launches, "train": train_launches["fwd"],
          "train_zero2": zero2_launches["fwd"],
-         "train_feed": feed_launches["fwd"]},
+         "train_feed": feed_launches["fwd"],
+         "train_ckpt": ckpt_launches["fwd"]},
         "both LRN sites of one bf16 forward at bucket 32, ReLU fused")
     at32 = lrn_times(lrn_sites(records, "bucket", 32), "relu_ms")
     lrn_fwd_row.update(
@@ -3127,10 +3464,11 @@ def main() -> int:
         "lrn_bwd", "distributed_vgg_f_tpu_torch/csrc/lrn_bwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:74", bwd_records, "batch",
         1024, train_launches["bwd"] + zero2_launches["bwd"]
-        + feed_launches["bwd"],
+        + feed_launches["bwd"] + ckpt_launches["bwd"],
         {"serve": 0, "train": train_launches["bwd"],
          "train_zero2": zero2_launches["bwd"],
-         "train_feed": feed_launches["bwd"]},
+         "train_feed": feed_launches["bwd"],
+         "train_ckpt": ckpt_launches["bwd"]},
         "both LRN sites of one bf16 training step at batch 1024, the ReLU's "
         "backward fused")
     at1024 = lrn_times(lrn_sites(bwd_records, "batch", 1024), "relu_bwd_ms")

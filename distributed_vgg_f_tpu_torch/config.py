@@ -11,9 +11,10 @@ the fields the port honours, `resolve_serving_buckets`, the derived
 `scaled_lr` / `steps_per_epoch` / `total_steps`, and the
 `vggf_imagenet_dp`, `vggf_teacher` and `vit_s16_imagenet` presets.
 Fields of later slices
-(checkpoints, eval cadence, preemption, autotune, the admission
-controller, serving tiers) are absent until their slice ports them: a
-field the port would accept and ignore is left out instead.
+(the eval cadence, the best slot, the checkpoint save retries,
+preemption, autotune, the admission controller, serving tiers) are
+absent until their slice ports them: a field the port would accept and
+ignore is left out instead.
 """
 
 from __future__ import annotations
@@ -179,11 +180,15 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The fields the train step and the core loop read."""
+    """The fields the train step, the core loop and its checkpoints
+    read."""
     epochs: float = 90.0               # training length (fractional allowed)
     steps: int = 0                     # if > 0 overrides epochs
     seed: int = 0                      # params, augmentation and dropout
     log_every: int = 100               # steps between train records
+    checkpoint_every_steps: int = 1000 # durable-save cadence (also saves at run end)
+    checkpoint_dir: str = ""           # "" disables checkpointing entirely
+    keep_checkpoints: int = 3          # retained durable steps; older ones are pruned
     # Non-finite step skip: a step whose loss or gradient norm is not
     # finite leaves params, momentum, the optimizer's count and the EMA
     # unchanged (the step counter still advances); NonFiniteGuard aborts

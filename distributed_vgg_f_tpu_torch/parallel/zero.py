@@ -15,6 +15,14 @@ its state. The unbucketed layout here is a `GradBucketLayout` with one
 bucket that holds every leaf in canonical order: its (N, S) view's row r
 is then the r-th contiguous slice of the canonical flat vector, JAX's
 `ravel_pytree` plus padding.
+
+A checkpoint's momentum comes in one of three layouts: the per-parameter
+tree (replicated SGD), the canonical flat vector padded to a multiple of
+N, or the bucket-major flat vector of a `GradBucketLayout`.
+`params_layout` tells them apart by shape (JAX `zero.py:98`) and
+`convert_opt_state` (JAX `zero.py:189`) converts between any two, at
+any shard counts, by copies on the tensors' own device
+(checkpoint/retopology.py).
 """
 
 from __future__ import annotations
@@ -44,11 +52,12 @@ def padded_flat_size(total: int, num_shards: int) -> int:
 
 def params_layout(params: Union[Params, torch.Tensor],
                   total: int) -> Tuple[str, Optional[int]]:
-    """The layout of a params value from shapes alone: ('flat', padded)
-    for one flat vector at least `total` (the parameter count) long,
-    ('tree', None) for the parameters themselves. No single parameter
-    holds the whole network, so a 1-D tensor that long can only be the
-    flat vector."""
+    """The layout of a params value or a momentum from shapes alone:
+    ('flat', padded) for one flat vector at least `total` (the parameter
+    count) long, ('tree', None) for per-parameter tensors (JAX
+    `zero.py:98 opt_state_layout`, `:126 params_layout`). No single
+    parameter holds the whole network, so a 1-D tensor that long can only
+    be the flat vector."""
     if isinstance(params, torch.Tensor):
         params = {"": params}
     elif isinstance(params, torch.nn.Module):
@@ -105,3 +114,59 @@ def unflatten(vec: torch.Tensor, like: Params, *,
         return bucket_layout.from_global(vec)
     layout = flat_layout(like, 1)
     return layout.from_global(vec[:layout.total_padded])
+
+
+def convert_opt_state(trace: Union[Mapping[str, torch.Tensor],
+                                   torch.Tensor],
+                      params: Params, target_padded: Optional[int], *,
+                      src_bucket_layout: Optional[GradBucketLayout] = None,
+                      target_bucket_layout: Optional[GradBucketLayout] = None
+                      ) -> Union[Mapping[str, torch.Tensor], torch.Tensor]:
+    """Convert a momentum between its layouts (JAX `zero.py:189`): the
+    per-parameter tree (the port's name -> tensor in the port's layout,
+    as `TrainState.momentum()` gives it) <-> the canonical flat vector
+    padded to any multiple <-> the bucket-major flat vector of a
+    `GradBucketLayout`, at any shard count. `params` (the model or its
+    name -> tensor) gives the names and shapes.
+
+    `target_padded`: the target flat length (a bucket layout's
+    `total_padded` when `target_bucket_layout` is given; they must
+    agree), or None for the tree. `src_bucket_layout`: how to read a flat
+    source — None means the canonical order (the absent receipt).
+    Padding is zeros, which is what the momentum holds there (padding's
+    gradients are zero), so growing, shrinking or re-bucketing the pad
+    loses nothing. Every element is copied, never computed, so the
+    conversion is bit-exact."""
+    canonical = flat_layout(params, 1)   # the module names its heads
+    total = canonical.total_padded
+    layout, padded_src = params_layout(trace, total)
+    if layout == "flat":
+        vec = trace if isinstance(trace, torch.Tensor) else \
+            next(iter(trace.values()))
+        if src_bucket_layout is not None:
+            if padded_src != src_bucket_layout.total_padded:
+                raise ValueError(
+                    f"src bucket layout total_padded="
+                    f"{src_bucket_layout.total_padded} does not match the "
+                    f"saved flat vector length {padded_src}")
+            tree = src_bucket_layout.from_global(vec)
+        else:
+            tree = canonical.from_global(vec[:total])
+    else:
+        tree = dict(trace)
+    if target_padded is None:
+        return tree
+    if target_bucket_layout is not None:
+        if target_padded != target_bucket_layout.total_padded:
+            raise ValueError(
+                f"target_padded={target_padded} disagrees with the target "
+                f"bucket layout's total_padded="
+                f"{target_bucket_layout.total_padded}")
+        return target_bucket_layout.to_global(
+            target_bucket_layout.leaves(tree))
+    if target_padded < total:
+        raise ValueError(f"padded length {target_padded} below the "
+                         f"parameter count {total}")
+    return torch.nn.functional.pad(
+        canonical.to_global(canonical.leaves(tree)),
+        (0, target_padded - total))

@@ -6,15 +6,17 @@ from __future__ import annotations
 from distributed_vgg_f_tpu_torch.telemetry.registry import (
     TelemetryRegistry,
     get_registry,
+    inc,
 )
 from distributed_vgg_f_tpu_torch.telemetry.spans import (
     SpanRecorder,
     get_recorder,
     record,
+    span,
 )
 
 __all__ = ["SpanRecorder", "TelemetryRegistry", "get_recorder",
-           "get_registry", "record", "reset"]
+           "get_registry", "inc", "record", "reset", "span"]
 
 
 def reset() -> None:

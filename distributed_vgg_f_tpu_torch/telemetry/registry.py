@@ -6,14 +6,26 @@
   happened".
 - **gauges** — last-write-wins instantaneous values (`set_gauge`).
 
-Names follow `<subsystem>/<metric>` (e.g. `serving/requests`). Stdlib
-only.
+Names follow `<subsystem>/<metric>` (e.g. `serving/requests`). The
+checkpoint layer's counters keep the JAX package's names
+(`CHECKPOINT_COUNTERS`; checkpoint/manager.py). Stdlib only.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Dict
+
+#: The checkpoint manager's counters (JAX `checkpoint/manager.py:155–161,
+#: 210–212, 296, 343–345, 406–407`): durable saves dispatched, I/O
+#: retries and failures, newest-intact fallbacks, restores and their ns,
+#: and the ns spent in `wait()`. `ingest_state/saves` (the iterator blobs
+#: that rode a save) is data/iterator_state.py's.
+CHECKPOINT_COUNTERS = ("checkpoint/saves", "checkpoint/save_retries",
+                       "checkpoint/save_failures",
+                       "checkpoint/integrity_fallbacks",
+                       "checkpoint/restores", "checkpoint/restore_ns",
+                       "checkpoint/wait_ns")
 
 
 class TelemetryRegistry:
@@ -58,3 +70,7 @@ _default = TelemetryRegistry()
 def get_registry() -> TelemetryRegistry:
     return _default
 
+
+def inc(name: str, value: float = 1) -> None:
+    """Add `value` to counter `name` of the default registry."""
+    _default.inc(name, value)

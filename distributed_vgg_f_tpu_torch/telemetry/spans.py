@@ -3,14 +3,19 @@
 (name, category, start_ns, dur_ns, tid[, args]) tuples, cheap enough to
 leave on (one `monotonic_ns()` pair and a deque append per span). When
 full, the oldest span is evicted. The serving batcher records one
-"dispatch" span per flush.
+"dispatch" span per flush; the checkpoint manager records
+`checkpoint_save_dispatch`, `checkpoint_restore` and `checkpoint_wait`
+(the JAX names) under category "checkpoint", through `span` and
+`record`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 from collections import deque
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 SpanTuple = Tuple[str, str, int, int, int]
 
@@ -57,3 +62,13 @@ def get_recorder() -> SpanRecorder:
 def record(name: str, category: str, start_ns: int, dur_ns: int,
            args: Optional[dict] = None) -> None:
     _default.record(name, category, start_ns, dur_ns, args)
+
+
+@contextlib.contextmanager
+def span(name: str, category: str) -> Iterator[None]:
+    """Record the enclosed block as one span of the default recorder."""
+    t0 = time.monotonic_ns()
+    try:
+        yield
+    finally:
+        _default.record(name, category, t0, time.monotonic_ns() - t0)

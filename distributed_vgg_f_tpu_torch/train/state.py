@@ -12,18 +12,31 @@ the step re-syncs them by the all-gather, as the JAX ZeRO-1/2 step does.
 
 The state is mutable: the step updates parameters and momentum in place
 (torch's optimizer does), where the JAX step returns new arrays.
+
+`checkpoint_tree` and `load_checkpoint_tree` map the state to and from
+the checkpoint's arrays (checkpoint/manager.py), in the Flax names and
+layouts: `step`, `opt/count` (optax's count), `params/<layer>/<leaf>`,
+the momentum as `opt/trace` (the ZeRO (T,) vector, gathered) or
+`opt/trace/<layer>/<leaf>`, and `ema_params/<layer>/<leaf>`. Every
+layout change is a copy through `weights.flax_view`, so the round trip
+is bitwise.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
-from distributed_vgg_f_tpu_torch.parallel.buckets import GradBucketLayout
+from distributed_vgg_f_tpu_torch.parallel.buckets import (GradBucketLayout,
+                                                          canonical_leaves)
 from distributed_vgg_f_tpu_torch.parallel.collectives import (
     all_gather_flat, rank_and_size)
+from distributed_vgg_f_tpu_torch.resilience.errors import \
+    GeometryReceiptError
+from distributed_vgg_f_tpu_torch.weights import flax_view
 
 
 @dataclass
@@ -132,6 +145,104 @@ class TrainState:
         self.optimizer.state[self.param_shard]["momentum_buffer"] = \
             shard.detach().to(self.param_shard.device,
                               torch.float32).clone()
+
+    # ------------------------------------------------------------ checkpoint
+    def checkpoint_tree(self) -> Dict[str, torch.Tensor]:
+        """The state's arrays by checkpoint name, in the Flax layouts
+        (views of the live tensors where the layout allows; a momentum
+        not yet created is zeros, as optax's trace starts). Under ZeRO
+        the momentum is gathered: every rank must call it."""
+        model = self.model
+        named = {k: v.detach() for k, v in model.named_parameters()}
+        tree: Dict[str, torch.Tensor] = {
+            "step": torch.tensor(self.step, dtype=torch.int32),
+            "opt/count": torch.tensor(self.opt_count, dtype=torch.int32)}
+        leaves = canonical_leaves(model)
+
+        def add(prefix: str, values: Mapping[str, torch.Tensor]) -> None:
+            for name, key, shape, _ in leaves:
+                view = flax_view(key, values[key])
+                tree[f"{prefix}/{name}"] = (view if tuple(view.shape) == shape
+                                            else view.reshape(shape))
+
+        add("params", named)
+        if self.param_shard is not None:
+            trace = self.momentum_global()
+            tree["opt/trace"] = (trace if trace is not None else torch.zeros(
+                self.layout.total_padded, device=self.param_shard.device))
+        else:
+            add("opt/trace", {k: v if v is not None
+                              else torch.zeros_like(named[k])
+                              for k, v in self.momentum().items()})
+        if self.ema_params is not None:
+            add("ema_params", self.ema_params)
+        return tree
+
+    def load_checkpoint_tree(
+            self, tree: Mapping[str, Any],
+            momentum: Union[Mapping[str, torch.Tensor], torch.Tensor]
+    ) -> Optional[str]:
+        """Load a checkpoint's step, count, params and EMA from `tree`
+        (`checkpoint_tree`'s names) and `momentum`, already in this
+        state's layout (checkpoint/retopology.py): the per-parameter
+        buffers, or this rank's (S,) shard under ZeRO. Returns the EMA
+        event: "ema_seeded_from_params" when the run keeps an EMA the
+        checkpoint lacks, "ema_dropped_on_restore" for the converse, else
+        None. Params saved for another model raise GeometryReceiptError."""
+        model = self.model
+        named = dict(model.named_parameters())
+        with torch.no_grad():
+            for key, value in leaves_from_tree(tree, "params",
+                                               model).items():
+                named[key].copy_(value)
+            if self.param_shard is not None:
+                rank = rank_and_size(self.group)[0]
+                self.param_shard.copy_(self.layout.local_param_shard(
+                    self.layout.leaves(model), rank))
+        saved_ema = any(k.startswith("ema_params/") for k in tree)
+        event = None
+        if self.ema_params is not None and saved_ema:
+            self.ema_params = leaves_from_tree(tree, "ema_params", model)
+        elif self.ema_params is not None:
+            self.ema_params = _ema_start(model)
+            event = "ema_seeded_from_params"
+        elif saved_ema:
+            event = "ema_dropped_on_restore"
+        if isinstance(momentum, torch.Tensor):
+            self.load_momentum_shard(momentum)
+        else:
+            self.load_momentum(momentum)
+        self.step = int(tree["step"])
+        self.opt_count = int(tree["opt/count"])
+        return event
+
+
+def leaves_from_tree(tree: Mapping[str, Any], prefix: str,
+                     model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The checkpoint arrays under `prefix/<Flax name>` -> the port's
+    name -> fp32 tensor in the port's layout, on the model's device (the
+    inverse of `checkpoint_tree`'s views; the layout copies run there). A
+    missing, extra or misshapen leaf raises GeometryReceiptError: the
+    checkpoint was written for another model."""
+    leaves = canonical_leaves(model)
+    saved = {k[len(prefix) + 1:] for k in tree if k.startswith(prefix + "/")}
+    if saved != {name for name, *_ in leaves}:
+        raise GeometryReceiptError(
+            f"checkpoint {prefix} {sorted(saved)} are not this model's "
+            f"{sorted(name for name, *_ in leaves)}")
+    device = next(model.parameters()).device
+    out = {}
+    for name, key, shape, port_shape in leaves:
+        arr = torch.as_tensor(np.asarray(tree[f"{prefix}/{name}"]))
+        if tuple(arr.shape) != shape:
+            raise GeometryReceiptError(
+                f"checkpoint {prefix}/{name} has shape {tuple(arr.shape)}; "
+                f"this model's is {shape}")
+        t = torch.empty(port_shape, dtype=torch.float32, device=device)
+        view = flax_view(key, t)
+        view.copy_(arr.to(device).reshape(view.shape))
+        out[key] = t
+    return out
 
 
 def _ema_start(model: torch.nn.Module) -> Dict[str, torch.Tensor]:

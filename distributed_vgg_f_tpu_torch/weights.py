@@ -86,9 +86,17 @@ def _leaf_from_flax(path: Tuple[str, ...], arr: np.ndarray
 def _leaf_to_flax(key: str, arr: np.ndarray, num_heads: Optional[int]
                   ) -> Tuple[Tuple[str, ...], np.ndarray]:
     """One state_dict entry -> (Flax path, array in the Flax layout)."""
+    path, view = _flax_leaf_view(key, arr, num_heads)
+    return path, np.array(view, copy=True, order="C")
+
+
+def _flax_leaf_view(key: str, arr: np.ndarray, num_heads: Optional[int]
+                    ) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """`_leaf_to_flax` without the copy: the Flax path and a view of `arr`
+    in the Flax layout (its shape is all a caller of shapes needs)."""
     layer, _, leaf = key.rpartition(".")
     if not layer or leaf not in ("weight", "bias"):
-        return tuple(key.split(".")), np.array(arr, copy=True)
+        return tuple(key.split(".")), arr
     path = tuple(layer.split("."))
     if num_heads is None and (path[-1] == "qkv" or (path[-1] == "out"
                                                     and leaf == "weight")):
@@ -97,9 +105,9 @@ def _leaf_to_flax(key: str, arr: np.ndarray, num_heads: Optional[int]
     if leaf == "bias":
         if path[-1] == "qkv":     # flat -> (3, H, hd)
             arr = arr.reshape(3, num_heads, -1)
-        return path + ("bias",), np.array(arr, copy=True)
+        return path + ("bias",), arr
     if arr.ndim == 1:             # LayerNorm
-        return path + ("scale",), np.array(arr, copy=True)
+        return path + ("scale",), arr
     if path[-1] == "qkv":         # (3*H*hd, D) -> (D, 3, H, hd)
         out = arr.T.reshape(arr.shape[1], 3, num_heads, -1)
     elif path[-1] == "out":       # (D, H*hd) -> (H, hd, D)
@@ -111,7 +119,7 @@ def _leaf_to_flax(key: str, arr: np.ndarray, num_heads: Optional[int]
     else:
         raise ValueError(f"weight {key} of rank {arr.ndim}: expected a "
                          "conv (4), dense (2) or LayerNorm (1) weight")
-    return path + ("kernel",), np.ascontiguousarray(out)
+    return path + ("kernel",), out
 
 
 def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -171,8 +179,8 @@ def flax_leaves(shapes: Mapping[str, Sequence[int]], *,
     the JAX package's `jax.tree.leaves` order (sorted paths)."""
     out = []
     for key, shape in shapes.items():
-        path, arr = _leaf_to_flax(key, np.empty(tuple(shape), np.uint8),
-                                  num_heads)
+        path, arr = _flax_leaf_view(key, np.empty(tuple(shape), np.uint8),
+                                    num_heads)
         out.append((path, key, tuple(arr.shape)))
     out.sort(key=lambda leaf: leaf[0])
     return [("/".join(path), key, shape) for path, key, shape in out]
@@ -234,8 +242,8 @@ def init_params(model_cfg: ModelConfig, seed: int, *,
     gen = torch.Generator().manual_seed(int(seed))
     tree: dict = {}
     for name, param in model.named_parameters():
-        path, like = _leaf_to_flax(name, np.empty(tuple(param.shape),
-                                                  np.uint8), num_heads)
+        path, like = _flax_leaf_view(name, np.empty(tuple(param.shape),
+                                                    np.uint8), num_heads)
         leaf = path[-1]
         if leaf in ("bias", "cls"):
             value = np.zeros(like.shape, np.float32)

@@ -21,7 +21,14 @@ trace ``<resume>/trace``, `resume_step`) and `seed`. A case with
 `trainer` instead runs Trainer.fit on the flagship preset with its own
 mesh for `steps` steps on this rank's share of a seeded u8 batch, and
 writes the step times, losses, peak memory, LRN launches and the step's
-`comm_meta`. Rank r takes rows r*B/n .. (r+1)*B/n - 1 of each global
+`comm_meta`. A case with `checkpoint` (a directory) runs
+`Trainer.fit()` with no state on `checkpoint_config(spec, case)` (ZeRO-2
+over `bucket_mb` buckets at the group's size, checkpoints in that
+directory every `every` steps): it restores the directory's newest
+intact step or starts fresh, and trains to `steps` on global batches
+`first_batch` onwards (with `restore_only` it only restores); with
+`reload` a second Trainer then restores what the first left. `preset`
+takes that preset's model, data and mesh instead of the spec's. Rank r takes rows r*B/n .. (r+1)*B/n - 1 of each global
 batch.
 
 For each case every rank writes, to OUT_DIR/rank<r>.npz: `<case>/loss`,
@@ -30,8 +37,13 @@ step returns), `<case>/params/<name>` (the port's state_dict after the
 last step), `<case>/momentum` ((T,) flat under ZeRO, gathered; the
 per-leaf buffers as `<case>/momentum/<name>` otherwise), `<case>/snap<i>`
 (params and momentum flattened after step i, with `nan`), and the events
-and masks when asked. The group is gloo on the CPU, or NCCL with one
-card a rank when the last argument is "cuda".
+and masks when asked; a checkpoint case also `<case>/shard` (this rank's
+(S,) momentum), `<case>/restored_step` (-1 for a fresh start),
+`<case>/opt_count` and, with `reload`, the same under `<case>/reload/`;
+with `digest`, the SHA-256 of the params, shard and momentum bytes
+instead of the arrays (`<case>/params_sha`, ...).
+The group is gloo on the CPU, or NCCL with one card a rank when the last
+argument is "cuda".
 
 `run_group` (for the tests) starts the ranks on a free port and loads
 their outputs; `make_config` is the port's config for a spec, shared
@@ -39,6 +51,7 @@ with the tests' one-process reference.
 """
 
 import dataclasses
+import hashlib
 import json
 import os
 import socket
@@ -84,6 +97,108 @@ def make_config(spec: dict, dropout: float = 0.0):
             weight_decay=spec["weight_decay"]),
         data=dataclasses.replace(cfg.data, image_size=spec["size"],
                                  global_batch_size=spec["batch"]))
+
+
+def checkpoint_config(spec: dict, case: dict):
+    """The spec's narrow VGG-F (dropout and augment off) on the step
+    schedule, ZeRO-2 over `bucket_mb` buckets, checkpoints in
+    `case["checkpoint"]` every `case["every"]` steps; the same fields as
+    the JAX config tests/test_torch_checkpoint_jax.py builds. With
+    `case["preset"]`, that preset with the checkpoint fields."""
+    train = dict(steps=case["steps"], seed=0, log_every=1,
+                 checkpoint_dir=case["checkpoint"],
+                 checkpoint_every_steps=case.get("every", 2))
+    if "preset" in case:
+        cfg = tcfg.get_config(case["preset"])
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, **train))
+    return tcfg.ExperimentConfig(
+        name="checkpoint_test",
+        model=tcfg.ModelConfig(name="vggf", num_classes=spec["classes"],
+                               compute_dtype="float32", dropout_rate=0.0,
+                               extra=dict(spec["widths"])),
+        optim=tcfg.OptimConfig(base_lr=spec["lr"],
+                               reference_batch_size=spec["batch"],
+                               momentum=0.9,
+                               weight_decay=spec["weight_decay"]),
+        data=tcfg.DataConfig(name="synthetic", image_size=spec["size"],
+                             global_batch_size=spec["batch"],
+                             num_train_examples=4 * spec["batch"]),
+        mesh=tcfg.MeshConfig(shard_opt_state=True, shard_gradients=True,
+                             comm_bucket_mb=case.get("bucket_mb", 0.0)),
+        train=tcfg.TrainConfig(**train))
+
+
+def state_digests(state, num_shards: int, comm_bucket_mb: float) -> dict:
+    """SHA-256 of the params (state_dict order) and of the (T,) momentum
+    in the `num_shards`-rank layout: one card's restore is held to a
+    group's with them."""
+    out = {"params_sha": _sha(state.model.state_dict().values())}
+    if state.param_shard is not None:
+        out["momentum_sha"] = _sha([state.momentum_global()])
+    else:
+        lay = zero_layout(state.model, num_shards, comm_bucket_mb)
+        out["momentum_sha"] = _sha([lay.to_global(lay.leaves(
+            state.momentum()))])
+    return out
+
+
+def _sha(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_out(prefix: str, trainer, state, digest: bool = False) -> dict:
+    restores = [r["step"] for r in trainer.records if r["event"] == "restore"]
+    out = {f"{prefix}/restored_step": np.array(restores[-1] if restores
+                                                else -1),
+           f"{prefix}/step": np.array(state.step),
+           f"{prefix}/opt_count": np.array(state.opt_count),
+           f"{prefix}/loss": np.array([r["loss"] for r in trainer.records
+                                       if r["event"] == "train"])}
+    if digest:
+        n = torch.distributed.get_world_size()
+        for k, v in state_digests(state, n, trainer.cfg.mesh.comm_bucket_mb
+                                  ).items():
+            out[f"{prefix}/{k}"] = np.array(v)
+        out[f"{prefix}/shard_sha"] = np.array(_sha([state.momentum_shard()]))
+        return out
+    for k, v in state.model.state_dict().items():
+        out[f"{prefix}/params/{k}"] = v.cpu().numpy()
+    if state.param_shard is not None:
+        out[f"{prefix}/shard"] = state.momentum_shard().cpu().numpy()
+        out[f"{prefix}/momentum"] = state.momentum_global().cpu().numpy()
+    else:
+        for k, v in state.momentum().items():
+            out[f"{prefix}/momentum/{k}"] = v.cpu().numpy()
+    return out
+
+
+def run_checkpoint(case: dict, spec: dict, data, rank: int, world: int,
+                   dev: torch.device) -> dict:
+    """Trainer.fit() with no state over a checkpoint directory, then, with
+    `reload`, a fresh Trainer's restore of what it left."""
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    cfg = checkpoint_config(spec, case)
+    local = spec["batch"] // world
+    first = int(case.get("first_batch", 0))
+    batches = []
+    for i in range(first, case["steps"]):
+        image, label = global_batch(spec, data, i)
+        batches.append({"image": image[rank * local:(rank + 1) * local],
+                        "label": label[rank * local:(rank + 1) * local]})
+    trainer = Trainer(cfg, device=dev.type)
+    state = (trainer.restore_or_init() if case.get("restore_only")
+             else trainer.fit(None, batches, num_steps=case["steps"]))
+    digest = case.get("digest", False)
+    out = _state_out(case["name"], trainer, state, digest)
+    if case.get("reload"):
+        again = Trainer(cfg, device=dev.type)
+        out.update(_state_out(f"{case['name']}/reload", again,
+                              again.restore_or_init(), digest))
+    return out
 
 
 def make_model(spec: dict, tree: dict, dropout: float = 0.0):
@@ -322,6 +437,9 @@ def main(rank: int, world: int, port: int, spec_path: str, out_dir: str,
     for case in spec["cases"]:
         if "trainer" in case:
             results.update(run_trainer(case, spec, rank, world, dev))
+        elif "checkpoint" in case:
+            results.update(run_checkpoint(case, spec, data, rank, world,
+                                          dev))
         else:
             results.update(run_case(case, spec, data, rank, world, dev))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **results)

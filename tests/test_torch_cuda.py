@@ -1020,6 +1020,46 @@ def test_zero2_flagship_across_four_cards(cuda_device, tmp_path,
     assert trainer["comm_meta"]["sharding"] == "zero2"
 
 
+@pytest.mark.cuda
+def test_zero2_flagship_checkpoint_across_four_cards(cuda_device, tmp_path):
+    """The flagship preset (bf16, dropout, flip, mixup; ZeRO-2 over 4 MB
+    buckets) in a 4-rank NCCL group, 256 images a card on seeded u8
+    batches: `Trainer.fit()` saves at step 3, and a fresh Trainer on the
+    4 ranks restores it, each rank's params and (S,) momentum shard
+    bit-equal (SHA-256 of the bytes) to those it saved. Then one card
+    restores the same checkpoint through the layout migration (replicated
+    SGD): its params and its momentum, in the 4-rank bucket-major frame,
+    bit-equal to the group's gathered ones. Needs 4 cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices, one a rank of the NCCL group")
+    from _torch_dp_worker import checkpoint_config, run_group, state_digests
+
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    case = dict(name="ckpt", preset="vggf_imagenet_dp",
+                checkpoint=str(tmp_path / "ck"), steps=3, every=3,
+                reload=True, digest=True)
+    spec = {"widths": {}, "size": 224, "classes": 1000, "batch": 1024,
+            "lr": 0.04, "weight_decay": 5e-4, "u8_seed": 20,
+            "cases": [case]}
+    outs = run_group(4, spec, {}, str(tmp_path / "group"), timeout=1200,
+                     device="cuda")
+    for r, o in enumerate(outs):
+        assert int(o["ckpt/step"]) == 3 and int(
+            o["ckpt/reload/restored_step"]) == 3, r
+        assert int(o["ckpt/reload/opt_count"]) == int(o["ckpt/opt_count"])
+        for key in ("params_sha", "shard_sha", "momentum_sha"):
+            assert str(o[f"ckpt/reload/{key}"]) == str(o[f"ckpt/{key}"]), \
+                (r, key)
+        assert np.isfinite(o["ckpt/loss"]).all()
+    cfg = checkpoint_config(spec, case)
+    one = Trainer(cfg, device="cuda")
+    state = one.restore_or_init()
+    assert state.param_shard is None and state.step == 3
+    got = state_digests(state, 4, cfg.mesh.comm_bucket_mb)
+    assert got["params_sha"] == str(outs[0]["ckpt/params_sha"])
+    assert got["momentum_sha"] == str(outs[0]["ckpt/momentum_sha"])
+
+
 
 # ------------------------------------------------------------------ the feed
 def _fixture_tfrecords(out_dir, shards=2, per_shard=24):
