@@ -188,7 +188,24 @@ Phases, one JSON line each:
             because NCCL puts no two ranks on one card and gloo sends no
             CUDA tensors; (b) is what puts n > 1 offsets through the
             kernels
-  isolation no jax, flax or JAX-package module was imported
+  train_e2e the flagship end to end through cli.main(argv) in this
+            process, on train_feed's shards plus 1200 validation records
+            (1024 + 176), base_lr 0.001: 30 steps with an eval every 10,
+            a record every 5 and a checkpoint every 10, SIGTERM from a
+            thread once step 12 is logged (a preempt record at the next
+            step, its forced save), a second main() resuming through the
+            iterator blob to 30, --mode eval (equal to the eval at 30),
+            --mode eval from the best slot (equal to its recorded score),
+            --mode predict on the 16 JPEGs (top-1 equal to the eval
+            forward's, or tied with it in bf16; full probability rows sum
+            to 1), metrics.jsonl
+            valid; train step ms beside train_feed's, eval pass seconds
+            and images/s, the float32 eval batch's H2D ms, steps from the
+            signal to the stop, the forced save's dispatch ms, seconds to
+            the resumed first step, predict images/s; LRN launches 2 + 2
+            a step, 2 an eval or predict batch, all vector
+  isolation no jax, flax or JAX-package module was imported (the CLI,
+            preempt, logging and predict modules imported first)
   wall      the script's wall seconds
 then the kernels summary line (each flash row with the head dims its
 kernel was checked at), the nvidia-smi line, and as the last line
@@ -1833,6 +1850,309 @@ def phase_train_ckpt(train_step_ms, feed_step_ms, feed_dir, smi):
     return both
 
 
+def _pack_validation(out_dir, records=1200):
+    """`records` validation records of the fixture's JPEGs (the labels of
+    `_pack_fixture`) in 2 shards: 1024 + 176 at the flagship's batch."""
+    from tools.tfrecord_write import write_shards
+    paths = sorted(f for f in os.listdir(_FIXTURE) if f.endswith(".jpg"))
+    jpegs = []
+    for f in paths:
+        with open(os.path.join(_FIXTURE, f), "rb") as fh:
+            jpegs.append(fh.read())
+    labels = [1 + (61 * k) % 1000 for k in range(len(jpegs))]
+    return write_shards(out_dir, jpegs, labels, shards=2,
+                        per_shard=records // 2, prefix="validation")
+
+
+def phase_train_e2e(feed_dir, train_step_ms, feed_step_ms, smi):
+    """The flagship end to end through the command line, in this process
+    (cli.main(argv)), on phase train_feed's shards plus 1200 validation
+    records in `feed_dir`, at base_lr 0.001 (the preset's LR diverges on
+    the 16-image fixture, in fp32 without dropout, flip and mixup too:
+    tools/torch_flagship_probe.py): (a) train to 30 with an eval every 10, a record
+    every 5 and a checkpoint every 10, stopped by SIGTERM from a thread
+    once a record of step >= 12 is on disk (a preempt record at the next
+    completed step, its forced save); (b) a second main() resumes through
+    the iterator blob and runs to 30 (evals at 20 and 30); (c) --mode eval
+    (its counts equal the in-fit eval at 30), --mode eval from the best
+    slot (its eval_top1 the slot's recorded score), --mode predict on the
+    16 fixture JPEGs (top-1 equal to the eval forward's on the restored
+    weights, or a class whose bf16 logit ties its largest; each full
+    probability row sums to 1); (d) metrics.jsonl
+    valid under telemetry/schema.py. LRN counts are zeroed before (a) and
+    read after (c)'s predict. cuDNN deterministic for this phase only.
+    Returns the LRN launches."""
+    import contextlib
+    import io
+    import signal
+
+    from distributed_vgg_f_tpu_torch import cli
+    from distributed_vgg_f_tpu_torch.checkpoint.manager import \
+        CheckpointManager
+    from distributed_vgg_f_tpu_torch.config import parse_cli
+    from distributed_vgg_f_tpu_torch.data.native_jpeg import \
+        NativeJpegEvalIterator
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.telemetry import get_recorder
+    from distributed_vgg_f_tpu_torch.telemetry.schema import \
+        validate_metrics_jsonl
+    from distributed_vgg_f_tpu_torch.train import predict as predict_mod
+    from distributed_vgg_f_tpu_torch.train import trainer as trainer_mod
+
+    _pack_validation(feed_dir)
+    root = tempfile.mkdtemp(prefix="train_e2e_")
+    ck = os.path.join(root, "ck")
+    jsonl = os.path.join(ck, "metrics.jsonl")
+    argv = ["--config", "vggf_imagenet_dp",
+            "--set", f"data.data_dir={feed_dir}",
+            "--set", f"train.checkpoint_dir={ck}",
+            "--set", "train.steps=30", "--set", "train.eval_every_steps=10",
+            "--set", "train.log_every=5",
+            "--set", "train.checkpoint_every_steps=10",
+            "--set", "train.seed=0",
+            # the preset's LR (0.04, no warmup) diverges on the 16-image
+            # fixture, in fp32 without dropout, flip and mixup as well
+            # (tools/torch_flagship_probe.py part lr)
+            "--set", "optim.base_lr=0.001"]
+    cfg = parse_cli(argv)
+    b = cfg.data.global_batch_size
+    fixture = sorted(os.path.join(_FIXTURE, f)
+                     for f in os.listdir(_FIXTURE) if f.endswith(".jpg"))
+
+    # every train step's host time, and the device-complete time of each
+    # main()'s first step, through a Trainer whose step is stamped
+    stamps, first_done = [], []
+    base_trainer = trainer_mod.Trainer
+
+    class Stamped(base_trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            inner = self.train_step
+
+            def step(state, batch, seed):
+                out = inner(state, batch, seed)
+                if len(first_done) < len(mains):
+                    torch.cuda.synchronize()
+                    first_done.append(time.perf_counter())
+                stamps.append((state.step, time.perf_counter()))
+                return out
+
+            step.comm_meta = inner.comm_meta
+            self.train_step = step
+
+    def records():
+        with open(jsonl) as f:
+            return [json.loads(line) for line in f if line.strip()]
+
+    # the watcher: SIGTERM to this process once a record of step >= 12
+    # is on disk; a signal after fit's handler is gone lands here
+    sent, late, stop_watch = {}, [], threading.Event()
+
+    def watch():
+        while not stop_watch.wait(0.02):
+            if not os.path.exists(jsonl):
+                continue
+            steps = [r["step"] for r in records() if r["event"] == "train"]
+            if steps and max(steps) >= 12:
+                sent.update(step=max(steps), ns=time.monotonic_ns())
+                os.kill(os.getpid(), signal.SIGTERM)
+                return
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    old_sigterm = signal.signal(signal.SIGTERM,
+                                lambda *a: late.append(time.perf_counter()))
+    trainer_mod.Trainer = Stamped
+    mains = []
+    spans_since = time.monotonic_ns()
+    lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+    lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
+    try:
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        mains.append(time.perf_counter())
+        cli.main(argv)
+        stop_watch.set()
+        watcher.join(timeout=10)
+        check(not watcher.is_alive(), "the SIGTERM watcher did not stop")
+        run1 = records()
+        mains.append(time.perf_counter())
+        cli.main(argv)
+        run2 = records()[len(run1):]
+        outs = {}
+        for name, extra in (("eval", ["--mode", "eval"]),
+                            ("eval_best", ["--mode", "eval", "--set",
+                                           "train.restore_from_best=true"]),
+                            ("predict", ["--mode", "predict",
+                                         "--images", *fixture])):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                cli.main(argv + extra)
+            outs[name] = (out.getvalue(), time.perf_counter() - t0)
+        launches = {"fwd": lrn_cuda.LAUNCHES, "bwd": lrn_cuda.BWD_LAUNCHES,
+                    "vec_fwd": lrn_cuda.VEC_LAUNCHES,
+                    "vec_bwd": lrn_cuda.VEC_BWD_LAUNCHES}
+    finally:
+        stop_watch.set()
+        trainer_mod.Trainer = base_trainer
+        signal.signal(signal.SIGTERM, old_sigterm)
+    try:
+        recs = records()
+        errors = validate_metrics_jsonl(jsonl)
+        preempt = [r for r in run1 if r["event"] == "preempt"]
+        restore2 = [r for r in run2 if r["event"] in (
+            "restore", "iterator_state_restore", "data_iterator_restore",
+            "data_fast_forward")]
+        evals = [r for r in recs if r["event"] == "eval"]
+        fit_evals = {r["step"]: r for r in evals[:-2]}
+        mode_eval, best_eval = evals[-2], evals[-1]
+        best_mgr = CheckpointManager(os.path.join(ck, "best"),
+                                     best_metric="eval_top1")
+        best_extra = best_mgr.latest_extra() or {}
+        predicted = [json.loads(line) for line in
+                     outs["predict"][0].splitlines()
+                     if line.startswith("{")]
+        # the eval forward of the restored weights on the same decode
+        tr = base_trainer(cfg)
+        state = tr.restore_or_init()
+        dec = NativeJpegEvalIterator(
+            fixture, [0] * len(fixture), len(fixture), cfg.data.image_size,
+            mean=np.asarray(cfg.data.mean_rgb, np.float32),
+            std=np.asarray(cfg.data.stddev_rgb, np.float32))
+        batch = next(iter(dec))
+        dec.close()
+        with torch.inference_mode():
+            logits = state.model(
+                torch.from_numpy(batch["image"]).cuda()).float().cpu()
+        eval_top1 = logits.argmax(-1).tolist()
+        t0 = time.perf_counter()
+        full = predict_mod.run_predict(tr, fixture,
+                                       top_k=cfg.model.num_classes,
+                                       stream=io.StringIO())
+        predict_s = time.perf_counter() - t0
+        sums = [sum(e["prob"] for e in r["top_k"]) for r in full]
+        # the float32 eval wire: one batch's pageable H2D copy
+        host = torch.empty((b, cfg.data.image_size, cfg.data.image_size, 3),
+                           dtype=torch.float32)
+        dev = torch.empty_like(host, device="cuda")
+        h2d_ms = []
+        for _ in range(3):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            dev.copy_(host)
+            e1.record()
+            e1.synchronize()
+            h2d_ms.append(e0.elapsed_time(e1))
+        del host, dev, tr, state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+    stop = preempt[0]["step"] if preempt else None
+    dispatch = [(t0, d / 1e6) for n, _, t0, d, *_ in
+                get_recorder().snapshot()
+                if n == "checkpoint_save_dispatch" and t0 >= spans_since]
+    # the preemption's forced save: the first dispatch after the signal
+    forced = [ms for t0, ms in dispatch if t0 >= sent.get("ns", 0)][:1]
+    by_main = [[t for s, t in stamps if mains[i] <= t
+                and (i + 1 == len(mains) or t < mains[i + 1])]
+               for i in range(len(mains))]
+    step_ms = [(t1 - t0) * 1e3 for run in by_main
+               for t0, t1 in zip(run, run[1:])]
+    # the gaps that hold no eval and no save (those follow a step that is
+    # a multiple of 10, or the preemption's stop)
+    steps_by_main = [[s for s, t in stamps if mains[i] <= t
+                      and (i + 1 == len(mains) or t < mains[i + 1])]
+                     for i in range(len(mains))]
+    quiet_ms = [ms for run_s, run_t in zip(steps_by_main, by_main)
+                for s, ms in zip(run_s, [(t1 - t0) * 1e3 for t0, t1 in
+                                         zip(run_t, run_t[1:])])
+                if s % 10]
+    eval_s = [r["eval_seconds"] for r in evals]
+    emit("train_e2e", card=smi, preset="vggf_imagenet_dp", batch=b,
+         argv=argv, steps=30, validation_records=1200,
+         step_ms_median=statistics.median(step_ms),
+         step_ms_median_without_eval_or_save=statistics.median(quiet_ms),
+         host_wait_fraction=[r["host_wait_fraction"] for r in recs
+                             if r["event"] == "train"],
+         train_feed_step_ms_median=feed_step_ms,
+         train_step_ms_median=train_step_ms,
+         images_per_s=b / (statistics.median(step_ms) / 1e3),
+         eval_passes=len(evals), eval_seconds=eval_s,
+         eval_images_per_s=[r["eval_examples"] / r["eval_seconds"]
+                            for r in evals],
+         eval_h2d_ms=h2d_ms,
+         eval_batch_bytes=b * cfg.data.image_size ** 2 * 3 * 4,
+         signal_after_step=sent.get("step"), preempted_at=stop,
+         steps_signal_to_stop=(stop - sent["step"]
+                               if stop and sent else None),
+         forced_save_dispatch_ms=forced[0] if forced else None,
+         save_dispatch_ms=[ms for _, ms in dispatch],
+         resume_first_step_s=first_done[1] - mains[1]
+         if len(first_done) > 1 else None,
+         restore_events=restore2,
+         fit_evals={k: [v["eval_top1"], v["eval_top5"], v["eval_examples"]]
+                    for k, v in fit_evals.items()},
+         mode_eval=[mode_eval["eval_top1"], mode_eval["eval_top5"],
+                    mode_eval["eval_examples"]],
+         best_eval=best_eval["eval_top1"], best_slot=best_extra.get(
+             "eval_top1"), best_slot_step=best_extra.get("step"),
+         predict_records=len(predicted), predict_s=predict_s,
+         predict_top1_ties=sum(
+             p != e for p, e in zip(
+                 [r["top_k"][0]["class"] for r in predicted], eval_top1)),
+         predict_images_per_s=len(fixture) / predict_s,
+         cli_seconds={k: v[1] for k, v in outs.items()},
+         prob_sums=[min(sums), max(sums)] if sums else None,
+         schema_errors=errors, lrn_launches=launches, late_sigterm=late,
+         losses=[r["loss"] for r in recs if r["event"] == "train"])
+    check(not late, "a SIGTERM reached the process outside fit")
+    check(stop is not None and sent and 1 <= stop - sent["step"] <= 3,
+          f"preempt {preempt} after the signal at step {sent.get('step')}")
+    check(preempt[0]["checkpointed"], f"preempt record {preempt}")
+    check(any(r["event"] == "restore" and r["step"] == stop
+              for r in restore2)
+          and any(r["event"] == "iterator_state_restore"
+                  and r["replayed_batches"] == 0 for r in restore2)
+          and not any(r["event"] == "data_fast_forward" for r in restore2),
+          f"the resume did not restore step {stop} through the blob: "
+          f"{restore2}")
+    check(sorted(fit_evals) == [10, 20, 30],
+          f"in-fit evals at {sorted(fit_evals)}")
+    check(all(r["eval_examples"] == 1200 for r in evals),
+          f"eval examples {[r['eval_examples'] for r in evals]}")
+    f30 = fit_evals.get(30, {})
+    check([mode_eval[k] for k in ("eval_top1", "eval_top5")]
+          == [f30.get(k) for k in ("eval_top1", "eval_top5")],
+          f"--mode eval {mode_eval} against the in-fit eval at 30 {f30}")
+    check(best_eval["eval_top1"] == best_extra.get("eval_top1"),
+          f"best-slot eval {best_eval} against the slot {best_extra}")
+    # the same class, or one whose bf16 logit ties the eval forward's
+    # largest (records break ties by np.argsort, as JAX's do)
+    top1 = [r["top_k"][0]["class"] for r in predicted]
+    check(len(predicted) == len(fixture)
+          and all(float(logits[i, c]) == float(logits[i].max())
+                  for i, c in enumerate(top1)),
+          f"predict top-1 {top1} against the eval forward's {eval_top1}")
+    check(len(sums) == len(fixture)
+          and all(abs(s - 1.0) <= 1e-3 for s in sums),
+          f"probability rows sum to {sums}")
+    check(errors == [], f"metrics.jsonl schema errors: {errors}")
+    steps_run = 30
+    passes = len(evals)
+    want = {"fwd": 2 * steps_run + 2 * 2 * passes + 2,
+            "bwd": 2 * steps_run}
+    check(launches == {**want, "vec_fwd": want["fwd"],
+                       "vec_bwd": want["bwd"]},
+          f"LRN launches {launches}, expected {want} (30 steps, {passes} "
+          "eval passes of 2 batches, one predict batch), all vector")
+    check(all(math.isfinite(r["loss"]) for r in recs
+              if r["event"] == "train"), "non-finite loss")
+    torch.cuda.empty_cache()
+    return launches
+
+
 # ------------------------------------------------------------- ViT phases
 #: ViT-S/16's attention on the card: T = 197 tokens, 6 heads of 64
 _VIT_T, _VIT_H, _VIT_D = 197, 6, 64
@@ -3237,12 +3557,21 @@ def phase_ring_flash():
 
 
 def phase_isolation():
+    import importlib
+    # the entry points and planes of the port, imported here as well so
+    # the check covers them whichever phases ran
+    port = ["distributed_vgg_f_tpu_torch.cli",
+            "distributed_vgg_f_tpu_torch.parallel.preempt",
+            "distributed_vgg_f_tpu_torch.utils.logging",
+            "distributed_vgg_f_tpu_torch.train.predict"]
+    for name in port:
+        importlib.import_module(name)
     bad = sorted(m for m in sys.modules
                  if any(m == r or m.startswith(r + ".")
                         for r in ("jax", "jaxlib", "flax",
                                   "distributed_vgg_f_tpu")))
     check(bad == [], f"JAX-side modules imported: {bad}")
-    emit("isolation", forbidden_modules=bad)
+    emit("isolation", forbidden_modules=bad, port_modules_checked=port)
 
 
 def main() -> int:
@@ -3310,6 +3639,8 @@ def main() -> int:
         feed_launches, feed_ms = phase_train_feed(train_ref, feed_dir)
         ckpt_launches = phase_train_ckpt(train_ref["step_ms_median"],
                                          feed_ms, feed_dir, smi)
+        e2e_launches = phase_train_e2e(feed_dir, train_ref["step_ms_median"],
+                                       feed_ms, smi)
     finally:
         shutil.rmtree(feed_dir, ignore_errors=True)
     del tree
@@ -3449,11 +3780,12 @@ def main() -> int:
         "lrn_fwd", "distributed_vgg_f_tpu_torch/csrc/lrn_fwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records, "bucket", 32,
         serve_launches + train_launches["fwd"] + zero2_launches["fwd"]
-        + feed_launches["fwd"] + ckpt_launches["fwd"],
+        + feed_launches["fwd"] + ckpt_launches["fwd"] + e2e_launches["fwd"],
         {"serve": serve_launches, "train": train_launches["fwd"],
          "train_zero2": zero2_launches["fwd"],
          "train_feed": feed_launches["fwd"],
-         "train_ckpt": ckpt_launches["fwd"]},
+         "train_ckpt": ckpt_launches["fwd"],
+         "train_e2e": e2e_launches["fwd"]},
         "both LRN sites of one bf16 forward at bucket 32, ReLU fused")
     at32 = lrn_times(lrn_sites(records, "bucket", 32), "relu_ms")
     lrn_fwd_row.update(
@@ -3464,11 +3796,12 @@ def main() -> int:
         "lrn_bwd", "distributed_vgg_f_tpu_torch/csrc/lrn_bwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:74", bwd_records, "batch",
         1024, train_launches["bwd"] + zero2_launches["bwd"]
-        + feed_launches["bwd"] + ckpt_launches["bwd"],
+        + feed_launches["bwd"] + ckpt_launches["bwd"] + e2e_launches["bwd"],
         {"serve": 0, "train": train_launches["bwd"],
          "train_zero2": zero2_launches["bwd"],
          "train_feed": feed_launches["bwd"],
-         "train_ckpt": ckpt_launches["bwd"]},
+         "train_ckpt": ckpt_launches["bwd"],
+         "train_e2e": e2e_launches["bwd"]},
         "both LRN sites of one bf16 training step at batch 1024, the ReLU's "
         "backward fused")
     at1024 = lrn_times(lrn_sites(bwd_records, "batch", 1024), "relu_bwd_ms")

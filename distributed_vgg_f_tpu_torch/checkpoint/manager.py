@@ -13,6 +13,7 @@ state as JSON:
     <root>/<step>/state/opt/count.npy             optax's count, int32
     <root>/<step>/state/ema_params/...            when the run keeps one
     <root>/<step>/extra.json                      receipts and the blob
+    <root>/<step>/metrics.json                    the score (best_metric)
 
 so a step the port wrote and a JAX step converted by
 tools/orbax_to_port.py are the same files, read by one restore path. No
@@ -35,10 +36,15 @@ ranks keep the same bookkeeping.
 
 Retention keeps the `max_to_keep` newest steps in save order (Orbax's),
 applied by the writer once the new step is durable, which also removes
-manifests whose step is gone. The first save of a manager with no step
-on disk is always taken (Orbax's initial-save policy), later ones at
-multiples of `save_interval_steps`. The JAX manager's `best_metric` mode
-comes with the eval cadence that calls it (ROADMAP A10).
+manifests whose step is gone. With `best_metric` (the trainer's best
+slot) it keeps the `max_to_keep` best-SCORED steps instead (the score,
+`metrics[best_metric]` of `save(..., metrics=)`, max mode, written to
+the step's `metrics.json`), `best_step()` prefers the best-scored intact
+step, and a collision is replaced at an unused index, so a best step
+exists at every instant of the replacement. The first save of a manager
+with no step on disk is always taken (Orbax's initial-save policy),
+later ones at multiples of `save_interval_steps`. The writer retries the
+OSError family `SAVE_RETRIES` times.
 
 Counters (`CHECKPOINT_COUNTERS`, telemetry/registry.py) and spans
 (`checkpoint_save_dispatch`, `checkpoint_restore`, `checkpoint_wait`,
@@ -77,11 +83,12 @@ from distributed_vgg_f_tpu_torch.telemetry.registry import \
 
 #: The writer retries the OSError family this many times, with
 #: exponential backoff, before a save fails (the JAX trainer's default
-#: `train.checkpoint_save_retries`).
+#: `train.checkpoint_save_retries`, which the port does not expose).
 SAVE_RETRIES = 2
 
 STATE_DIRNAME = "state"
 EXTRA_FILE = "extra.json"
+METRICS_FILE = "metrics.json"
 
 
 class LeafMeta(NamedTuple):
@@ -171,12 +178,15 @@ class CheckpointManager:
     of array names to arrays holding `step`."""
 
     def __init__(self, directory: str, *, max_to_keep: int = 3,
-                 save_interval_steps: int = 1):
+                 save_interval_steps: int = 1,
+                 best_metric: Optional[str] = None):
         """Every durable step gets a checksum manifest; `best_step()` and
         default restores verify it and fall back to the newest INTACT
-        step, recording the skipped ones on `last_integrity_fallback`."""
+        step, recording the skipped ones on `last_integrity_fallback`.
+        `best_metric`: retain and prefer steps by this score (max)."""
         self._save_interval = max(1, int(save_interval_steps))
         self._max_to_keep = max_to_keep
+        self._best_metric = best_metric
         self._dir = os.path.abspath(directory)
         # steps this manager has durably saved: a collision with one of
         # them is a re-save of IDENTICAL state (one state per step)
@@ -204,43 +214,59 @@ class CheckpointManager:
                                   ignore_errors=True)
         # save order (retention drops the oldest first), from disk
         self._steps: list = _scan_steps(self._dir)
+        # best_metric mode: each step's score, from its metrics.json
+        self._scores: Dict[int, float] = {}
+        if best_metric is not None:
+            for s in self._steps:
+                score = (self.metrics_at(s) or {}).get(best_metric)
+                if score is not None:
+                    self._scores[s] = float(score)
 
     # ------------------------------------------------------------------ save
     def save(self, state, extra: Optional[Mapping[str, Any]] = None, *,
              force: bool = False,
+             metrics: Optional[Mapping[str, Any]] = None,
              replace_on_collision: bool = False) -> bool:
         """Save `state` at its step; True when the save was taken.
+        `metrics` (JSON) go to the step's `metrics.json`; under
+        `best_metric` they carry its score.
 
         `replace_on_collision`: a run branched from an earlier checkpoint
         re-reaches step numbers that already exist on disk holding STALE
-        state; with this flag such a collision deletes the stale step and
-        re-saves it, synchronously. A collision with a step THIS manager
-        already saved is a re-save of identical state and returns True
-        untouched."""
+        state; with this flag such a collision replaces the stale step,
+        synchronously: a plain manager deletes it and re-saves the step,
+        a `best_metric` manager saves the replacement at an unused index
+        (one past the largest) and retention removes the worse-scored
+        entry only once the new one is durable. A collision with a step
+        THIS manager already saved is a re-save of identical state and
+        returns True untouched."""
         step = _step_of(state)
 
-        def save_at(force_flag: bool) -> bool:
-            if not force_flag and not self._should_save(step):
+        def save_at(idx: int, force_flag: bool) -> bool:
+            if not force_flag and not self._should_save(idx):
                 return False
-            if step in self._steps:
-                raise _StepExists(step)
+            if idx in self._steps:
+                raise _StepExists(idx)
             with telemetry.span("checkpoint_save_dispatch", "checkpoint"):
-                self._dispatch(step, state, extra)
+                self._dispatch(idx, state, extra, metrics)
             telemetry.inc("checkpoint/saves")
             return True
 
         def save_replacing() -> bool:
             if step in self._saved_steps:
                 return True  # already durable, identical by construction
-            if step in self._steps:
-                self.delete(step)
-            save_at(True)
+            if self._best_metric is not None:
+                save_at(1 + max(self._steps, default=step), True)
+            else:
+                if step in self._steps:
+                    self.delete(step)
+                save_at(step, True)
             self._wait_writer()
             self._saved_steps.add(step)
             return True
 
         try:
-            saved = save_at(force)
+            saved = save_at(step, force)
         except _StepExists:
             return save_replacing() if replace_on_collision else False
         if saved:
@@ -262,7 +288,7 @@ class CheckpointManager:
             return False
         return step % self._save_interval == 0 or not self._steps
 
-    def _dispatch(self, idx: int, state, extra) -> None:
+    def _dispatch(self, idx: int, state, extra, metrics=None) -> None:
         """The training thread's half of a save: wait for the save whose
         buffers this one reuses, build the arrays (a collective under
         ZeRO), enqueue their copy into host buffers and hand the writes
@@ -274,21 +300,36 @@ class CheckpointManager:
                 else state)
         self._steps.append(idx)
         self._verified.pop(idx, None)
-        n = self._max_to_keep
-        removed = ([] if n is None or len(self._steps) <= n
-                   else self._steps[:len(self._steps) - n])
+        if self._best_metric is not None and metrics \
+                and metrics.get(self._best_metric) is not None:
+            self._scores[idx] = float(metrics[self._best_metric])
+        removed = self._retention()
         for s in removed:
             self._forget(s)
         if not self._writer:
             return
         snapshot, event = self._snapshot(tree)
         self.timings.update(wait_s=t1 - t0, snapshot_s=time.monotonic() - t1)
-        job = (idx, snapshot, event, json.dumps(dict(extra or {})), removed,
-               set(self._steps))
+        job = (idx, snapshot, event, json.dumps(dict(extra or {})),
+               None if metrics is None else json.dumps(dict(metrics)),
+               removed, set(self._steps))
         if self._pool is None:
             self._pool = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="checkpoint-writer")
         self._inflight = (idx, self._pool.submit(self._write_job, *job))
+
+    def _retention(self) -> list:
+        """The steps past `max_to_keep`: the oldest saved, or under
+        `best_metric` the worst-scored (unscored ones first, then by
+        index)."""
+        n = self._max_to_keep
+        if n is None or len(self._steps) <= n:
+            return []
+        if self._best_metric is None:
+            return self._steps[:len(self._steps) - n]
+        ranked = sorted(self._steps, key=lambda s: (
+            s in self._scores, self._scores.get(s, 0.0), s))
+        return ranked[:len(self._steps) - n]
 
     def _snapshot(self, tree: Mapping[str, Any]):
         """Copy every array into this manager's host buffers (pinned for
@@ -316,13 +357,14 @@ class CheckpointManager:
             event.record(torch.cuda.current_stream(device))
         return snapshot, event
 
-    def _write_job(self, idx, snapshot, event, extra_json, removed,
-                   kept) -> None:
+    def _write_job(self, idx, snapshot, event, extra_json, metrics_json,
+                   removed, kept) -> None:
         t0 = time.monotonic()
         if event is not None:
             event.synchronize()
         files, hash_s = self._retry_io(
-            lambda: self._write_step(idx, snapshot, extra_json))
+            lambda: self._write_step(idx, snapshot, extra_json,
+                                     metrics_json))
         t1 = time.monotonic()
         self._retry_io(lambda: write_manifest(self._dir, idx, files))
         t2 = time.monotonic()
@@ -333,7 +375,8 @@ class CheckpointManager:
             if s not in kept:
                 remove_step_manifest(self._dir, s)
 
-    def _write_step(self, idx: int, snapshot, extra_json: str) -> tuple:
+    def _write_step(self, idx: int, snapshot, extra_json: str,
+                    metrics_json: Optional[str]) -> tuple:
         """Write one step under a tmp name, fsync it, rename it into
         place: a step exists whole or not at all. Returns its manifest's
         `files` and the seconds spent hashing them."""
@@ -349,6 +392,10 @@ class CheckpointManager:
             written[EXTRA_FILE] = _write_file(
                 os.path.join(tmp, EXTRA_FILE),
                 lambda f: f.write(extra_json.encode()))
+            if metrics_json is not None:
+                written[METRICS_FILE] = _write_file(
+                    os.path.join(tmp, METRICS_FILE),
+                    lambda f: f.write(metrics_json.encode()))
             # a stale manifest of this index must not judge the new files
             remove_step_manifest(self._dir, idx)
             os.replace(tmp, step_dir(self._dir, idx))
@@ -391,6 +438,7 @@ class CheckpointManager:
         if step in self._steps:
             self._steps.remove(step)
         self._verified.pop(step, None)
+        self._scores.pop(step, None)
 
     # ------------------------------------------------------------- integrity
     def verify_step(self, step: int) -> bool:
@@ -412,14 +460,22 @@ class CheckpointManager:
         return self._steps[-1] if self._steps else None
 
     def best_step(self) -> Optional[int]:
-        """The step a default restore uses: the latest, SKIPPING any step
-        that fails verification, newest first. None when no intact step
-        remains (never a reason to reinitialize silently: see restore()).
-        Skipped steps are recorded on `last_integrity_fallback`."""
+        """The step a default restore uses: the best-scored one under
+        `best_metric`, else the latest, SKIPPING any step that fails
+        verification and falling back newest first. None when no intact
+        step remains (never a reason to reinitialize silently: see
+        restore()). Skipped steps are recorded on
+        `last_integrity_fallback`."""
         self._wait_writer()
+        order = []
+        if self._scores:
+            order.append(max(self._scores,
+                             key=lambda s: (self._scores[s], s)))
+        order.extend(s for s in sorted(self._steps, reverse=True)
+                     if s not in order)
         skipped = []
         self.last_integrity_fallback = None
-        for step in sorted(self._steps, reverse=True):
+        for step in order:
             if self.verify_step(step):
                 if skipped:
                     self.last_integrity_fallback = {"chosen": step,
@@ -512,6 +568,19 @@ class CheckpointManager:
         """The `extra` JSON of one step, without reading its arrays."""
         return _read_json(os.path.join(step_dir(self._dir, step),
                                        EXTRA_FILE)) or {}
+
+    def metrics_at(self, step: int) -> Optional[Mapping[str, Any]]:
+        """The `metrics` JSON a step was saved with, or None."""
+        return _read_json(os.path.join(step_dir(self._dir, step),
+                                       METRICS_FILE))
+
+    def latest_extra(self) -> Optional[Mapping[str, Any]]:
+        """The `extra` JSON of the step a default restore would use (the
+        best-scored under `best_metric`), without reading its arrays;
+        None without an intact step. The best slot's threshold: a
+        resumed run must not regress the durable best."""
+        step = self.best_step()
+        return None if step is None else self.extra_at(step)
 
     def iterator_state_at(self, step: int) -> Optional[Mapping[str, Any]]:
         """The iterator-state blob of one step's `extra`, or None."""

@@ -1,26 +1,31 @@
-"""Typed configuration of the port's serving and single-device training
-slices.
+"""Typed configuration of the port.
 
-Own copies of the parts of the JAX package's `config.py` these slices
-read: `ModelConfig` (with its `extra` overrides), `OptimConfig`,
-`AugmentConfig`, the `DataConfig` fields serving, the training step and
-the trainer's feed use, `MeshConfig` (the gradient exchange: ZeRO-1/2,
-buckets, the wire) and `TrainConfig` limited to the fields the step, the
-core loop and its feed read, a `ServingConfig` limited to
-the fields the port honours, `resolve_serving_buckets`, the derived
-`scaled_lr` / `steps_per_epoch` / `total_steps`, and the
-`vggf_imagenet_dp`, `vggf_teacher` and `vit_s16_imagenet` presets.
-Fields of later slices
-(the eval cadence, the best slot, the checkpoint save retries,
-preemption, autotune, the admission controller, serving tiers) are
-absent until their slice ports them: a field the port would accept and
-ignore is left out instead.
+Own copies of the parts of the JAX package's `config.py` the port reads:
+`ModelConfig` (with its `extra` overrides), `OptimConfig`,
+`AugmentConfig`, the `DataConfig` fields serving, the training step,
+the trainer's feed and eval use,
+`MeshConfig` (the gradient exchange: ZeRO-1/2, buckets, the wire),
+`TrainConfig` limited to the fields the step, the core loop, its feed,
+checkpoints, eval cadence, best slot and preemption read, a
+`ServingConfig` limited to the fields the port honours,
+`resolve_serving_buckets`, the derived `scaled_lr` / `steps_per_epoch` /
+`total_steps`, the `vggf_imagenet_dp`, `vggf_teacher` and
+`vit_s16_imagenet` presets, and the command line's override machinery
+(`apply_overrides`, `fold_override_items`, `parse_cli`: the JAX
+package's dotted `--set KEY=VALUE` keys and refusals).
+
+Fields of later slices (autotune, telemetry, the admission controller,
+serving tiers, elastic resize, ...) are absent until their slice ports
+them: a field the port would accept and ignore is left out instead, and
+a `--set` of one raises, naming its ROADMAP item (`UNPORTED_KEYS`).
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 from dataclasses import dataclass, field, replace
-from typing import Any, Mapping, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 from distributed_vgg_f_tpu_torch.models.ingest import (IMAGENET_MEAN_RGB,
                                                        IMAGENET_STDDEV_RGB)
@@ -85,6 +90,16 @@ class AugmentConfig:
         the host decoder reads before it flips."""
         return self.enabled and self.hflip
 
+    def describe(self) -> dict:
+        """The train record's `augment` block (JAX `config.py:499`,
+        without RandAugment's magnitude, which the port has not)."""
+        return {"enabled": self.enabled, "hflip": self.hflip,
+                "crop_jitter": self.crop_jitter,
+                "mixup_alpha": self.mixup_alpha,
+                "cutmix_alpha": self.cutmix_alpha,
+                "rand_ops": self.rand_ops,
+                "host_flips_disabled": self.owns_hflip}
+
 
 @dataclass(frozen=True)
 class DataConfig:
@@ -103,6 +118,9 @@ class DataConfig:
     image_size: int = 224    # square input resolution (the u8 payload side)
     global_batch_size: int = 256          # the optimizer's batch
     num_train_examples: int = 1_281_167   # ImageNet-1k default
+    # eval split size (ImageNet-1k val): an infinite eval stream draws
+    # num_eval_examples // global_batch_size batches
+    num_eval_examples: int = 50_000
     # dtype the device finish emits ("float32" | "bfloat16"); the model
     # casts to its compute dtype downstream either way
     image_dtype: str = "float32"
@@ -180,12 +198,13 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The fields the train step, the core loop and its checkpoints
-    read."""
+    """The fields the train step, the core loop, its checkpoints, eval
+    cadence, best slot and preemption read."""
     epochs: float = 90.0               # training length (fractional allowed)
     steps: int = 0                     # if > 0 overrides epochs
     seed: int = 0                      # params, augmentation and dropout
     log_every: int = 100               # steps between train records
+    eval_every_steps: int = 0          # 0 = once per epoch
     checkpoint_every_steps: int = 1000 # durable-save cadence (also saves at run end)
     checkpoint_dir: str = ""           # "" disables checkpointing entirely
     keep_checkpoints: int = 3          # retained durable steps; older ones are pruned
@@ -213,6 +232,19 @@ class TrainConfig:
     # is detected regardless).
     data_timeout_s: float = 0.0
     data_timeout_retries: int = 2
+    # Keep the best eval_top1 checkpoint in one slot under
+    # <checkpoint_dir>/best, replaced whenever an eval of the cadence sets
+    # a new best (the score in its metrics.json).
+    track_best_eval: bool = True
+    # Restore the best slot (chosen by its recorded score) instead of the
+    # latest checkpoint: for eval and predict on the best model, or to
+    # branch training from it (the steps ahead of it are deleted). Without
+    # a best slot the latest is restored, with a logged notice.
+    restore_from_best: bool = False
+    # On SIGTERM, finish the step in flight, force a checkpoint and return
+    # cleanly. A process group stops every rank at the same step, within
+    # 3 steps of the signal (parallel/preempt.py).
+    handle_preemption: bool = True
 
     def __post_init__(self):
         if self.grad_accum_steps < 1:
@@ -373,8 +405,9 @@ def _vggf_teacher() -> ExperimentConfig:
                           weight_decay=5e-5, warmup_epochs=1.0,
                           grad_clip_norm=1.0, decay_epochs=(24.0, 30.0)),
         data=DataConfig(name="teacher", image_size=32,
-                        global_batch_size=64, num_train_examples=4096),
-        train=TrainConfig(epochs=32.0, log_every=64))
+                        global_batch_size=64, num_train_examples=4096,
+                        num_eval_examples=1024),
+        train=TrainConfig(epochs=32.0, log_every=64, eval_every_steps=256))
 
 
 def _vit_s16_imagenet() -> ExperimentConfig:
@@ -410,3 +443,210 @@ def get_config(name: str) -> ExperimentConfig:
     except KeyError:
         raise KeyError(f"unknown preset {name!r}; available: "
                        f"{sorted(PRESETS)}") from None
+
+
+# ------------------------------------------------------------ the overrides
+#: Dotted keys of the JAX package's config that the port has not (yet):
+#: each prefix with the reason a `--set` of it raises. A key neither
+#: here nor in the port's tree raises as unknown.
+UNPORTED_KEYS = (
+    ("telemetry.", "the telemetry planes (TelemetryConfig) wait for "
+                   "ROADMAP A14"),
+    ("data.autotune.", "the ingest autotuner waits for ROADMAP A14"),
+    ("data.service.", "the ingest service client waits for ROADMAP A14"),
+    ("data.snapshot_cache.", "the snapshot cache waits for ROADMAP A14"),
+    ("data.prefetch", "the host read-ahead stage (HostPrefetchIterator) "
+                      "waits for ROADMAP A14"),
+    ("train.tensorboard_dir", "TensorBoard is not ported: the card's host "
+                              "has no tensorflow or tensorboard package "
+                              "(ROADMAP A14)"),
+    ("train.profile", "the step profiler waits for ROADMAP A14"),
+    ("train.fault_injection", "the fault tokens wait for ROADMAP A14"),
+    ("data.augment.rand_magnitude", "RandAugment-lite waits for ROADMAP "
+                                    "A4"),
+    ("data.wire", "the port feeds the u8 wire only; the host wires wait "
+                  "for ROADMAP A17"),
+    ("data.backend", "the tf.data and grain backends wait for ROADMAP "
+                     "A17"),
+    ("data.native_jpeg", "the port always decodes natively; the other "
+                         "backends wait for ROADMAP A17"),
+    ("data.grain_workers", "the grain backend waits for ROADMAP A17"),
+    ("data.shuffle_buffer", "the tf.data backend waits for ROADMAP A17"),
+    ("data.eval_index_base", "the imagefolder layout waits for ROADMAP "
+                             "A17"),
+    ("data.val_labels_file", "the imagefolder layout waits for ROADMAP "
+                             "A17"),
+    ("mesh.elastic.", "elastic resize waits for ROADMAP A13"),
+    ("serving.", "this serving field waits for ROADMAP A11"),
+    ("mesh.num_data", "JAX-specific: the port's shard count is the "
+                      "process group's size"),
+    ("mesh.data_axis", "JAX-specific: the port's data axis is the process "
+                       "group"),
+    ("train.debug_nans", "JAX-specific (jax_debug_nans); the port skips "
+                         "non-finite steps through train.skip_nonfinite"),
+    ("train.checkpoint_save_retries", "the writer's retry budget is "
+                                      "checkpoint/manager.py SAVE_RETRIES "
+                                      "(2, JAX's default) until a "
+                                      "deployment needs another (ROADMAP "
+                                      "A14)"),
+    ("train.resume_data_fast_forward", "a resume always replays a source "
+                                       "that cannot seek, so it trains on "
+                                       "the uninterrupted stream (ROADMAP "
+                                       "A14)"),
+    ("data.iterator_state.", "every checkpoint carries the iterator blob "
+                             "and every resume reads it (ROADMAP A14)"),
+    ("train.dropout_rng_impl", "JAX-specific (the PRNG implementation); "
+                               "the port's dropout draws from torch "
+                               "generators"),
+)
+
+_BOOL_WORDS = {"true": True, "1": True, "yes": True, "on": True,
+               "false": False, "0": False, "no": False, "off": False}
+
+
+def _coerce_override(current: Any, value: Any) -> Any:
+    """A CLI override string cast to the type of the field it replaces:
+    bool before int (bool is an int subclass) and never through
+    ``bool(str)``; sequences from comma-separated values typed like their
+    current elements (``optim.decay_epochs=20,40`` -> ``(20.0, 40.0)``)."""
+    if current is None:
+        return value
+    same_boolness = isinstance(value, bool) == isinstance(current, bool)
+    if isinstance(value, type(current)) and same_boolness:
+        return value
+    if isinstance(current, bool):
+        word = str(value).strip().lower()
+        if word not in _BOOL_WORDS:
+            raise ValueError("boolean override needs true/false/1/0/yes/no/"
+                             f"on/off, got {value!r}")
+        return _BOOL_WORDS[word]
+    if isinstance(current, (int, float)):
+        return type(current)(value)
+    if isinstance(current, str):
+        return str(value)
+    if isinstance(current, Sequence) and not isinstance(current,
+                                                        (str, bytes)):
+        elem_type = type(current[0]) if len(current) else str
+        if isinstance(value, str):
+            return tuple(elem_type(v.strip()) for v in value.split(",")
+                         if v.strip())
+        if not isinstance(value, Sequence):
+            value = (value,)
+        return tuple(elem_type(v) for v in value)
+    return value
+
+
+def _parse_literal(value: Any) -> Any:
+    """Typing for a dict entry with no current value to mirror (a fresh
+    ``model.extra`` key): numbers first ("1" and "0" stay ints), then the
+    word bools, then the raw string."""
+    if not isinstance(value, str):
+        return value
+    for cast in (int, float):
+        try:
+            return cast(value)
+        except ValueError:
+            continue
+    word = value.strip().lower()
+    if word in _BOOL_WORDS:
+        return _BOOL_WORDS[word]
+    return value
+
+
+def _refuse(path: str) -> KeyError:
+    for prefix, why in UNPORTED_KEYS:
+        if path == prefix or (prefix.endswith(".")
+                              and path.startswith(prefix)) \
+                or path.startswith(prefix + "_"):
+            return KeyError(f"config key {path!r} is not in the port: {why}")
+    return KeyError(f"unknown config key {path!r}")
+
+
+def _set_path(obj: Any, parts: Sequence[str], value: Any,
+              done: str = "") -> Any:
+    """Immutably set a dotted path through dataclasses and Mappings
+    (``model.extra.<key>`` descends into the dict)."""
+    name = parts[0]
+    path = done + name
+    if isinstance(obj, Mapping):
+        current = obj.get(name)
+        if len(parts) == 1:
+            new_leaf = (_parse_literal(value) if current is None
+                        or isinstance(current, Mapping)
+                        else _coerce_override(current, value))
+            return {**obj, name: new_leaf}
+        if current is None:
+            raise KeyError(
+                f"cannot descend into missing dict key {name!r} "
+                f"(remaining path: {'.'.join(parts[1:])})")
+        return {**obj, name: _set_path(current, parts[1:], value,
+                                       path + ".")}
+    if not dataclasses.is_dataclass(obj) or name not in {
+            f.name for f in dataclasses.fields(obj)}:
+        raise _refuse(done + ".".join(parts))
+    current = getattr(obj, name)
+    if len(parts) == 1:
+        if not isinstance(current, Mapping):
+            value = _coerce_override(current, value)
+        return dataclasses.replace(obj, **{name: value})
+    return dataclasses.replace(
+        obj, **{name: _set_path(current, parts[1:], value, path + ".")})
+
+
+def apply_overrides(cfg: ExperimentConfig,
+                    overrides: Mapping[str, Any]) -> ExperimentConfig:
+    """Dotted-path overrides, e.g. ``{"data.global_batch_size": 512}``.
+    A key of the JAX package's config the port has not raises KeyError
+    naming its ROADMAP item; an unknown key raises KeyError."""
+    for path, value in overrides.items():
+        cfg = _set_path(cfg, path.split("."), value)
+    return cfg
+
+
+def fold_override_items(items: Optional[Sequence[str]]) -> dict:
+    """``--set KEY=VALUE`` entries -> the dict `apply_overrides` takes;
+    an item without ``=`` or without a key raises ValueError."""
+    overrides = {}
+    for item in items or ():
+        key, sep, value = item.partition("=")
+        if not sep or not key:
+            raise ValueError(f"override needs KEY=VALUE, got {item!r}")
+        overrides[key] = value
+    return overrides
+
+
+def parse_cli(argv: Optional[Sequence[str]] = None, *,
+              with_mode: bool = False):
+    """The port's command line (cli.py): ``--config`` (a port preset;
+    the default is the flagship, `vggf_imagenet_dp`: the JAX package's
+    default, `vggf_cifar10_smoke`, is not a port preset until ROADMAP
+    A17), repeated ``--set KEY=VALUE``, ``--mode`` and ``--images``.
+    Returns the config, or (config, args) with `with_mode`. A malformed
+    item exits through the parser; an unported or unknown key raises
+    KeyError."""
+    parser = argparse.ArgumentParser(
+        description="distributed_vgg_f_tpu_torch trainer")
+    parser.add_argument("--config", default="vggf_imagenet_dp",
+                        help=f"preset name, one of {sorted(PRESETS)}")
+    parser.add_argument("--set", action="append", default=[],
+                        metavar="KEY=VALUE",
+                        help="dotted override, e.g. --set "
+                             "data.global_batch_size=512")
+    parser.add_argument("--mode",
+                        choices=("train", "eval", "predict", "serve"),
+                        default="train",
+                        help="train (default), eval: one exact pass over "
+                             "the validation split from the latest "
+                             "checkpoint, predict: classify --images with "
+                             "it; serve is not ported yet (ROADMAP A11)")
+    parser.add_argument("--images", nargs="*", default=[], metavar="PATH",
+                        help="predict mode: JPEG files and/or directories "
+                             "(searched for *.jpg/*.jpeg/*.JPEG), or .npy "
+                             "u8 (S, S, 3) arrays")
+    args = parser.parse_args(argv)
+    cfg = get_config(args.config)
+    try:
+        cfg = apply_overrides(cfg, fold_override_items(args.set))
+    except ValueError as e:
+        parser.error(str(e))
+    return (cfg, args) if with_mode else cfg

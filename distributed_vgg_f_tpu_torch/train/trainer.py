@@ -1,63 +1,92 @@
 """The core training loop — the counterpart of the JAX package's
 ``train/trainer.py Trainer`` without its planes.
 
-`Trainer(cfg, device=None)` builds the device finish, the augment stage
-and the train and eval steps for `cfg` on this process's device (CUDA
-unless `device="cpu"`). With a process group up (parallel/distributed.py
-`initialize_distributed`; NCCL, one card a process, or gloo on the CPU)
-each process is one replica of N: its dataset yields its local
-`global_batch_size / N` rows (the JAX multi-host convention), the step
-exchanges gradients over the group with the config's mesh (ZeRO-1/2,
-buckets, the wire; train/step.py), and the meter counts the global
-batch. On one process ZeRO downgrades to replicated SGD, as the JAX
-trainer does on a one-shard mesh: `zero1 = shard_opt_state and N > 1`.
-`init_state(seed)` builds a model with seeded params
-(weights.init_params) on that device, its optimizer (over this rank's
-flat shard under ZeRO) and the optional EMA — each state owns its model;
+`Trainer(cfg, device=None, log=None)` builds the device finish, the
+augment stage and the train and eval steps for `cfg` on this process's
+device (CUDA unless `device="cpu"`). With a process group up
+(parallel/distributed.py `initialize_distributed`; NCCL, one card a
+process, or gloo on the CPU) each process is one replica of N: its
+dataset yields its local `global_batch_size / N` rows (the JAX
+multi-host convention), the step exchanges gradients over the group with
+the config's mesh (ZeRO-1/2, buckets, the wire; train/step.py), and the
+meter counts the global batch. On one process ZeRO downgrades to
+replicated SGD, as the JAX trainer does on a one-shard mesh:
+`zero1 = shard_opt_state and N > 1`. `init_state(seed)` builds a model
+with seeded params (weights.init_params) on that device, its optimizer
+(over this rank's flat shard under ZeRO) and the optional EMA;
 `restore_or_init()` restores the newest intact checkpoint of
-`train.checkpoint_dir` into such a state, or returns it fresh; `fit`
-(from `restore_or_init()` when given no state) runs the
-steps from `state.step` to `num_steps`, feeding the NonFiniteGuard and the
-throughput meter, and writes one train record at every `log_every`
-window and at the last step, with the reference's keys: `step`, the step
-metrics, the meter's rates, `host_wait_fraction`, `nonfinite_skips`
-once there are any and `data_decode_errors` once the decoder has
-counted any. `evaluate` scores `num_batches` eval batches.
+`train.checkpoint_dir` (or, with `train.restore_from_best`, the best
+slot) into such a state, or returns it fresh.
 
-The feed (JAX `trainer.py:880–985`, in its order): `fit(state)` with no
-dataset builds the trainer-owned one with `open_feed` — the
-`ResumableIngest` over `build_dataset` (data.name: ImageNet TFRecords
-through the native decoder, or seeded batches), seeked to `state.step`
-(through the restored checkpoint's iterator blob when it has one, with
-no batch replayed; replayed when the source cannot seek), then the
-`DevicePrefetchIterator`
-(train.prefetch_to_device batches ahead, the H2D copy on a side CUDA
-stream, the data watchdog), all closed when `fit` returns. A dataset the
-caller passes is fed as it is, unprefetched. On either source the first
-batch's labels are checked against the model head before its step.
+`fit(state=None, dataset=None, num_steps=None, eval_dataset=None)`
+(JAX `trainer.py:856–1593`) runs the steps from `state.step` to
+`num_steps`, feeding the NonFiniteGuard and the throughput meter, and
+writes one train record at every `log_every` window and at the last
+step: `step`, the step metrics, the meter's rates and
+`host_wait_fraction` over the window (the meter and the host-wait clock
+restart after each record), `eval_seconds` when an eval ran in the
+window, `nonfinite_skips` once there are any, `data_decode_errors`
+(summed over the group) once the decoders counted any, and the
+`augment`, `comm` and `iterator_state` blocks (telemetry/schema.py).
+The `stall`, `counters` and `critical_path` blocks wait for the
+telemetry config (ROADMAP A14). With an eval dataset it evaluates every
+`train.eval_every_steps` steps (0: once an epoch) and, with
+`train.track_best_eval` and checkpoints, keeps the best eval_top1 in
+one slot under `<checkpoint_dir>/best` (a forced save only when the
+score improves, the threshold seeded from the slot). Training from the
+best slot deletes the steps ahead of it first (`branch_truncate`).
 
-Checkpoints (JAX `trainer.py:254–259, 428–576, 637–664, 1444–1456,
-1556–1570`): with `train.checkpoint_dir` set, `self.checkpoints` (checkpoint/
-manager.py) is offered the state after every step and keeps those at
-`checkpoint_every_steps`, and the end of `fit` forces a save and
-`wait()`s for it. Each save's `extra` holds `examples_seen`, the ZeRO-2
-bucket receipt `opt_layout` and, on the trainer-owned feed, the
-iterator blob. Under a process group every rank calls `save` and the
-restore, which are collective; rank 0 writes.
+Preemption (`train.handle_preemption`, JAX `trainer.py:1107–1136,
+1457–1540`): a SIGTERM handler, installed only from the main thread
+(elsewhere the feature is off, as in JAX) and restored on the way out,
+sets a flag. After a completed step one process reacts at once; a group
+reacts through parallel/preempt.py, every rank at the same step within
+3 steps of the signal. Then a forced save with the iterator blob, its
+wait, the `preempt` record, and `fit` returns (`preempted_at` holds the
+step).
+
+The feed (JAX `trainer.py:880–985`): `fit` with no dataset builds the
+trainer-owned one with `open_feed` — the `ResumableIngest` over
+`build_dataset` (data.name: ImageNet TFRecords through the native
+decoder, or seeded batches), positioned at `state.step` through the
+restored checkpoint's iterator blob (no batch replayed), else a seek,
+else a replay, then the `DevicePrefetchIterator`
+(the H2D copy on a side CUDA stream, the data watchdog), all closed
+when `fit` returns. A dataset the caller passes is fed as it is,
+unprefetched. On either source the first batch's labels are checked
+against the model head before its step.
+
+Checkpoints (JAX `trainer.py:254–259, 418–576, 637–664, 1404–1456,
+1556–1570`): with `train.checkpoint_dir` set, `self.checkpoints`
+(checkpoint/manager.py) is offered the state after every step and keeps
+those at `checkpoint_every_steps`, and the end of a run that was not
+preempted forces a save and `wait()`s for it. Each save's `extra` holds
+`examples_seen`, the ZeRO-2 bucket receipt `opt_layout` and, on the
+trainer-owned feed, the iterator blob. Under a process group every rank calls `save` and the restore,
+which are collective; rank 0 writes.
+
+`evaluate(state, dataset, num_batches=None, use_ema=None, step=None)`
+(JAX `trainer.py:1734–1815`) scores a finite dataset exactly, to its
+end, with the padding rows masked; an infinite one for
+`num_eval_examples // global_batch_size` batches.
 
 Records go to `self.records` (as ``{"event": ..., **payload}``) and to
-the optional `log(event, payload)` callable. The eval cadence and the
-best slot, preemption, elastic resize and ZeRO-3, autotune, the
-collector and the flight recorder are not ported yet (ROADMAP A10, A13,
+the optional `log(event, payload)` callable on rank 0 only, as the JAX
+package logs on process 0. Elastic resize and ZeRO-3, autotune, the
+collector and the flight recorder are not ported yet (ROADMAP A13,
 A14).
 """
 
 from __future__ import annotations
 
+import os
+import signal
+import threading
 import time
 from typing import Callable, Iterable, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 from distributed_vgg_f_tpu_torch import telemetry
 from distributed_vgg_f_tpu_torch.checkpoint.manager import CheckpointManager
@@ -73,6 +102,7 @@ from distributed_vgg_f_tpu_torch.data.prefetch import DevicePrefetchIterator
 from distributed_vgg_f_tpu_torch.device import resolve_device
 from distributed_vgg_f_tpu_torch.models.registry import build_model
 from distributed_vgg_f_tpu_torch.parallel.collectives import rank_and_size
+from distributed_vgg_f_tpu_torch.parallel.preempt import PreemptConsensus
 from distributed_vgg_f_tpu_torch.parallel.zero import zero_layout
 from distributed_vgg_f_tpu_torch.resilience.errors import \
     CheckpointIntegrityError
@@ -93,7 +123,12 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device("cuda" if device is None else device)
         self._log = log
+        #: rank 0's records; empty on the other ranks
         self.records: list = []
+        #: the step a preempted `fit` stopped at; None otherwise
+        self.preempted_at: Optional[int] = None
+        #: the clock of the train records' rates and host-wait share
+        self.clock: Callable[[], float] = time.monotonic
         #: the trainer-owned train stream of the last `fit` without a
         #: dataset (closed when that fit returned; its decode_errors()
         #: stays readable)
@@ -108,7 +143,7 @@ class Trainer:
             raise ValueError(
                 "train.grad_accum_shard requires mesh.shard_opt_state=true "
                 "AND train.grad_accum_steps > 1")
-        _, self.num_shards = rank_and_size()
+        self.rank, self.num_shards = rank_and_size()
         if cfg.data.global_batch_size % (self.num_shards * k):
             raise ValueError(
                 f"data.global_batch_size {cfg.data.global_batch_size} does "
@@ -138,7 +173,11 @@ class Trainer:
                                          device=self.device)
         # the iterator blob of the last restore, consumed by the next feed
         self._restored_iterator_state = None
+        # whether the last restore_or_init restored the best slot
+        self._restored_from_best = False
         self.checkpoints: Optional[CheckpointManager] = None
+        #: the best-eval slot, made by the first fit with an eval dataset
+        self.best_checkpoints: Optional[CheckpointManager] = None
         if cfg.train.checkpoint_dir:
             self.checkpoints = CheckpointManager(
                 cfg.train.checkpoint_dir,
@@ -146,6 +185,9 @@ class Trainer:
                 save_interval_steps=cfg.train.checkpoint_every_steps)
 
     def log(self, event: str, payload: Mapping) -> None:
+        """Record an event, on rank 0 only."""
+        if self.rank != 0:
+            return
         self.records.append({"event": event, **payload})
         if self._log is not None:
             self._log(event, dict(payload))
@@ -176,18 +218,38 @@ class Trainer:
         return TrainState.create(model, opt, ema=ema)
 
     # ------------------------------------------------------------ checkpoint
+    def _make_best_manager(self) -> CheckpointManager:
+        """The one-slot best-eval manager under <checkpoint_dir>/best,
+        retained and chosen by eval_top1: a crash mid-replacement that
+        leaves two steps in the slot still restores the better-scored."""
+        cfg = self.cfg
+        return CheckpointManager(
+            os.path.join(cfg.train.checkpoint_dir, "best"), max_to_keep=1,
+            save_interval_steps=1, best_metric="eval_top1")
+
     def restore_or_init(self) -> TrainState:
         """The newest INTACT checkpoint of `train.checkpoint_dir` restored
         into a new state, or `init_state()` when there is none, in this
         run's layout (checkpoint/retopology.py: replicated or ZeRO, any
-        shard count). A damaged newest step falls back to the newest
-        intact one (`checkpoint_integrity_fallback` logged); checkpoints
-        on disk with none intact raise CheckpointIntegrityError, never a
-        silent fresh start. Collective under a process group."""
+        shard count). With `train.restore_from_best` the best slot's
+        best-scored step instead, or, without a best slot, the latest
+        (`restore_from_best_unavailable` logged). A damaged step falls
+        back to the newest intact one (`checkpoint_integrity_fallback`
+        logged); checkpoints on disk with none intact raise
+        CheckpointIntegrityError, never a silent fresh start. Collective
+        under a process group."""
         self._restored_iterator_state = None
+        self._restored_from_best = False
         source = self.checkpoints
         if source is not None:
             source.wait()   # every rank sees the same committed steps
+            if self.cfg.train.restore_from_best:
+                best = self._make_best_manager()
+                if _agreed(best.latest_step()) is not None:
+                    source = best
+                else:
+                    self.log("restore_from_best_unavailable",
+                             {"fallback": "latest"})
         if source is None or source.latest_step() is None:
             return self.init_state()
         step = _agreed(source.best_step())
@@ -207,9 +269,11 @@ class Trainer:
             self.cfg.model, image_size=self.cfg.data.image_size))
         state, extra, ema_event = restore_any_topology(source, state, step)
         self._restored_iterator_state = extra.get("iterator_state")
+        self._restored_from_best = source is not self.checkpoints
         if ema_event is not None:
             self.log(ema_event, {"step": state.step})
-        self.log("restore", {"step": state.step, "best": False})
+        self.log("restore", {"step": state.step,
+                             "best": self._restored_from_best})
         return state
 
     def _opt_layout_extra(self, state: TrainState) -> dict:
@@ -224,9 +288,8 @@ class Trainer:
     def _save_extra(self, state: TrainState, next_step: int,
                     ingest: Optional[ResumableIngest]) -> dict:
         """A checkpoint's `extra`: `examples_seen`, the layout receipt and,
-        on the trainer-owned feed, the schema-validated iterator blob at
-        the step barrier (`next_step` is the batch a restored run takes
-        first)."""
+        on the trainer-owned feed, the schema-validated iterator blob at the step barrier (`next_step`
+        is the batch a restored run takes first)."""
         extra = {"examples_seen":
                  next_step * self.cfg.data.global_batch_size,
                  **self._opt_layout_extra(state)}
@@ -273,9 +336,9 @@ class Trainer:
         The position comes first: through the iterator blob of the
         checkpoint `restore_or_init` restored, when it has one that fits
         (`iterator_state_restore` logged, no batch replayed), else by a
-        seek, else by replay. The prefetcher's worker draws at once, and a
-        seek is exact only before the first draw. The caller closes the
-        feed, then the ingest."""
+        seek, else by replay. The
+        prefetcher's worker draws at once, and a seek is exact only before
+        the first draw. The caller closes the feed, then the ingest."""
         cfg = self.cfg
         ingest = self._make_train_ingest()
         blob, self._restored_iterator_state = \
@@ -310,19 +373,50 @@ class Trainer:
 
     def fit(self, state: Optional[TrainState] = None,
             dataset: Optional[Iterable] = None,
-            num_steps: Optional[int] = None) -> TrainState:
+            num_steps: Optional[int] = None,
+            eval_dataset: Optional[Iterable] = None) -> TrainState:
         """Train from `state.step` (from `restore_or_init()` when `state`
         is None) up to step `num_steps` (the config's total when None),
         one batch (this rank's rows) a step: of `dataset` when one is
         passed, else of the trainer-owned feed (`open_feed`). With
-        checkpoints on, the state is offered to the manager after every
-        step, and a run that reaches its end forces a save and waits for
-        it (`checkpoint_save_dropped` logged if the save was not
-        taken)."""
+        `eval_dataset`, evaluate at the cadence and keep the best slot.
+        With checkpoints on, the state is offered to the manager after
+        every step, and a run that reaches its end forces a save and
+        waits for it (`checkpoint_save_dropped` logged if the save was
+        not taken); a preempted run forces its save at the stop
+        instead."""
         cfg = self.cfg
+        branched = False
         if state is None:
             state = self.restore_or_init()
+            # only an actual best-slot restore branches the chain: a fit
+            # given a state never deletes steps ahead of it
+            branched = self._restored_from_best
         total = cfg.total_steps if num_steps is None else int(num_steps)
+        self.preempted_at = None
+        if branched and self.checkpoints is not None:
+            # training from the best slot abandons the chain beyond it,
+            # now: a lazy replacement would leave a crash window in which
+            # the latest step is still the pre-branch state
+            stale = [s for s in self.checkpoints.all_steps()
+                     if s > state.step]
+            for s in stale:
+                self.checkpoints.delete(s)
+            if stale:
+                self.log("branch_truncate", {"from_step": state.step,
+                                             "deleted_steps": stale})
+        if self.num_shards > 1:
+            # an eval is collective: a rank without the split would strand
+            # the others in the eval's sum
+            have, = self._group_sum([eval_dataset is not None])
+            if have not in (0, self.num_shards):
+                raise ValueError(
+                    f"{have} of {self.num_shards} ranks have an eval "
+                    "dataset: every rank needs its share of the eval split "
+                    "(at least one validation file a rank), or none does")
+        if self.best_checkpoints is None and self.checkpoints is not None \
+                and cfg.train.track_best_eval and eval_dataset is not None:
+            self.best_checkpoints = self._make_best_manager()
         guard = (NonFiniteGuard(cfg.train.max_nonfinite_steps, log=self.log)
                  if cfg.train.skip_nonfinite else None)
         ingest = None
@@ -331,41 +425,143 @@ class Trainer:
             ingest, decode_errors = self.ingest, self.ingest.decode_errors
         else:
             it, decode_errors = iter(dataset), None
+        flag = {"set": False}
+        installed = (cfg.train.handle_preemption and threading.current_thread()
+                     is threading.main_thread())
+        if installed:
+            # the handler only sets the flag; the loop reacts after a
+            # completed step (signal handlers install from the main thread
+            # only: elsewhere the feature is off, as in JAX)
+            old_sigterm = signal.signal(
+                signal.SIGTERM, lambda signum, frame: flag.update(set=True))
         try:
-            state = self._run(state, it, total, guard, decode_errors, ingest)
+            state = self._run(state, it, total, guard, decode_errors,
+                              ingest, eval_dataset, flag)
         finally:
+            if installed:
+                signal.signal(signal.SIGTERM, signal.SIG_DFL
+                              if old_sigterm is None else old_sigterm)
             if dataset is None:
                 it.close()
                 self.ingest.close()
-        if self.checkpoints is not None:
-            extra = self._save_extra(state, total, ingest)
-            saved = self.checkpoints.save(state, extra=extra, force=True,
-                                          replace_on_collision=True)
-            if saved:
-                self._count_state_save(extra)
-            self.checkpoints.wait()
-            if not saved:
-                # the run's end state was not persisted: loud, not silent
-                self.log("checkpoint_save_dropped",
-                         {"step": total, "forced": True})
+        if self.checkpoints is not None and self.preempted_at is None:
+            self._forced_save(state, total, ingest)
+        if self.best_checkpoints is not None:
+            self.best_checkpoints.wait()
         return state
+
+    def _forced_save(self, state: TrainState, step: int,
+                     ingest: Optional[ResumableIngest]) -> None:
+        """The end-of-run and the preemption save: forced, waited for, and
+        loud when it was not taken (the state was not persisted)."""
+        extra = self._save_extra(state, step, ingest)
+        saved = self.checkpoints.save(state, extra=extra, force=True,
+                                      replace_on_collision=True)
+        if saved:
+            self._count_state_save(extra)
+        self.checkpoints.wait()
+        if not saved:
+            self.log("checkpoint_save_dropped", {"step": step,
+                                                 "forced": True})
+
+    def _group_sum(self, values) -> list:
+        """Integers summed over the process group (every rank takes part);
+        themselves on one process."""
+        if self.num_shards == 1:
+            return [int(v) for v in values]
+        t = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                         device=self.device)
+        dist.all_reduce(t)
+        return [int(v) for v in t.tolist()]
 
     def _run(self, state: TrainState, it, total: int,
              guard: Optional[NonFiniteGuard], decode_errors,
-             ingest: Optional[ResumableIngest]) -> TrainState:
+             ingest: Optional[ResumableIngest], eval_dataset,
+             flag: dict) -> TrainState:
         cfg = self.cfg
-        meter = ThroughputMeter(self.num_shards)
-        host_wait = 0.0
+        eval_every = cfg.train.eval_every_steps or cfg.steps_per_epoch
+        consensus = (PreemptConsensus(self.device)
+                     if cfg.train.handle_preemption and self.num_shards > 1
+                     else None)
+        best_top1 = float("-inf")
+        if self.best_checkpoints is not None:
+            # a resumed run must not regress the durable best; the save
+            # this threshold gates is collective, so it is read from local
+            # disk on every rank and must agree
+            best_top1 = _agreed(
+                float((self.best_checkpoints.latest_extra() or {})
+                      .get("eval_top1", float("-inf"))),
+                "best-slot eval_top1 thresholds")
+        window = {"augment": cfg.data.augment.describe()} \
+            if self.device_augment is not None else {}
+        clock = self.clock
+        meter = ThroughputMeter(self.num_shards, clock=clock)
+        host_wait = eval_wait = 0.0
+        decode_errors_seen = 0
         first = state.step
         for step in range(first, total):
-            t0 = time.monotonic()
+            t0 = clock()
             batch = next(it)
-            host_wait += time.monotonic() - t0
+            host_wait += clock() - t0
             if step == first:
                 self._check_first_labels(batch["label"])
             state, metrics = self.train_step(state, batch, cfg.train.seed)
             if guard is not None:
                 guard.observe(step + 1, metrics["bad_step"])
+            meter.update(cfg.data.global_batch_size)
+            if (step + 1) % cfg.train.log_every == 0 or step + 1 == total:
+                entry = {"step": step + 1,
+                         **{k: float(v) for k, v in metrics.items()},
+                         **meter.snapshot(),
+                         "host_wait_fraction": round(
+                             host_wait / meter.elapsed, 4)}
+                if eval_wait > 0:
+                    entry["eval_seconds"] = round(eval_wait, 3)
+                if guard is not None and guard.total:
+                    entry["nonfinite_skips"] = guard.total
+                if callable(decode_errors) or self.num_shards > 1:
+                    # every rank takes part, with 0 when it has no counter
+                    de, = self._group_sum(
+                        [decode_errors() if callable(decode_errors) else 0])
+                    if de > 0:
+                        entry["data_decode_errors"] = de
+                    if de > decode_errors_seen:
+                        self.log("decode_errors", {
+                            "step": step + 1, "total": de,
+                            "new": de - decode_errors_seen})
+                    decode_errors_seen = max(decode_errors_seen, de)
+                entry.update(window)
+                comm_meta = getattr(self.train_step, "comm_meta", None)
+                if comm_meta:
+                    entry["comm"] = dict(comm_meta)
+                if ingest is not None:
+                    entry["iterator_state"] = ingest.window_receipt(step + 1)
+                self.log("train", entry)
+                # the next record covers the next window only
+                meter.reset()
+                host_wait = eval_wait = 0.0
+            if eval_dataset is not None and (step + 1) % eval_every == 0:
+                t_ev = clock()
+                result = self.evaluate(state, eval_dataset, step=step + 1)
+                eval_wait += clock() - t_ev
+                # the group-summed result is the same on every rank, so
+                # every rank takes the collective save together
+                if self.best_checkpoints is not None \
+                        and result["eval_top1"] > best_top1:
+                    extra = {"eval_top1": result["eval_top1"],
+                             "eval_top5": result["eval_top5"],
+                             "step": step + 1,
+                             **self._save_extra(state, step + 1, ingest)}
+                    if self.best_checkpoints.save(
+                            state, extra=extra, force=True,
+                            metrics={"eval_top1": result["eval_top1"]},
+                            replace_on_collision=True):
+                        self._count_state_save(extra)
+                        # the threshold moves once the slot holds it
+                        best_top1 = result["eval_top1"]
+                        self.log("best_checkpoint", {
+                            "step": step + 1,
+                            "eval_top1": result["eval_top1"]})
             if self.checkpoints is not None:
                 # the manager keeps the steps at its interval; the
                 # collision rule replaces a stale step a branched run
@@ -374,19 +570,20 @@ class Trainer:
                 if self.checkpoints.save(state, extra=extra,
                                          replace_on_collision=True):
                     self._count_state_save(extra)
-            meter.update(cfg.data.global_batch_size)
-            if (step + 1) % cfg.train.log_every == 0 or step + 1 == total:
-                entry = {"step": step + 1,
-                         **{k: float(v) for k, v in metrics.items()},
-                         **meter.snapshot(),
-                         "host_wait_fraction": round(
-                             host_wait / meter.elapsed, 4)}
-                if guard is not None and guard.total:
-                    entry["nonfinite_skips"] = guard.total
-                errors = decode_errors() if callable(decode_errors) else 0
-                if errors:
-                    entry["data_decode_errors"] = errors
-                self.log("train", entry)
+            # the stop decision is the same on every rank: the config
+            # flag, then one rank's own flag or the group's consensus
+            stop = False
+            if cfg.train.handle_preemption:
+                stop = (consensus.poll(flag["set"])
+                        if consensus is not None else flag["set"])
+            if stop:
+                if self.checkpoints is not None:
+                    self._forced_save(state, step + 1, ingest)
+                self.preempted_at = step + 1
+                self.log("preempt", {
+                    "step": step + 1,
+                    "checkpointed": self.checkpoints is not None})
+                break
         if guard is not None:
             guard.drain()
         return state
@@ -404,38 +601,70 @@ class Trainer:
                 "with the dataset's label space")
 
     def evaluate(self, state: TrainState, dataset: Iterable,
-                 num_batches: int, use_ema: Optional[bool] = None) -> dict:
-        """Top-1/top-5 over `num_batches` batches of `dataset`; scores the
-        EMA weights whenever the state carries them, unless `use_ema` is
-        False."""
+                 num_batches: Optional[int] = None,
+                 use_ema: Optional[bool] = None,
+                 step: Optional[int] = None) -> dict:
+        """One validation pass. A finite dataset (`is_finite`, as
+        data/native_jpeg.py `NativeJpegEvalIterator` is) is scored
+        exactly: to its end, its padding rows masked by `valid`. An
+        infinite one is drawn `num_batches` times (default
+        `num_eval_examples // global_batch_size`). The counts stay on the
+        device during the pass; under a process group `top1`, `top5`,
+        `count` and `eval_decode_errors` are summed over the group once,
+        at the end of the pass, so ranks whose shards hold different
+        numbers of batches meet at that one collective, and the JAX
+        package's per-batch lockstep (`_any_host_has_data`,
+        `padding_batch()`) is not needed. Scores the EMA weights whenever
+        the state carries them, unless `use_ema` is False. `step` names
+        the record's step (default `state.step`)."""
+        cfg = self.cfg
         if use_ema is None:
             use_ema = state.ema_params is not None
-        totals = {"top1": 0, "top5": 0, "count": 0}
-        t0 = time.monotonic()
-        it = iter(dataset)
-        for _ in range(int(num_batches)):
-            counts = self.eval_step(state, next(it), use_ema=use_ema)
-            for k in totals:
-                totals[k] += int(counts[k])
-        n = max(1, totals["count"])
-        result = {"eval_top1": totals["top1"] / n,
-                  "eval_top5": totals["top5"] / n,
-                  "eval_examples": totals["count"],
-                  "eval_seconds": time.monotonic() - t0}
-        self.log("eval", {"step": state.step, **result})
+        totals = torch.zeros(3, dtype=torch.int64, device=self.device)
+        t0_ns = time.monotonic_ns()
+
+        def accumulate(batch):
+            counts = self.eval_step(state, batch, use_ema=use_ema)
+            totals.add_(torch.stack([counts[k].to(self.device)
+                                     for k in ("top1", "top5", "count")]))
+
+        if num_batches is None and getattr(dataset, "is_finite", False):
+            for batch in dataset:
+                accumulate(batch)
+        else:
+            if num_batches is None:
+                num_batches = max(1, cfg.data.num_eval_examples
+                                  // cfg.data.global_batch_size)
+            it = iter(dataset)
+            for _ in range(int(num_batches)):
+                accumulate(next(it))
+        fn = getattr(dataset, "decode_errors", None)
+        top1, top5, count, de = self._group_sum(
+            totals.tolist() + [fn() if callable(fn) else 0])
+        dt_ns = time.monotonic_ns() - t0_ns
+        telemetry.record("eval_pass", "eval", t0_ns, dt_ns)
+        telemetry.inc("eval/passes")
+        n = max(1, count)
+        result = {"eval_top1": top1 / n, "eval_top5": top5 / n,
+                  "eval_examples": count, "eval_seconds": dt_ns / 1e9}
+        # a zero-filled corrupt image still counts as valid: say so
+        if de > 0:
+            result["eval_decode_errors"] = de
+        self.log("eval", {"step": state.step if step is None else step,
+                          **result})
         return result
 
-
-def _agreed(step: Optional[int]) -> Optional[int]:
-    """`step`, after checking that every rank of the process group chose
-    the same one (a restore is collective under ZeRO: two ranks on two
-    steps would hang or mix states)."""
+def _agreed(value, what: str = "checkpoint steps"):
+    """`value` (a step, a score), after checking that every rank of the
+    process group read the same one from its view of the checkpoint
+    directory: a restore and a best-slot save are collective, and ranks
+    that decide them apart would hang or mix states."""
     _, n = rank_and_size()
     if n > 1:
-        steps = [None] * n
-        torch.distributed.all_gather_object(steps, step)
-        if len(set(steps)) != 1:
+        values = [None] * n
+        torch.distributed.all_gather_object(values, value)
+        if len(set(values)) != 1:
             raise CheckpointIntegrityError(
-                f"the ranks resolved different checkpoint steps {steps}: "
+                f"the ranks resolved different {what} {values}: "
                 "their views of the checkpoint directory differ")
-    return step
+    return value

@@ -42,6 +42,24 @@ and masks when asked; a checkpoint case also `<case>/shard` (this rank's
 `<case>/opt_count` and, with `reload`, the same under `<case>/reload/`;
 with `digest`, the SHA-256 of the params, shard and momentum bytes
 instead of the arrays (`<case>/params_sha`, ...).
+A case with `fit` runs `Trainer.fit()` with no state and no dataset (the
+trainer-owned native feed) on `preset` (default the flagship) with its
+dotted `overrides` (config.apply_overrides), optionally SIGTERMing
+itself after step s on rank r (`sigterm` [r, s]), and writes
+`<case>/loss`, `<case>/steps` (the train records'), `<case>/preempted_at`
+(-1 if not), `<case>/events` (the other records, JSON), the local
+batches the steps took (`<case>/images`, `<case>/labels`) and the
+params' SHA-256 (`<case>/params_sha`). A case with `eval` evaluates
+`init_state()` on the preset with its overrides over
+`make_dataset("eval")` and writes the result as JSON (`<case>/eval`). A
+case with `consensus` polls parallel/preempt.py `PreemptConsensus`
+`polls` times, this rank's flag raised from poll `flag_step` on rank
+`flag_rank`, and writes the poll at which it stopped (`<case>/stop`). A
+case with `best_view` runs `fit` on this rank's copy of a checkpoint
+directory and writes the CheckpointIntegrityError it raised
+(`<case>/error`). A case with `hp_timing` times fits with
+`train.handle_preemption` on and off in turn (`<case>/ms_true`,
+`<case>/ms_false`: ms a step of each record's window).
 The group is gloo on the CPU, or NCCL with one card a rank when the last
 argument is "cuda".
 
@@ -54,6 +72,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -176,6 +195,17 @@ def _state_out(prefix: str, trainer, state, digest: bool = False) -> dict:
     return out
 
 
+def every_rank_records(trainer, log=None):
+    """A Trainer records on rank 0 only; the worker keeps every rank's
+    records (and calls `log`) so each rank can report its own."""
+    def record(event, payload):
+        trainer.records.append({"event": event, **payload})
+        if log is not None:
+            log(event, payload)
+    trainer.log = record
+    return trainer
+
+
 def run_checkpoint(case: dict, spec: dict, data, rank: int, world: int,
                    dev: torch.device) -> dict:
     """Trainer.fit() with no state over a checkpoint directory, then, with
@@ -189,16 +219,121 @@ def run_checkpoint(case: dict, spec: dict, data, rank: int, world: int,
         image, label = global_batch(spec, data, i)
         batches.append({"image": image[rank * local:(rank + 1) * local],
                         "label": label[rank * local:(rank + 1) * local]})
-    trainer = Trainer(cfg, device=dev.type)
+    trainer = every_rank_records(Trainer(cfg, device=dev.type))
     state = (trainer.restore_or_init() if case.get("restore_only")
              else trainer.fit(None, batches, num_steps=case["steps"]))
     digest = case.get("digest", False)
     out = _state_out(case["name"], trainer, state, digest)
     if case.get("reload"):
-        again = Trainer(cfg, device=dev.type)
+        again = every_rank_records(Trainer(cfg, device=dev.type))
         out.update(_state_out(f"{case['name']}/reload", again,
                               again.restore_or_init(), digest))
     return out
+
+
+def preset_config(case: dict):
+    """`preset` (default the flagship) with the case's dotted overrides."""
+    return tcfg.apply_overrides(
+        tcfg.get_config(case.get("preset", "vggf_imagenet_dp")),
+        case.get("overrides", {}))
+
+
+def run_fit(case: dict, rank: int, dev: torch.device) -> dict:
+    """Trainer.fit() with no state and no dataset, SIGTERMed on request;
+    every rank's records kept."""
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    name = case["name"]
+    trainer = every_rank_records(Trainer(preset_config(case),
+                                         device=dev.type))
+    seen = []
+    inner = trainer.train_step
+
+    def step(state, batch, seed):
+        seen.append((np.array(batch["image"]), np.array(batch["label"])))
+        state, metrics = inner(state, batch, seed)
+        if case.get("sigterm") == [rank, state.step]:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return state, metrics
+
+    step.comm_meta = inner.comm_meta
+    trainer.train_step = step
+    state = trainer.fit()
+    train = [r for r in trainer.records if r["event"] == "train"]
+    return {
+        f"{name}/loss": np.array([r["loss"] for r in train]),
+        f"{name}/steps": np.array([r["step"] for r in train]),
+        f"{name}/preempted_at": np.array(trainer.preempted_at or -1),
+        f"{name}/events": np.array(json.dumps(
+            [r for r in trainer.records if r["event"] != "train"])),
+        f"{name}/images": np.stack([i for i, _ in seen]),
+        f"{name}/labels": np.stack([la for _, la in seen]),
+        f"{name}/params_sha": np.array(_sha(
+            state.model.state_dict().values()))}
+
+
+def run_eval(case: dict, dev: torch.device) -> dict:
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(preset_config(case), device=dev.type)
+    result = trainer.evaluate(trainer.init_state(),
+                              trainer.make_dataset("eval"))
+    return {f"{case['name']}/eval": np.array(json.dumps(result))}
+
+
+def run_best_view(case: dict, rank: int, world: int,
+                  dev: torch.device) -> dict:
+    """`fit` on this rank's own copy of a checkpoint directory
+    (`dirs[rank]`), on seeded batches with an eval split; writes the
+    CheckpointIntegrityError it raised, or "" (`<case>/error`)."""
+    from distributed_vgg_f_tpu_torch.data.synthetic import SyntheticU8
+    from distributed_vgg_f_tpu_torch.resilience.errors import \
+        CheckpointIntegrityError
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    cfg = tcfg.apply_overrides(preset_config(case), {
+        "train.checkpoint_dir": case["dirs"][rank]})
+    rows = cfg.data.global_batch_size // world
+    size, classes = cfg.data.image_size, cfg.model.num_classes
+    trainer = Trainer(cfg, device=dev.type)
+    error = ""
+    try:
+        trainer.fit(None, SyntheticU8(rows, size, classes, seed=1 + rank),
+                    num_steps=case["steps"],
+                    eval_dataset=SyntheticU8(rows, size, classes))
+    except CheckpointIntegrityError as e:
+        error = str(e)
+    return {f"{case['name']}/error": np.array(error)}
+
+
+def run_hp_timing(case: dict, dev: torch.device) -> dict:
+    """Fits of `steps` steps from one state on the trainer-owned feed,
+    with train.handle_preemption per fit as `pattern` lists ("true",
+    "false"): the ms a step of each record's window, the first window of
+    each fit (its warm-up) left out (`<case>/ms_true`, `<case>/ms_false`)."""
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    cfg = preset_config(case)
+    trainer = every_rank_records(Trainer(cfg, device=dev.type))
+    state = trainer.init_state()
+    ms = {"true": [], "false": []}
+    for flag in case["pattern"]:
+        trainer.cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, handle_preemption=flag == "true"))
+        seen = len(trainer.records)
+        state = trainer.fit(state, num_steps=state.step + case["steps"])
+        train = [r for r in trainer.records[seen:] if r["event"] == "train"]
+        ms[flag].extend(1e3 / r["steps_per_sec"] for r in train[1:])
+    return {f"{case['name']}/ms_{k}": np.array(v) for k, v in ms.items()}
+
+
+def run_consensus(case: dict, rank: int, dev: torch.device) -> dict:
+    from distributed_vgg_f_tpu_torch.parallel.preempt import \
+        PreemptConsensus
+    consensus = PreemptConsensus(dev)
+    stop = -1
+    for i in range(case["polls"]):
+        flag = rank == case["flag_rank"] and i >= case["flag_step"]
+        if consensus.poll(flag):
+            stop = i
+            break
+    return {f"{case['name']}/stop": np.array(stop)}
 
 
 def make_model(spec: dict, tree: dict, dropout: float = 0.0):
@@ -349,8 +484,9 @@ def run_trainer(case: dict, spec: dict, rank: int, world: int,
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, log_every=1))
     stamps = []
-    trainer = Trainer(cfg, device=dev.type,
-                      log=lambda e, p: stamps.append(time.perf_counter()))
+    trainer = every_rank_records(
+        Trainer(cfg, device=dev.type),
+        log=lambda e, p: stamps.append(time.perf_counter()))
     data = SyntheticU8(trainer.local_batch_size, cfg.data.image_size,
                        cfg.model.num_classes, seed=rank, pin=True)
     state = trainer.init_state(0)
@@ -437,6 +573,16 @@ def main(rank: int, world: int, port: int, spec_path: str, out_dir: str,
     for case in spec["cases"]:
         if "trainer" in case:
             results.update(run_trainer(case, spec, rank, world, dev))
+        elif "fit" in case:
+            results.update(run_fit(case, rank, dev))
+        elif "eval" in case:
+            results.update(run_eval(case, dev))
+        elif "hp_timing" in case:
+            results.update(run_hp_timing(case, dev))
+        elif "best_view" in case:
+            results.update(run_best_view(case, rank, world, dev))
+        elif "consensus" in case:
+            results.update(run_consensus(case, rank, dev))
         elif "checkpoint" in case:
             results.update(run_checkpoint(case, spec, data, rank, world,
                                           dev))

@@ -1209,3 +1209,51 @@ def test_prefetch_close_mid_stream_leaves_nothing_behind(cuda_device):
     assert not feed.worker_alive
     assert feed._slots == [] and feed._queue.empty()
     assert all(r() is None for r in pinned)
+
+
+
+# ------------------------------------------------------------ the CLI
+@pytest.mark.cuda
+def test_flagship_cli_across_four_cards(cuda_device, tmp_path):
+    """The port's command line on the flagship under torchrun, 4 NCCL
+    ranks at 256 images a card (ZeRO-2 over 4 MB buckets, bf16, dropout,
+    flip, mixup; base_lr 0.001, where the preset's LR diverges on the
+    fixture), on TFRecords of the JPEG fixture (4 train shards of
+    1024, 4 validation shards of 300: 1200 records, 256 + 44 a rank),
+    through tests/_torch_cli_run.py `cli_scenario`: 40 steps with an eval
+    every 10 and a record every step, SIGTERM to rank 2 alone once step
+    12 is logged, every rank stopping at one committed step after the
+    last one logged before the signal and within 3 of the last logged
+    when it was sent; the 4-rank restart to 40; a one-card `--mode eval`
+    of the final checkpoint equal to the 4-rank eval at 40. Then what the
+    stop consensus costs a step: the flagship on seeded batches (the
+    trainer-owned feed, device-bound) in 4 NCCL processes, 8 fits of 30
+    steps from one state with handle_preemption true, false, false, true,
+    true, false, false, true, their ms a step over each record's window
+    of 5 (each fit's first window left out). Needs 4 cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices, one a rank of the NCCL group")
+    import json
+    import statistics
+
+    from _torch_cli_run import cli_scenario
+    from _torch_dp_worker import run_group
+    out = cli_scenario(tmp_path, device="cuda", shards=(1024, 300))
+    case = dict(name="hp", hp_timing=True, steps=30,
+                pattern=["true", "false", "false", "true"] * 2,
+                overrides={"data.name": "synthetic", "train.log_every": "5",
+                           "optim.base_lr": "0.001"})
+    ranks = run_group(4, {"cases": [case]}, {}, str(tmp_path / "hp"),
+                      timeout=600.0, device="cuda")
+    ms = {k: ranks[0][f"hp/ms_{k}"].tolist() for k in ("true", "false")}
+    out["window_ms_handle_preemption"] = ms
+    out["median_ms_handle_preemption"] = {
+        k: statistics.median(v) for k, v in ms.items()}
+    out["quartiles_ms_handle_preemption"] = {
+        k: statistics.quantiles(v, n=4) for k, v in ms.items()}
+    import subprocess
+    out["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    print(json.dumps({"cli_four_cards": out}), flush=True)

@@ -62,7 +62,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
             f"{PORT}.data.native_tfrecord", f"{PORT}.data.native_jpeg",
             f"{PORT}.data.imagenet", f"{PORT}.data.iterator_state",
             f"{PORT}.data.prefetch", f"{PORT}.resilience.errors",
-            f"{PORT}.telemetry.schema"} <= set(mods)
+            f"{PORT}.telemetry.schema", f"{PORT}.cli",
+            f"{PORT}.parallel.preempt", f"{PORT}.utils.logging",
+            f"{PORT}.train.predict"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -142,6 +144,14 @@ def test_trainer_and_train_step_refuse_without_cuda(no_cuda):
         build_train_step(lambda step: 0.1, 0.0)
     assert Trainer(get_config("vggf_teacher"), device="cpu").device.type \
         == "cpu"
+
+
+def test_cli_refuses_without_cuda(no_cuda):
+    """The console runs on the card; only library callers pass
+    device="cpu"."""
+    from distributed_vgg_f_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--config", "vggf_teacher", "--set", "train.steps=1"])
 
 
 def test_initialize_distributed_refuses_nccl_without_cuda(no_cuda):

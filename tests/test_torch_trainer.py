@@ -19,11 +19,12 @@ from distributed_vgg_f_tpu_torch.train.trainer import Trainer
 from distributed_vgg_f_tpu_torch.utils.meter import ThroughputMeter
 
 #: Keys of a JAX train record that the port writes (the step metrics,
-#: the meter's snapshot and the host-wait share).
+#: the meter's snapshot, the host-wait share and the `comm` block the
+#: step fills on its first call).
 JAX_TRAIN_KEYS = {"step", "loss", "l2_loss", "top1", "grad_norm", "lr",
                   "bad_step", "images_per_sec", "images_per_sec_per_chip",
                   "steps_per_sec", "window_images_per_sec",
-                  "host_wait_fraction"}
+                  "host_wait_fraction", "comm"}
 
 
 def _small(name="vggf_teacher", batch=8, **train):
@@ -48,7 +49,8 @@ def test_fit_three_steps_writes_records_with_the_jax_keys():
     assert [r["step"] for r in train] == [2, 3]  # every 2nd and the last
     for r in train:
         assert set(r) - {"event"} == JAX_TRAIN_KEYS
-        assert all(math.isfinite(v) for k, v in r.items() if k != "event")
+        assert all(math.isfinite(v) for k, v in r.items()
+                   if k not in ("event", "comm"))
     assert seen == ["train", "train"]
     result = tr.evaluate(state, SyntheticU8(8, 32, 10, seed=1), 2)
     assert result["eval_examples"] == 16
@@ -163,3 +165,48 @@ def test_synthetic_batches_are_seeded_and_cycled():
     assert torch.equal(first["label"], b.batch["label"])
     assert not torch.equal(first["image"], c.batch["image"])
     assert second is first
+
+
+def test_train_records_cover_their_own_window():
+    """Each train record's rates and host_wait_fraction cover the steps
+    since the previous record (the JAX trainer resets its meter and
+    host-wait clock after each record, trainer.py:1400-1401): two windows
+    at different speeds, on an injected clock."""
+    t = [0.0]
+    # window 1: each step waits 0.5 s for its batch and computes 0.5 s;
+    # window 2: waits 0.1 s and computes 0.15 s
+    costs = [(0.5, 0.5)] * 2 + [(0.1, 0.15)] * 2
+
+    class Timed:
+        def __init__(self):
+            self.i = 0
+            self.src = iter(SyntheticU8(8, 32, 10))
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            t[0] += costs[self.i][0]
+            return next(self.src)
+
+    cfg = _small(log_every=2)
+    tr = Trainer(cfg, device="cpu")
+    tr.clock = lambda: t[0]
+    data = Timed()
+    step = tr.train_step
+
+    def timed_step(state, batch, seed):
+        out = step(state, batch, seed)
+        t[0] += costs[data.i][1]
+        data.i += 1
+        return out
+
+    tr.train_step = timed_step
+    tr.fit(tr.init_state(), data, num_steps=4)
+    first, second = [r for r in tr.records if r["event"] == "train"]
+    assert first["images_per_sec"] == pytest.approx(16 / 2.0)
+    assert first["steps_per_sec"] == pytest.approx(2 / 2.0)
+    assert first["host_wait_fraction"] == pytest.approx(0.5)
+    assert second["images_per_sec"] == pytest.approx(16 / 0.5)
+    assert second["steps_per_sec"] == pytest.approx(2 / 0.5)
+    assert second["host_wait_fraction"] == pytest.approx(0.4)
