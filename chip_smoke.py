@@ -204,6 +204,21 @@ Phases, one JSON line each:
             signal to the stop, the forced save's dispatch ms, seconds to
             the resumed first step, predict images/s; LRN launches 2 + 2
             a step, 2 an eval or predict batch, all vector
+  train_autotune the flagship's ingest autotuner on train_feed's shards,
+            a record every 5 steps, base_lr 0.001, after a 5-step warm-up
+            fit: (a) 60 steps with the preset's
+            autotuner on, each window's verdict, infeed fraction,
+            actuations, `blocked`, knob values and `settled`; every
+            window after the first infeed_bound at >= 0.25, the first
+            move not before window k_windows, every record equal to what
+            a fresh controller's rules make of the recorded verdicts, a
+            thread knob at its rail (the host's vCPUs) never moved; (b)
+            the same under DVGGF_AUTOTUNE=0: no host stage, no autotune
+            record or block, no autotune/* counter moved; (c) the seeded
+            feed (data.name="synthetic") with the autotuner on for 30
+            steps: every window compute_bound, no move. Step ms medians
+            of (a) and (b), the pinned host bytes, peak device memory;
+            2 + 2 LRN launches a step, all vector
   isolation no jax, flax or JAX-package module was imported (the CLI,
             preempt, logging and predict modules imported first)
   wall      the script's wall seconds
@@ -2153,6 +2168,220 @@ def phase_train_e2e(feed_dir, train_step_ms, feed_step_ms, smi):
     return launches
 
 
+def _autotune_run(cfg, steps):
+    """One fit of `cfg` for `steps` steps through the trainer-owned feed,
+    a record every 5 steps: (trainer, per-window rows, ms a step of each
+    window, LRN launches, the largest `prefetch/pinned_bytes` seen at a
+    record, peak device memory, the `autotune/*` counters' movement)."""
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.telemetry import get_registry
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    reg = get_registry()
+    names = ("windows", "actuations", "blocked_hysteresis",
+             "blocked_cooldown", "blocked_rail", "oscillation_freezes")
+    before = {n: reg.counter_value(f"autotune/{n}", 0) for n in names}
+    stamps, pinned = [], [0]
+
+    def on_record(event, rec):
+        if event == "train":
+            stamps.append(time.perf_counter())
+            pinned[0] = max(pinned[0],
+                            reg.gauge("prefetch/pinned_bytes", 0) or 0)
+
+    trainer = Trainer(cfg, log=on_record)
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+    lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    state = trainer.fit(state, num_steps=steps)
+    torch.cuda.synchronize()
+    launches = {"fwd": lrn_cuda.LAUNCHES, "bwd": lrn_cuda.BWD_LAUNCHES,
+                "vec_fwd": lrn_cuda.VEC_LAUNCHES,
+                "vec_bwd": lrn_cuda.VEC_BWD_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    moved = {n: reg.counter_value(f"autotune/{n}", 0) - before[n]
+             for n in names}
+    recs = [r for r in trainer.records if r["event"] == "train"]
+    stamps.insert(0, t0)
+    window_ms = [(t1 - t0_) * 1e3 / (r["step"] - p)
+                 for t0_, t1, r, p in zip(stamps, stamps[1:], recs,
+                                          [0] + [r["step"] for r in recs])]
+    rows = []
+    for r in recs:
+        at = r.get("autotune") or {}
+        rows.append({
+            "step": r["step"], "verdict": r["stall"]["verdict"],
+            "infeed_fraction": r["stall"]["infeed_fraction"],
+            "queue_depth": r["stall"].get("queue_depth"),
+            "host_wait_fraction": r["host_wait_fraction"],
+            "actuations": [(a["knob"], a["from"], a["to"])
+                           for a in at.get("actuations", [])],
+            "blocked": at.get("blocked"), "knobs": at.get("knobs"),
+            "settled": at.get("settled")})
+    del state
+    return trainer, recs, rows, window_ms, launches, pinned[0], peak, moved
+
+
+def _replay_autotune(armed, stalls):
+    """The records a fresh IngestAutotuner makes of `stalls` over knobs
+    that start where `armed` (the autotune_armed receipt) says: what the
+    controller's rules allow."""
+    from distributed_vgg_f_tpu_torch.data import autotune
+
+    class Target:
+        def __init__(self, value):
+            self.value = value
+
+        def apply(self, n):
+            self.value = n
+            return n
+
+    knobs = []
+    for k in armed["knobs"]:
+        t = Target(k["value"])
+        knobs.append(autotune.Knob(
+            k["name"], lambda t=t: t.value, t.apply, k["min"], k["max"],
+            geometric=k["name"] == "native_threads"))
+    from distributed_vgg_f_tpu_torch.telemetry import TelemetryRegistry
+    tuner = autotune.IngestAutotuner(knobs, registry=TelemetryRegistry(),
+                                     clock=lambda: 0.0)
+    check(tuner.describe()["config"] == armed["config"],
+          f"train_autotune: armed with {armed['config']}, not the module's "
+          "settings")
+    return [tuner.observe(s) for s in stalls]
+
+
+def phase_train_autotune(feed_dir, smi):
+    """The flagship's ingest autotuner on the card, after a 5-step warm-up
+    fit: (a) 60 steps on phase train_feed's shards with a record every 5
+    and the preset's autotuner on; (b) the same under DVGGF_AUTOTUNE=0; (c) the seeded-batch feed
+    (data.name="synthetic") with the autotuner on, 30 steps. Returns the
+    LRN launches of the three runs."""
+    import dataclasses
+
+    from distributed_vgg_f_tpu_torch.config import get_config
+    from distributed_vgg_f_tpu_torch.data import autotune
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    cfg = get_config("vggf_imagenet_dp")
+    check(cfg.data.autotune.enabled, "the preset's autotuner is off")
+    # base_lr 0.001, as train_e2e: at the preset's LR the 16-image
+    # fixture diverges within 40 steps (PERF.md §6)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, data_dir=feed_dir),
+        optim=dataclasses.replace(cfg.optim, base_lr=0.001),
+        train=dataclasses.replace(cfg.train, log_every=5, seed=0))
+    steps = 60
+    # warm the process first (cuDNN's algorithm search, the decoder's first
+    # draws): a cold first window takes seconds a step, the read-ahead
+    # fills meanwhile, and window 2 would drain it at the card's pace
+    warm = Trainer(cfg)
+    warm.fit(warm.init_state(0), num_steps=5)
+    torch.cuda.synchronize()
+    del warm
+    gc.collect()
+    out, launches = {}, {}
+    for run, env, c, n in (
+            ("a", None, cfg, steps),
+            ("b", "0", cfg, steps),
+            ("c", None, dataclasses.replace(cfg, data=dataclasses.replace(
+                cfg.data, name="synthetic")), 30)):
+        if env is not None:
+            os.environ[autotune.ENV_KILL] = env
+        try:
+            (trainer, recs, rows, window_ms, launches[run], pinned, peak,
+             moved) = _autotune_run(c, n)
+        finally:
+            os.environ.pop(autotune.ENV_KILL, None)
+        armed = [r for r in trainer.records if r["event"] == "autotune_armed"]
+        out[run] = {
+            "steps": n, "windows": rows, "window_step_ms": window_ms,
+            "step_ms_median": statistics.median(window_ms[1:]),
+            "pinned_host_bytes_max": pinned, "peak_memory_bytes": peak,
+            "autotune_counters_moved": moved,
+            "host_stage": trainer.host_prefetch is not None,
+            "armed": armed[0] if armed else None,
+            "describe": (trainer.autotuner.describe()
+                         if trainer.autotuner is not None else None),
+            "lrn_launches": launches[run]}
+        want = {"fwd": 2 * n, "bwd": 2 * n}
+        check(launches[run] == {**want, "vec_fwd": 2 * n, "vec_bwd": 2 * n},
+              f"train_autotune ({run}): LRN launches {launches[run]}, "
+              f"expected {want}, all vector")
+        check(all(math.isfinite(r["loss"]) for r in recs),
+              f"train_autotune ({run}): non-finite loss")
+        if run == "b":
+            check(not out[run]["host_stage"] and trainer.autotuner is None
+                  and not armed and all("autotune" not in r for r in recs)
+                  and not any(moved.values()),
+                  f"train_autotune (b): the killed autotuner left a host "
+                  f"stage, a record or a counter: {moved}")
+        else:
+            check(len(armed) == 1 and out[run]["host_stage"],
+                  f"train_autotune ({run}): not armed")
+            # every move is one the rules make of the recorded verdicts
+            def untimed(rec):
+                return {**rec, "actuations": [
+                    {k: v for k, v in a.items() if k != "ts_unix"}
+                    for a in rec.get("actuations", [])]}
+
+            want_rows = _replay_autotune(armed[0],
+                                         [r["stall"] for r in recs])
+            check([untimed(r["autotune"]) for r in recs]
+                  == [untimed(w) for w in want_rows],
+                  f"train_autotune ({run}): the controller moved outside "
+                  "its rules")
+            knobs = {k["name"]: k for k in out[run]["describe"]["knobs"]}
+            out[run]["knob_rails"] = {
+                name: "rail" if k["value"] >= k["max"] else None
+                for name, k in knobs.items()}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, c = out["a"], out["c"]
+    threads = {k["name"]: k for k in a["describe"]["knobs"]}.get(
+        "native_threads")
+    emit("train_autotune", config=cfg.name, data_dir_shards=4,
+         log_every=5, cpu_count=os.cpu_count(),
+         rails={"max_threads": autotune.MAX_THREADS or max(
+             autotune.MIN_THREADS, min(16, os.cpu_count() or 1)),
+                "max_prefetch": autotune.MAX_PREFETCH,
+                "max_prefetch_to_device": autotune.MAX_PREFETCH_TO_DEVICE},
+         k_windows=autotune.K_WINDOWS,
+         cooldown_windows=autotune.COOLDOWN_WINDOWS,
+         step_ms_median_a=a["step_ms_median"],
+         step_ms_median_b=out["b"]["step_ms_median"],
+         step_ms_median_c=c["step_ms_median"],
+         pinned_host_bytes_a=a["pinned_host_bytes_max"],
+         pinned_host_bytes_b=out["b"]["pinned_host_bytes_max"],
+         peak_memory_bytes_a=a["peak_memory_bytes"],
+         peak_memory_bytes_b=out["b"]["peak_memory_bytes"],
+         runs=out, nvidia_smi=smi)
+    # the acceptance of the infeed signal and of the controller
+    late = a["windows"][1:]
+    check(all(w["verdict"] == "infeed_bound" and w["infeed_fraction"] >= 0.25
+              for w in late),
+          "train_autotune (a): a window after the first is not infeed_bound "
+          f"at >= 0.25: {[(w['verdict'], w['infeed_fraction']) for w in late]}")
+    check(all(w["verdict"] == "compute_bound" for w in c["windows"])
+          and c["describe"]["actuations_total"] == 0,
+          "train_autotune (c): the seeded feed is not compute_bound "
+          f"everywhere or moved a knob: {c['windows']}")
+    moves = [w for w in a["windows"] if w["actuations"]]
+    check(moves and a["windows"].index(moves[0]) + 1 >= autotune.K_WINDOWS,
+          f"train_autotune (a): no move, or one before window "
+          f"{autotune.K_WINDOWS}")
+    if threads is not None and threads["value"] >= threads["max"]:
+        check(a["knob_rails"]["native_threads"] == "rail"
+              and not any(w["actuations"][0][0] == "native_threads"
+                          for w in moves),
+              "train_autotune (a): the railed thread knob moved")
+    torch.cuda.empty_cache()
+    return {k: launches["a"][k] + launches["b"][k] + launches["c"][k]
+            for k in ("fwd", "bwd")}
+
+
 # ------------------------------------------------------------- ViT phases
 #: ViT-S/16's attention on the card: T = 197 tokens, 6 heads of 64
 _VIT_T, _VIT_H, _VIT_D = 197, 6, 64
@@ -3641,6 +3870,7 @@ def main() -> int:
                                          feed_ms, feed_dir, smi)
         e2e_launches = phase_train_e2e(feed_dir, train_ref["step_ms_median"],
                                        feed_ms, smi)
+        autotune_launches = phase_train_autotune(feed_dir, smi)
     finally:
         shutil.rmtree(feed_dir, ignore_errors=True)
     del tree
@@ -3780,12 +4010,14 @@ def main() -> int:
         "lrn_fwd", "distributed_vgg_f_tpu_torch/csrc/lrn_fwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records, "bucket", 32,
         serve_launches + train_launches["fwd"] + zero2_launches["fwd"]
-        + feed_launches["fwd"] + ckpt_launches["fwd"] + e2e_launches["fwd"],
+        + feed_launches["fwd"] + ckpt_launches["fwd"] + e2e_launches["fwd"]
+        + autotune_launches["fwd"],
         {"serve": serve_launches, "train": train_launches["fwd"],
          "train_zero2": zero2_launches["fwd"],
          "train_feed": feed_launches["fwd"],
          "train_ckpt": ckpt_launches["fwd"],
-         "train_e2e": e2e_launches["fwd"]},
+         "train_e2e": e2e_launches["fwd"],
+         "train_autotune": autotune_launches["fwd"]},
         "both LRN sites of one bf16 forward at bucket 32, ReLU fused")
     at32 = lrn_times(lrn_sites(records, "bucket", 32), "relu_ms")
     lrn_fwd_row.update(
@@ -3796,12 +4028,14 @@ def main() -> int:
         "lrn_bwd", "distributed_vgg_f_tpu_torch/csrc/lrn_bwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:74", bwd_records, "batch",
         1024, train_launches["bwd"] + zero2_launches["bwd"]
-        + feed_launches["bwd"] + ckpt_launches["bwd"] + e2e_launches["bwd"],
+        + feed_launches["bwd"] + ckpt_launches["bwd"] + e2e_launches["bwd"]
+        + autotune_launches["bwd"],
         {"serve": 0, "train": train_launches["bwd"],
          "train_zero2": zero2_launches["bwd"],
          "train_feed": feed_launches["bwd"],
          "train_ckpt": ckpt_launches["bwd"],
-         "train_e2e": e2e_launches["bwd"]},
+         "train_e2e": e2e_launches["bwd"],
+         "train_autotune": autotune_launches["bwd"]},
         "both LRN sites of one bf16 training step at batch 1024, the ReLU's "
         "backward fused")
     at1024 = lrn_times(lrn_sites(bwd_records, "batch", 1024), "relu_bwd_ms")

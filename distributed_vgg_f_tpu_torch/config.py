@@ -14,8 +14,9 @@ checkpoints, eval cadence, best slot and preemption read, a
 (`apply_overrides`, `fold_override_items`, `parse_cli`: the JAX
 package's dotted `--set KEY=VALUE` keys and refusals).
 
-Fields of later slices (autotune, telemetry, the admission controller,
-serving tiers, elastic resize, ...) are absent until their slice ports
+`AutotuneConfig` switches the ingest autotuner on or off.
+Fields of later slices (telemetry, the admission controller, serving
+tiers, elastic resize, ...) are absent until their slice ports
 them: a field the port would accept and ignore is left out instead, and
 a `--set` of one raises, naming its ROADMAP item (`UNPORTED_KEYS`).
 """
@@ -102,6 +103,18 @@ class AugmentConfig:
 
 
 @dataclass(frozen=True)
+class AutotuneConfig:
+    """The closed-loop ingest autotuner (data/autotune.py; JAX
+    `config.py:77–158`): a per-process controller that reads each log
+    window's stall verdict and steers the decode threads, the host
+    read-ahead depth and the device ring. Off by default; the flagship
+    preset turns it on; DVGGF_AUTOTUNE=0 turns it off whatever this says.
+    The controller's settings and rails are data/autotune.py's constants,
+    JAX's defaults: a `--set` of one raises (`UNPORTED_KEYS`)."""
+    enabled: bool = False   # off by default; the flagship preset turns it on
+
+
+@dataclass(frozen=True)
 class DataConfig:
     """The data fields serving, the training step and the trainer's feed
     read: the source (`build_dataset`: "synthetic" seeded u8 batches or
@@ -130,6 +143,7 @@ class DataConfig:
     # after the augmentation (finish -> augment -> space-to-depth)
     space_to_depth: bool = False
     augment: AugmentConfig = field(default_factory=AugmentConfig)
+    autotune: AutotuneConfig = field(default_factory=AutotuneConfig)
 
     def __post_init__(self):
         if self.native_threads < 0:
@@ -371,9 +385,9 @@ def _vggf_imagenet_dp() -> ExperimentConfig:
     mixup on the device, the packed stem layout, ZeRO-2 with 4 MB buckets
     (downgraded to replicated SGD on one process), served on the
     power-of-two ladder up to 32. Its train stream is ImageNet's TFRecords
-    under `data.data_dir` through the native decoder on the u8 wire. The
-    JAX preset's ingest autotuner has no counterpart in the port yet
-    (ROADMAP A14)."""
+    under `data.data_dir` through the native decoder on the u8 wire, its
+    ingest steered by the autotuner (data/autotune.py), as JAX's preset
+    is."""
     return ExperimentConfig(
         name="vggf_imagenet_dp",
         model=ModelConfig(name="vggf", num_classes=1000),
@@ -384,7 +398,8 @@ def _vggf_imagenet_dp() -> ExperimentConfig:
                         global_batch_size=1024,
                         space_to_depth=True,
                         augment=AugmentConfig(enabled=True, hflip=True,
-                                              mixup_alpha=0.2)),
+                                              mixup_alpha=0.2),
+                        autotune=AutotuneConfig(enabled=True)),
         mesh=MeshConfig(shard_opt_state=True, shard_gradients=True,
                         comm_bucket_mb=4.0),
         train=TrainConfig(epochs=90.0),
@@ -452,11 +467,8 @@ def get_config(name: str) -> ExperimentConfig:
 UNPORTED_KEYS = (
     ("telemetry.", "the telemetry planes (TelemetryConfig) wait for "
                    "ROADMAP A14"),
-    ("data.autotune.", "the ingest autotuner waits for ROADMAP A14"),
     ("data.service.", "the ingest service client waits for ROADMAP A14"),
     ("data.snapshot_cache.", "the snapshot cache waits for ROADMAP A14"),
-    ("data.prefetch", "the host read-ahead stage (HostPrefetchIterator) "
-                      "waits for ROADMAP A14"),
     ("train.tensorboard_dir", "TensorBoard is not ported: the card's host "
                               "has no tensorflow or tensorboard package "
                               "(ROADMAP A14)"),
@@ -493,6 +505,12 @@ UNPORTED_KEYS = (
                                        "that cannot seek, so it trains on "
                                        "the uninterrupted stream (ROADMAP "
                                        "A14)"),
+    ("data.autotune.", "the autotuner's settings and rails are "
+                       "data/autotune.py's constants (JAX's defaults) "
+                       "until a deployment needs another (ROADMAP A14b)"),
+    ("data.prefetch", "the host read-ahead starts at data/autotune.py "
+                      "HOST_PREFETCH (2, JAX's default) until a "
+                      "deployment needs another (ROADMAP A14b)"),
     ("data.iterator_state.", "every checkpoint carries the iterator blob "
                              "and every resume reads it (ROADMAP A14)"),
     ("train.dropout_rng_impl", "JAX-specific (the PRNG implementation); "

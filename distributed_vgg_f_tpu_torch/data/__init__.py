@@ -1,9 +1,11 @@
 """Data plane of the port: the train stream's sources (`build_dataset`:
 seeded u8 batches, data/synthetic.py, or ImageNet TFRecords through the
 native decoder, data/imagenet.py), the cursor-counting ingest
-(data/iterator_state.py), the device prefetcher (data/prefetch.py), the
-device finish of the u8 wire (data/device_ingest.py) and the train step's
-on-device augmentation (data/augment.py)."""
+(data/iterator_state.py), the host and device read-ahead stages
+(data/prefetch.py) and the ingest autotuner that steers them
+(data/autotune.py), the device finish of the u8 wire
+(data/device_ingest.py) and the train step's on-device augmentation
+(data/augment.py)."""
 
 
 def build_dataset(data_cfg, split: str = "train", *, seed: int = 0,

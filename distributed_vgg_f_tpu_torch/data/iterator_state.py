@@ -17,13 +17,21 @@ A cursor is always the next item to emit: the batch at cursor k*N opens
 epoch k (`epoch_of`).
 
 `ResumableIngest` wraps what `build_dataset` returns and counts the source
-cursor over `__next__` and `next_into` draws alike; the device prefetcher
-above it (data/prefetch.py) holds `source_cursor - cursor` batches already
-drawn. `capture_state` writes the blob and `restore_from_blob` validates
-one (telemetry/schema.py), checks its identity and seeks a fresh ingest to
-its cursor, so a refill draws exactly the in-flight batches again. The
-trainer writes no checkpoints yet (ROADMAP A9); the live rebuild and the
-autotuner's wire knob wait for A14.
+cursor over `__next__` and `next_into` draws alike; the prefetch stages
+above it (data/prefetch.py) hold `source_cursor - cursor` batches already
+drawn. `capture_state` writes the blob each checkpoint carries and
+`restore_from_blob` validates one (telemetry/schema.py), checks its
+identity and seeks a fresh ingest to its cursor, so a refill draws exactly
+the in-flight batches again. `num_threads`/`set_num_threads` forward the
+decode pool's size (the autotuner's thread knob). The live rebuild and
+the wire knob wait for ROADMAP A17, which ports the host wires.
+
+Two locks: a draw holds the draw lock for as long as the source decodes
+(up to a whole batch's decode on a decode-bound host), while the cursor
+lock is held only to read or bump the count. The trainer thread's
+receipts (`capture_state`, `window_receipt`, `cursor`) take the cursor
+lock alone, so a train record or a save never waits for a decode in
+flight; a seek and `close` take both, so neither lands inside a draw.
 
 Counters (`ingest_state/`): `saves`, `restores`, `transplanted_items`,
 `rebuilds`.
@@ -78,9 +86,9 @@ def _wire_of(inner) -> str:
 
 class ResumableIngest:
     """Cursor-counting surface over the trainer's host-batch source,
-    between `build_dataset` and the device prefetcher. One lock covers a
-    draw and the cursor, so `capture_state` on the trainer's thread never
-    sees a draw half counted."""
+    between `build_dataset` and the prefetch stages. The cursor moves
+    once a draw has returned, so a receipt taken during a draw counts it
+    as not yet drawn."""
 
     supports_state = True
 
@@ -88,7 +96,8 @@ class ResumableIngest:
                  seed: int, batches_per_epoch: int):
         self._seed = int(seed)
         self._batches_per_epoch = max(1, int(batches_per_epoch))
-        self._lock = threading.RLock()
+        self._draw_lock = threading.Lock()   # held across a draw
+        self._lock = threading.Lock()        # the cursor, briefly
         self._cursor = 0   # next SOURCE draw
         self._started = False
         self._closed = False
@@ -102,12 +111,13 @@ class ResumableIngest:
         return self
 
     def __next__(self):
-        with self._lock:
+        with self._draw_lock:
             if self._closed:
                 raise StopIteration
             self._started = True
             batch = next(self._inner)
-            self._cursor += 1
+            with self._lock:
+                self._cursor += 1
             return batch
 
     @property
@@ -117,12 +127,13 @@ class ResumableIngest:
         inner_next_into = self._inner.next_into
 
         def next_into(images, labels) -> None:
-            with self._lock:
+            with self._draw_lock:
                 if self._closed:
                     raise StopIteration
                 self._started = True
                 inner_next_into(images, labels)
-                self._cursor += 1
+                with self._lock:
+                    self._cursor += 1
         return next_into
 
     @property
@@ -143,14 +154,15 @@ class ResumableIngest:
     def restore_state(self, step: int) -> bool:
         """Seek to "next batch = step" before the first draw; False when
         the source cannot seek (the caller replays instead)."""
-        with self._lock:
+        with self._draw_lock:
             if self._started:
                 return False
             fn = getattr(self._inner, "restore_state", None)
             if not (getattr(self._inner, "supports_state", False)
                     and callable(fn) and fn(int(step))):
                 return False
-            self._cursor = int(step)
+            with self._lock:
+                self._cursor = int(step)
             return True
 
     def capture_state(self, next_step: int) -> Dict[str, object]:
@@ -174,7 +186,7 @@ class ResumableIngest:
                 "in_flight": list(range(cursor, source_cursor)),
                 "wire": self._wire,
                 "ingest": INGEST_LABEL,
-                "rebuilds": 0,  # no live rebuild yet (ROADMAP A14)
+                "rebuilds": 0,  # no live rebuild yet (ROADMAP A17)
             }
 
     def window_receipt(self, next_step: int) -> Dict[str, object]:
@@ -191,13 +203,24 @@ class ResumableIngest:
             }
 
     # -------------------------------------------------------- forwarding
+    def num_threads(self) -> Optional[int]:
+        """The source's decode-pool size, or None when it has no pool."""
+        fn = getattr(self._inner, "num_threads", None)
+        return fn() if callable(fn) else None
+
+    def set_num_threads(self, n: int) -> Optional[int]:
+        """Resize the source's decode pool mid-stream (the stream is the
+        same at any size); the now-active size, or None when refused."""
+        fn = getattr(self._inner, "set_num_threads", None)
+        return fn(int(n)) if callable(fn) else None
+
     def decode_errors(self) -> int:
         fn = getattr(self._inner, "decode_errors", None)
         live = int(fn()) if callable(fn) else 0
         return self._decode_errors_closed + live
 
     def close(self) -> None:
-        with self._lock:
+        with self._draw_lock:
             if self._closed:
                 return
             self._closed = True

@@ -14,9 +14,11 @@ this binding to the C source unfiltered.
 Two output kinds are reachable: ``"uint8"``, the wire of the training
 feed (raw resampled HWC pixels; the device finish normalizes them,
 data/device_ingest.py), and ``"float32"`` (host-normalized, the eval
-pass). The bf16 host kind and the decode-tuning switches (SIMD, scaled
-decode, restart markers, fan-out, stats) are declared but not wrapped
-(ROADMAP A14).
+pass). A live loader's `set_num_threads` / `num_threads` are what the
+ingest autotuner's thread knob reaches (data/autotune.py). The bf16 host
+kind and the decode-tuning calls (SIMD, scaled decode, restart markers
+and fan-out, the resize switch, stats, restart re-encoding) are declared
+but not wrapped (ROADMAP A14b).
 
 Determinism (train): the batch stream is a pure function of (seed, batch
 index) at any thread count, and `restore_state(step)` is an O(1) exact
@@ -290,9 +292,12 @@ class _NativeJpegBase:
         return self._decode_errors_closed + live
 
     def set_num_threads(self, n: int) -> Optional[int]:
-        """Resize the live decode worker pool; the stream is byte-identical
-        at any width. Returns the now-active target, or None when refused
-        (no live handle, or the resize compiled out or switched off)."""
+        """Resize the live decode worker pool (the autotuner's thread
+        knob): growing starts workers that join the item claims at once,
+        shrinking retires idle ones before their next claim; the stream is
+        byte-identical at any width. Returns the now-active target, or None
+        when refused (no live handle, or the resize compiled out or
+        switched off: DVGGF_THREAD_RESIZE=0)."""
         if not self._live:
             return None
         rc = -1

@@ -3,11 +3,13 @@
 the trainer writes through utils/logging.py MetricLogger
 (`validate_metrics_record`, `validate_metrics_jsonl`: one strict JSON
 object per line, an `event` string, a known `schema_version` major, no
-non-finite value anywhere, and the train record's `augment`, `comm` and
-`iterator_state` blocks typed), and the checkpoint's iterator-state blob
+non-finite value anywhere, the train record's `stall`, `augment`,
+`comm` and `iterator_state` blocks typed, and the autotuner's `autotune`
+block and `autotune_armed` receipt: JAX's `validate_autotune_actuation`,
+`_block` and `_receipt`), and the checkpoint's iterator-state blob
 (`validate_iterator_state_blob`). The port's records never carry the
-autotune, elastic and critical-path blocks (ROADMAP A14, A13), so this
-validator does not check them. Each `validate_*` appends error strings
+elastic and critical-path blocks (ROADMAP A13, A14c), so this validator
+does not check them. Each `validate_*` appends error strings
 (empty = valid). Stdlib only."""
 
 from __future__ import annotations
@@ -216,6 +218,119 @@ def validate_comm_block(block: Any, where: str,
         errors.append(f"{where}: 'gathers' not a non-negative integer")
 
 
+#: The stall verdicts (telemetry/stall.py VERDICTS, duplicated so this
+#: module stays a leaf).
+_STALL_VERDICTS = ("guard_stalled", "checkpoint_bound", "infeed_bound",
+                   "compute_bound")
+
+#: Knobs the ingest autotuner may steer (data/autotune.py) and the
+#: serving admission controller's, as in JAX's schema.
+_AUTOTUNE_KNOBS = ("native_threads", "host_prefetch", "prefetch_to_device",
+                   "restart_fanout", "wire_u8", "batch_window_ms")
+_AUTOTUNE_BLOCKED = ("hysteresis", "cooldown", "rail")
+
+
+def validate_stall_block(block: Any, where: str, errors: List[str]) -> None:
+    """A train record's `stall` block (telemetry/stall.py classify): a
+    known verdict, the infeed and checkpoint fractions in [0, 1], and the
+    optional guard skips, queue depth and eval seconds typed."""
+    if not isinstance(block, dict):
+        errors.append(f"{where}: 'stall' not an object")
+        return
+    if block.get("verdict") not in _STALL_VERDICTS:
+        errors.append(f"{where}: 'verdict' {block.get('verdict')!r} not one "
+                      f"of {_STALL_VERDICTS}")
+    for key in ("infeed_fraction", "checkpoint_fraction"):
+        v = block.get(key)
+        if not _nonneg_number(v) or v > 1.0:
+            errors.append(f"{where}: '{key}' not a number in [0, 1]")
+    v = block.get("guard_skips")
+    if v is not None and (not _nonneg_int(v) or v == 0):
+        errors.append(f"{where}: 'guard_skips' not a positive integer")
+    for key in ("queue_depth", "eval_seconds"):
+        v = block.get(key)
+        if v is not None and not _nonneg_number(v):
+            errors.append(f"{where}: '{key}' not a non-negative number")
+
+
+def validate_autotune_actuation(act: Any, where: str,
+                                errors: List[str]) -> None:
+    """One actuation record: the unit of the `autotune` block's
+    `actuations` and of `describe()`'s history."""
+    if not isinstance(act, dict):
+        errors.append(f"{where}: not an object")
+        return
+    if act.get("knob") not in _AUTOTUNE_KNOBS:
+        errors.append(f"{where}: 'knob' {act.get('knob')!r} not one of "
+                      f"{_AUTOTUNE_KNOBS}")
+    if act.get("direction") not in ("up", "down"):
+        errors.append(f"{where}: 'direction' {act.get('direction')!r} not "
+                      "'up'|'down'")
+    for key in ("from", "to", "window"):
+        if not isinstance(act.get(key), int):
+            errors.append(f"{where}: missing integer '{key}'")
+
+
+def validate_autotune_block(block: Any, where: str,
+                            errors: List[str]) -> None:
+    """The per-window `autotune` block of a train record
+    (IngestAutotuner.observe's shape): every move the controller makes
+    can be audited from the records alone."""
+    if not isinstance(block, dict):
+        errors.append(f"{where}: 'autotune' not an object")
+        return
+    if not isinstance(block.get("window"), int):
+        errors.append(f"{where}: missing integer 'window'")
+    if not isinstance(block.get("settled"), bool):
+        errors.append(f"{where}: missing boolean 'settled'")
+    knobs = block.get("knobs")
+    if knobs is not None:
+        if not isinstance(knobs, dict):
+            errors.append(f"{where}: 'knobs' not an object")
+        else:
+            for name, v in knobs.items():
+                if name not in _AUTOTUNE_KNOBS:
+                    errors.append(f"{where}.knobs: unknown knob {name!r}")
+                if not isinstance(v, int):
+                    errors.append(f"{where}.knobs.{name}: not an integer")
+    blocked = block.get("blocked")
+    if blocked is not None and blocked not in _AUTOTUNE_BLOCKED:
+        errors.append(f"{where}: 'blocked' {blocked!r} not one of "
+                      f"{_AUTOTUNE_BLOCKED}")
+    acts = block.get("actuations")
+    if acts is not None:
+        if not isinstance(acts, list):
+            errors.append(f"{where}: 'actuations' not a list")
+        else:
+            for i, act in enumerate(acts):
+                validate_autotune_actuation(act, f"{where}.actuations[{i}]",
+                                            errors)
+
+
+def validate_autotune_receipt(receipt: Any, where: str,
+                              errors: List[str]) -> None:
+    """IngestAutotuner.describe's shape: the `autotune_armed` record."""
+    if not isinstance(receipt, dict):
+        errors.append(f"{where}: 'autotune' not an object")
+        return
+    if not isinstance(receipt.get("enabled"), bool):
+        errors.append(f"{where}: missing boolean 'enabled'")
+    if receipt.get("enabled"):
+        if not isinstance(receipt.get("settled"), bool):
+            errors.append(f"{where}: missing boolean 'settled'")
+        if not isinstance(receipt.get("actuations_total"), int):
+            errors.append(f"{where}: missing integer 'actuations_total'")
+        hist = receipt.get("history")
+        if hist is not None:
+            if not isinstance(hist, list):
+                errors.append(f"{where}: 'history' not a list")
+            else:
+                for i, act in enumerate(hist):
+                    validate_autotune_actuation(
+                        act, f"{where}.history[{i}]", errors)
+
+
+
 def validate_metrics_record(record: Any) -> List[str]:
     """One MetricLogger record, already parsed."""
     errors: List[str] = []
@@ -225,8 +340,13 @@ def validate_metrics_record(record: Any) -> List[str]:
     if not isinstance(event, str) or not event:
         errors.append("missing/empty 'event' string")
     validate_schema_version(record.get("schema_version"), "record", errors)
+    if "autotune" in record:
+        validate_autotune_block(record["autotune"], "record", errors)
+    if event == "autotune_armed":
+        validate_autotune_receipt(record, "record", errors)
     if event == "train":
-        for key, check in (("augment", validate_augment_block),
+        for key, check in (("stall", validate_stall_block),
+                           ("augment", validate_augment_block),
                            ("comm", validate_comm_block),
                            ("iterator_state",
                             validate_iterator_state_block)):

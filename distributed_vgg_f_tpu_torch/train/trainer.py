@@ -23,13 +23,40 @@ slot) into such a state, or returns it fresh.
 `num_steps`, feeding the NonFiniteGuard and the throughput meter, and
 writes one train record at every `log_every` window and at the last
 step: `step`, the step metrics, the meter's rates and
-`host_wait_fraction` over the window (the meter and the host-wait clock
+`host_wait_fraction` over the window (the meter and the wait clocks
 restart after each record), `eval_seconds` when an eval ran in the
 window, `nonfinite_skips` once there are any, `data_decode_errors`
 (summed over the group) once the decoders counted any, and the
-`augment`, `comm` and `iterator_state` blocks (telemetry/schema.py).
-The `stall`, `counters` and `critical_path` blocks wait for the
-telemetry config (ROADMAP A14). With an eval dataset it evaluates every
+`stall`, `augment`, `comm`, `iterator_state` and (with the autotuner)
+`autotune` blocks (telemetry/schema.py). The `counters` and
+`critical_path` blocks wait for the telemetry planes (ROADMAP A14c).
+
+Stall attribution (JAX `trainer.py:1170–1290, 1402–1456`): three wait
+clocks run over each window — `host_wait` around `next()` on the feed,
+`ckpt_wait` around the cadence, best-slot and preemption saves (a save
+after a record counts toward the next window), and `eval_wait` around
+the eval passes, which is taken off the window's wall time.
+telemetry/stall.py `StallAttributor` turns them and the guard's new
+skips into the record's `stall` block: the verdict (`infeed_bound`,
+`checkpoint_bound`, `guard_stalled`, `compute_bound`), the infeed and
+checkpoint fractions, the prefetch queue depth and, after an eval,
+`eval_seconds`. The telemetry config is not ported: the port behaves as
+its JAX defaults (`telemetry.enabled` and `stall_attribution` on,
+thresholds 0.25).
+
+The ingest autotuner (JAX `trainer.py:930–1035, 1290–1357`): on the
+trainer-owned feed, when `data.autotune` is active (enabled, and not
+killed by DVGGF_AUTOTUNE=0), the feed gains the host read-ahead stage
+(data/prefetch.py `HostPrefetchIterator`, `autotune.HOST_PREFETCH`
+deep) and `self.autotuner` (data/autotune.py) binds its knobs: the decode
+threads (`MAX_THREADS` 0 resolves to `max(MIN_THREADS, min(16, vCPUs))`),
+the host depth and the device ring. The wire knob stays unbound: the port feeds the u8 wire only
+(ROADMAP A17). Rank 0 logs `autotune_armed` (`describe()` without its
+history, plus `unbound`); every rank calls `observe(stall)` once a
+window, and rank 0's record carries the result. The controller makes no
+collective call and no branch that leads to one reads a knob, so ranks
+may settle on different values. Otherwise the feed has no host stage
+and no `autotune/*` counter moves. With an eval dataset it evaluates every
 `train.eval_every_steps` steps (0: once an epoch) and, with
 `train.track_best_eval` and checkpoints, keeps the best eval_top1 in
 one slot under `<checkpoint_dir>/best` (a forced save only when the
@@ -72,9 +99,9 @@ end, with the padding rows masked; an infinite one for
 
 Records go to `self.records` (as ``{"event": ..., **payload}``) and to
 the optional `log(event, payload)` callable on rank 0 only, as the JAX
-package logs on process 0. Elastic resize and ZeRO-3, autotune, the
-collector and the flight recorder are not ported yet (ROADMAP A13,
-A14).
+package logs on process 0. Elastic resize and ZeRO-3 (ROADMAP A13), the
+collector, the flight recorder and `/autotunez` (A14c) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -94,11 +121,13 @@ from distributed_vgg_f_tpu_torch.checkpoint.retopology import \
     restore_any_topology
 from distributed_vgg_f_tpu_torch.config import ExperimentConfig
 from distributed_vgg_f_tpu_torch.data import build_dataset
+from distributed_vgg_f_tpu_torch.data import autotune
 from distributed_vgg_f_tpu_torch.data.augment import make_device_augment
 from distributed_vgg_f_tpu_torch.data.device_ingest import make_device_finish
 from distributed_vgg_f_tpu_torch.data.iterator_state import (
     INGEST_LABEL, ResumableIngest, restore_from_blob)
-from distributed_vgg_f_tpu_torch.data.prefetch import DevicePrefetchIterator
+from distributed_vgg_f_tpu_torch.data.prefetch import (DevicePrefetchIterator,
+                                                       HostPrefetchIterator)
 from distributed_vgg_f_tpu_torch.device import resolve_device
 from distributed_vgg_f_tpu_torch.models.registry import build_model
 from distributed_vgg_f_tpu_torch.parallel.collectives import rank_and_size
@@ -108,6 +137,7 @@ from distributed_vgg_f_tpu_torch.resilience.errors import \
     CheckpointIntegrityError
 from distributed_vgg_f_tpu_torch.resilience.guard import NonFiniteGuard
 from distributed_vgg_f_tpu_torch.telemetry import schema
+from distributed_vgg_f_tpu_torch.telemetry.stall import StallAttributor
 from distributed_vgg_f_tpu_torch.train.schedule import (build_optimizer,
                                                         build_schedule)
 from distributed_vgg_f_tpu_torch.train.state import TrainState
@@ -115,6 +145,13 @@ from distributed_vgg_f_tpu_torch.train.step import (build_eval_step,
                                                     build_train_step)
 from distributed_vgg_f_tpu_torch.utils.meter import ThroughputMeter
 from distributed_vgg_f_tpu_torch.weights import init_params, load_params
+
+
+#: Why the autotuner's wire knob is unbound in the `autotune_armed`
+#: receipt.
+WIRE_KNOB_UNBOUND = (
+    "the port feeds the u8 wire only; a wire switch needs the host wires "
+    "and the position-exact live rebuild (ROADMAP A17)")
 
 
 class Trainer:
@@ -133,6 +170,11 @@ class Trainer:
         #: dataset (closed when that fit returned; its decode_errors()
         #: stays readable)
         self.ingest = None
+        #: the host read-ahead stage of the last `open_feed` that asked
+        #: for one (closed with the feed by `fit`)
+        self.host_prefetch: Optional[HostPrefetchIterator] = None
+        #: the ingest autotuner of the last `fit` that armed one
+        self.autotuner: Optional[autotune.IngestAutotuner] = None
         mesh, k = cfg.mesh, cfg.train.grad_accum_steps
         if mesh.shard_params or mesh.elastic.enabled:
             raise NotImplementedError(
@@ -330,15 +372,17 @@ class Trainer:
             lambda dc: self.make_dataset("train", data_cfg=dc), cfg.data,
             seed=cfg.train.seed, batches_per_epoch=cfg.steps_per_epoch)
 
-    def open_feed(self, start_step: int = 0):
+    def open_feed(self, start_step: int = 0, host_depth: int = 0):
         """(ingest, feed): the trainer-owned train stream positioned so its
-        next batch is batch `start_step`, behind the device prefetcher.
-        The position comes first: through the iterator blob of the
-        checkpoint `restore_or_init` restored, when it has one that fits
+        next batch is batch `start_step`, behind the device prefetcher
+        and, with `host_depth` > 0, the host read-ahead stage between them
+        (`self.host_prefetch`, `host_depth` deep; None otherwise). The
+        position comes first: through the iterator blob of the checkpoint
+        `restore_or_init` restored, when it has one that fits
         (`iterator_state_restore` logged, no batch replayed), else by a
-        seek, else by replay. The
-        prefetcher's worker draws at once, and a seek is exact only before
-        the first draw. The caller closes the feed, then the ingest."""
+        seek, else by replay. The prefetch workers draw at once, and a
+        seek is exact only before the first draw. The caller closes the
+        feed, then the host stage, then the ingest."""
         cfg = self.cfg
         ingest = self._make_train_ingest()
         blob, self._restored_iterator_state = \
@@ -362,14 +406,44 @@ class Trainer:
                     for _ in range(start_step):
                         next(ingest)
                     self.log("data_fast_forward", {"batches": start_step})
+            self.host_prefetch = source = None
+            if host_depth > 0:
+                self.host_prefetch = source = HostPrefetchIterator(
+                    ingest, depth=host_depth, device=self.device)
             feed = DevicePrefetchIterator(
-                ingest, self.device, cfg.train.prefetch_to_device,
+                source or ingest, self.device, cfg.train.prefetch_to_device,
                 batch_timeout_s=cfg.train.data_timeout_s,
                 timeout_retries=cfg.train.data_timeout_retries)
         except BaseException:
+            if self.host_prefetch is not None:
+                self.host_prefetch.close()
             ingest.close()
             raise
         return ingest, feed
+
+    def _arm_autotuner(self, feed) -> autotune.IngestAutotuner:
+        """The controller over the live feed's knobs (JAX
+        `trainer.py:986–1028`): a factory returns None for a surface the
+        feed lacks, and the controller steers what exists. Logs
+        `autotune_armed` on rank 0."""
+        # auto (0) resolves to min(16, vCPUs), never below the floor
+        max_threads = autotune.MAX_THREADS or max(
+            autotune.MIN_THREADS, min(16, os.cpu_count() or 1))
+        tuner = autotune.IngestAutotuner([
+            autotune.thread_knob(self.ingest,
+                                 min_value=autotune.MIN_THREADS,
+                                 max_value=max_threads),
+            autotune.host_prefetch_knob(self.host_prefetch,
+                                        min_value=autotune.MIN_PREFETCH,
+                                        max_value=autotune.MAX_PREFETCH),
+            autotune.device_ring_knob(
+                feed, min_value=autotune.MIN_PREFETCH_TO_DEVICE,
+                max_value=autotune.MAX_PREFETCH_TO_DEVICE)])
+        armed = tuner.describe()
+        armed.pop("history", None)
+        armed["unbound"] = {"wire_u8": WIRE_KNOB_UNBOUND}
+        self.log("autotune_armed", armed)
+        return tuner
 
     def fit(self, state: Optional[TrainState] = None,
             dataset: Optional[Iterable] = None,
@@ -420,9 +494,18 @@ class Trainer:
         guard = (NonFiniteGuard(cfg.train.max_nonfinite_steps, log=self.log)
                  if cfg.train.skip_nonfinite else None)
         ingest = None
+        self.autotuner = None
         if dataset is None:
-            self.ingest, it = self.open_feed(state.step)
+            tune = autotune.autotune_active(cfg.data.autotune)
+            self.ingest, it = self.open_feed(
+                state.step, host_depth=autotune.HOST_PREFETCH if tune else 0)
             ingest, decode_errors = self.ingest, self.ingest.decode_errors
+            if tune:
+                try:
+                    self.autotuner = self._arm_autotuner(it)
+                except BaseException:
+                    self._close_feed(it)
+                    raise
         else:
             it, decode_errors = iter(dataset), None
         flag = {"set": False}
@@ -442,13 +525,20 @@ class Trainer:
                 signal.signal(signal.SIGTERM, signal.SIG_DFL
                               if old_sigterm is None else old_sigterm)
             if dataset is None:
-                it.close()
-                self.ingest.close()
+                self._close_feed(it)
         if self.checkpoints is not None and self.preempted_at is None:
             self._forced_save(state, total, ingest)
         if self.best_checkpoints is not None:
             self.best_checkpoints.wait()
         return state
+
+    def _close_feed(self, feed) -> None:
+        """Close the trainer-owned feed: the device stage, the host stage,
+        then the ingest under them."""
+        feed.close()
+        if self.host_prefetch is not None:
+            self.host_prefetch.close()
+        self.ingest.close()
 
     def _forced_save(self, state: TrainState, step: int,
                      ingest: Optional[ResumableIngest]) -> None:
@@ -496,7 +586,12 @@ class Trainer:
             if self.device_augment is not None else {}
         clock = self.clock
         meter = ThroughputMeter(self.num_shards, clock=clock)
-        host_wait = eval_wait = 0.0
+        attributor = StallAttributor(registry=telemetry.get_registry(),
+                                     recorder=telemetry.get_recorder())
+        # the time this window spent blocked on the feed, in checkpoint
+        # saves and in eval passes
+        host_wait = ckpt_wait = eval_wait = 0.0
+        guard_seen = 0   # the guard's skips already named in a window
         decode_errors_seen = 0
         first = state.step
         for step in range(first, total):
@@ -530,6 +625,21 @@ class Trainer:
                             "step": step + 1, "total": de,
                             "new": de - decode_errors_seen})
                     decode_errors_seen = max(decode_errors_seen, de)
+                # an eval pass fills no wait clock: left in the window's
+                # wall time it would dilute every fraction toward 0
+                guard_total = guard.total if guard is not None else 0
+                entry["stall"] = attributor.window(
+                    wall_s=max(1e-9, meter.elapsed - eval_wait),
+                    infeed_wait_s=host_wait, checkpoint_wait_s=ckpt_wait,
+                    guard_skips=guard_total - guard_seen)
+                if eval_wait > 0:
+                    entry["stall"]["eval_seconds"] = round(eval_wait, 3)
+                guard_seen = guard_total
+                if self.autotuner is not None:
+                    # every rank steers its own feed, one bounded move a
+                    # window at most
+                    entry["autotune"] = self.autotuner.observe(
+                        entry["stall"])
                 entry.update(window)
                 comm_meta = getattr(self.train_step, "comm_meta", None)
                 if comm_meta:
@@ -539,7 +649,7 @@ class Trainer:
                 self.log("train", entry)
                 # the next record covers the next window only
                 meter.reset()
-                host_wait = eval_wait = 0.0
+                host_wait = ckpt_wait = eval_wait = 0.0
             if eval_dataset is not None and (step + 1) % eval_every == 0:
                 t_ev = clock()
                 result = self.evaluate(state, eval_dataset, step=step + 1)
@@ -548,14 +658,17 @@ class Trainer:
                 # every rank takes the collective save together
                 if self.best_checkpoints is not None \
                         and result["eval_top1"] > best_top1:
+                    t_ck = clock()
                     extra = {"eval_top1": result["eval_top1"],
                              "eval_top5": result["eval_top5"],
                              "step": step + 1,
                              **self._save_extra(state, step + 1, ingest)}
-                    if self.best_checkpoints.save(
-                            state, extra=extra, force=True,
-                            metrics={"eval_top1": result["eval_top1"]},
-                            replace_on_collision=True):
+                    saved = self.best_checkpoints.save(
+                        state, extra=extra, force=True,
+                        metrics={"eval_top1": result["eval_top1"]},
+                        replace_on_collision=True)
+                    ckpt_wait += clock() - t_ck
+                    if saved:
                         self._count_state_save(extra)
                         # the threshold moves once the slot holds it
                         best_top1 = result["eval_top1"]
@@ -566,10 +679,12 @@ class Trainer:
                 # the manager keeps the steps at its interval; the
                 # collision rule replaces a stale step a branched run
                 # re-reaches
+                t_ck = clock()
                 extra = self._save_extra(state, step + 1, ingest)
                 if self.checkpoints.save(state, extra=extra,
                                          replace_on_collision=True):
                     self._count_state_save(extra)
+                ckpt_wait += clock() - t_ck
             # the stop decision is the same on every rank: the config
             # flag, then one rank's own flag or the group's consensus
             stop = False
@@ -578,7 +693,9 @@ class Trainer:
                         if consensus is not None else flag["set"])
             if stop:
                 if self.checkpoints is not None:
+                    t_ck = clock()
                     self._forced_save(state, step + 1, ingest)
+                    ckpt_wait += clock() - t_ck
                 self.preempted_at = step + 1
                 self.log("preempt", {
                     "step": step + 1,

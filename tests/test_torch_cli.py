@@ -90,6 +90,7 @@ def _fields(cfg, path=""):
     ["model.extra.stem_features=8", "model.extra.flag=true",
      "model.extra.ratio=0.5", "mesh.comm_bucket_mb=2",
      "mesh.reduce_dtype=bfloat16"],
+    ["data.autotune.enabled=false"],
 ])
 def test_parse_cli_matches_jax_on_every_shared_field(sets):
     argv = ["--config", "vggf_imagenet_dp", "--mode", "eval"]
@@ -128,12 +129,14 @@ def test_both_refuse_an_unknown_key_or_a_bad_value(item):
 
 @pytest.mark.parametrize("key,item", [
     ("train.tensorboard_dir=/tb", "A14"), ("telemetry.enabled=false", "A14"),
-    ("data.autotune.enabled=false", "A14"), ("data.wire=host_f32", "A17"),
+    ("data.snapshot_cache.enabled=true", "A14"), ("data.wire=host_f32", "A17"),
     ("mesh.elastic.min_survivors=3", "A13"), ("serving.enabled=true", "A11"),
     ("data.augment.rand_magnitude=0.3", "A4"),
     ("train.checkpoint_save_retries=5", "A14"),
     ("train.resume_data_fast_forward=false", "A14"),
-    ("data.iterator_state.enabled=false", "A14")])
+    ("data.iterator_state.enabled=false", "A14"),
+    ("data.autotune.k_windows=5", "A14b"), ("data.prefetch=4", "A14b"),
+    ("data.autotune.max_restart_fanout=4", "A14b")])
 def test_keys_the_port_has_not_raise_naming_their_item(key, item):
     jcfg.parse_cli(["--config", "vggf_imagenet_dp", "--set", key])
     with pytest.raises(KeyError, match=f"ROADMAP {item}"):

@@ -1136,6 +1136,62 @@ def test_prefetched_batches_equal_the_cpu_decode_on_card(cuda_device,
     assert ingest.decode_errors() == 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("host_stage", [False, True])
+def test_ring_resize_under_live_copies_on_card(cuda_device, tmp_path,
+                                               host_stage):
+    """The device ring grown and shrunk mid-stream while copies are queued
+    (the side stream stalled before its first copy, the consumer's stream
+    slowed after each batch), with and without the host stage lending its
+    pinned buffers (its depth moved too): the batches equal, byte for
+    byte, those of the same cursors through an unresized feed. A slot or
+    lent buffer refilled before its copy ran would show here. A lending
+    host stage refuses `next()`: only `next_lent` reads it."""
+    from distributed_vgg_f_tpu_torch.data.iterator_state import \
+        ResumableIngest
+    from distributed_vgg_f_tpu_torch.data.prefetch import (
+        DevicePrefetchIterator, HostPrefetchIterator)
+    items = _fixture_tfrecords(tmp_path)
+
+    def run(moves):
+        ingest = ResumableIngest(lambda cfg: _native_train(items), None,
+                                 seed=1, batches_per_epoch=1)
+        assert ingest.restore_state(3)
+        host = (HostPrefetchIterator(ingest, depth=1, device=cuda_device)
+                if host_stage else None)
+        feed = DevicePrefetchIterator(host or ingest, cuda_device,
+                                      buffer_size=1)
+        if host is not None:
+            assert host.lends_buffers
+            with pytest.raises(TypeError, match="next_lent"):
+                next(host)    # a lent buffer set is never handed out whole
+        with torch.cuda.stream(feed.stream):
+            torch.cuda._sleep(int(0.3 * 2.2e9))
+        got = []
+        for i in range(14):
+            if i in moves:
+                assert feed.set_buffer_size(moves[i]) == moves[i]
+                if host is not None:
+                    host.set_depth(moves[i] + 1)
+            batch = next(feed)
+            torch.cuda._sleep(int(0.03 * 2.2e9))
+            got.append({k: v.clone() for k, v in batch.items()})
+            del batch
+        torch.cuda.synchronize()
+        feed.close()
+        if host is not None:
+            host.close()
+        ingest.close()
+        return [{k: v.cpu() for k, v in g.items()} for g in got]
+
+    resized = run({2: 4, 6: 1, 9: 3, 12: 2})
+    plain = run({})
+    for a, b in zip(resized, plain):
+        assert torch.equal(a["image"], b["image"])
+        assert torch.equal(a["label"], b["label"])
+    assert len(resized) == len(plain) == 14
+
+
 class _BigBatches:
     """Endless 64 MB u8 batches, each filled with its index."""
 

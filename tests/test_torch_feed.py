@@ -352,7 +352,8 @@ def test_fit_resumes_at_state_step_by_seek(data_dir):
     seen = _spy(tr)
     state = tr.fit(tr.init_state(), num_steps=2)
     state = tr.fit(state, num_steps=4)
-    assert [r for r in tr.records if r["event"] != "train"] == [
+    assert [r for r in tr.records
+            if r["event"] not in ("train", "autotune_armed")] == [
         {"event": "data_iterator_restore", "step": 2, "restored": True}]
     want = _jax_stream(cfg, 4)
     assert len(seen) == 4
@@ -370,7 +371,8 @@ def test_fit_replays_a_source_that_cannot_seek(data_dir):
     state = tr.fit(tr.init_state(), num_steps=2)
     state = tr.fit(state, num_steps=4)
     assert state.step == 4 and len(seen) == 4
-    assert [r for r in tr.records if r["event"] != "train"] == [
+    assert [r for r in tr.records
+            if r["event"] not in ("train", "autotune_armed")] == [
         {"event": "data_iterator_restore", "step": 2, "restored": False},
         {"event": "data_fast_forward", "batches": 2}]
     assert tr.ingest.cursor >= 4  # 2 replayed, then the 2 steps' draws

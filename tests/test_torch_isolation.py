@@ -1,7 +1,9 @@
 """The port (distributed_vgg_f_tpu_torch) stands alone: importing every
-module of it pulls in no jax, no flax and nothing of the JAX package
-(distributed_vgg_f_tpu), no source file imports them, and its entry
-points refuse to run without CUDA unless the caller asks for the CPU."""
+module of it (the stall attribution and the ingest autotuner included)
+pulls in no jax, no flax and nothing of the JAX package
+(distributed_vgg_f_tpu), no source file imports them, the scripts that
+run on the card import none of them either, and the entry points refuse
+to run without CUDA unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -64,7 +66,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
             f"{PORT}.data.prefetch", f"{PORT}.resilience.errors",
             f"{PORT}.telemetry.schema", f"{PORT}.cli",
             f"{PORT}.parallel.preempt", f"{PORT}.utils.logging",
-            f"{PORT}.train.predict"} <= set(mods)
+            f"{PORT}.train.predict", f"{PORT}.telemetry.stall",
+            f"{PORT}.data.autotune"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -146,6 +149,18 @@ def test_trainer_and_train_step_refuse_without_cuda(no_cuda):
         == "cpu"
 
 
+def test_host_stage_refuses_the_card_without_cuda(no_cuda):
+    """The host read-ahead stage pins its buffers only for a card; asked
+    for one without CUDA it raises instead of pinning nothing."""
+    from distributed_vgg_f_tpu_torch.data.prefetch import \
+        HostPrefetchIterator
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HostPrefetchIterator(iter([]), device="cuda")
+    hp = HostPrefetchIterator(iter([]), device="cpu")
+    assert not hp.lends_buffers
+    hp.close()
+
+
 def test_cli_refuses_without_cuda(no_cuda):
     """The console runs on the card; only library callers pass
     device="cpu"."""
@@ -178,6 +193,23 @@ def test_unknown_device_is_refused():
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_flagship_probe_imports_no_jax_and_refuses_without_cuda():
+    """tools/torch_flagship_probe.py runs on the card's machine too."""
+    path = os.path.join(REPO, "tools", "torch_flagship_probe.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert [n for n in names if forbidden(n)] == []
+    out = subprocess.run([sys.executable, "-m", "tools.torch_flagship_probe",
+                          "--part", "hostwait"], cwd=REPO,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 1 and out.stdout == "", out.stderr
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "train_profile.py"])

@@ -19,12 +19,12 @@ from distributed_vgg_f_tpu_torch.train.trainer import Trainer
 from distributed_vgg_f_tpu_torch.utils.meter import ThroughputMeter
 
 #: Keys of a JAX train record that the port writes (the step metrics,
-#: the meter's snapshot, the host-wait share and the `comm` block the
-#: step fills on its first call).
+#: the meter's snapshot, the host-wait share, the `stall` verdict and the
+#: `comm` block the step fills on its first call).
 JAX_TRAIN_KEYS = {"step", "loss", "l2_loss", "top1", "grad_norm", "lr",
                   "bad_step", "images_per_sec", "images_per_sec_per_chip",
                   "steps_per_sec", "window_images_per_sec",
-                  "host_wait_fraction", "comm"}
+                  "host_wait_fraction", "stall", "comm"}
 
 
 def _small(name="vggf_teacher", batch=8, **train):
@@ -50,7 +50,7 @@ def test_fit_three_steps_writes_records_with_the_jax_keys():
     for r in train:
         assert set(r) - {"event"} == JAX_TRAIN_KEYS
         assert all(math.isfinite(v) for k, v in r.items()
-                   if k not in ("event", "comm"))
+                   if k not in ("event", "comm", "stall"))
     assert seen == ["train", "train"]
     result = tr.evaluate(state, SyntheticU8(8, 32, 10, seed=1), 2)
     assert result["eval_examples"] == 16
