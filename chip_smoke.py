@@ -192,9 +192,10 @@ Phases, one JSON line each:
             process, on train_feed's shards plus 1200 validation records
             (1024 + 176), base_lr 0.001: 30 steps with an eval every 10,
             a record every 5 and a checkpoint every 10, SIGTERM from a
-            thread once step 12 is logged (a preempt record at the next
-            step, its forced save), a second main() resuming through the
-            iterator blob to 30, --mode eval (equal to the eval at 30),
+            thread once step 12 is logged and the next step dispatched (a
+            preempt record at the next step, its forced save), a second
+            main() resuming through the iterator blob to 30, --mode eval
+            (equal to the eval at 30),
             --mode eval from the best slot (equal to its recorded score),
             --mode predict on the 16 JPEGs (top-1 equal to the eval
             forward's, or tied with it in bf16; full probability rows sum
@@ -219,6 +220,26 @@ Phases, one JSON line each:
             steps: every window compute_bound, no move. Step ms medians
             of (a) and (b), the pinned host bytes, peak device memory;
             2 + 2 LRN launches a step, all vector
+  train_snapshot the flagship's decoded-crop snapshot cache on
+            train_feed's shards, base_lr 0.001, a record every 4 steps,
+            the store in a fresh temp dir: (a) one fit of 4 cold steps
+            (capturing the 4096 items) then 20 warm: cold and warm step
+            medians, each window's verdict and host_wait_fraction, the
+            warm assembly ms a batch and one warm batch's reads and crc
+            checks alone at 1, 2, 4 and 8 threads, the idle share of 3
+            profiled warm steps, prefetch/snapshot_{hits,misses,bytes},
+            the store's bytes (616,562,688), peak device memory; (b) a
+            fresh Trainer on the complete store: warm from batch 0, no
+            miss, no image decoded; (c) checks: the labels at every
+            position those of the uncached native stream, the cold
+            batches its images, the warm images the epoch-0 crops of the
+            same items, one flipped payload byte one miss repaired to its
+            cold crop; (d) decode-only images/s with DCT-scaled decode
+            and the SIMD resample each on and off, and of the fixture
+            re-encoded with restart markers at fan-out 1 and 4 and
+            sequential, each run's decode_stats, libjpeg/resample split
+            and dispatched kinds, every run's batch 1 equal to its
+            reference; 2 + 2 LRN launches a step, all vector
   isolation no jax, flax or JAX-package module was imported (the CLI,
             preempt, logging and predict modules imported first)
   wall      the script's wall seconds
@@ -1886,9 +1907,10 @@ def phase_train_e2e(feed_dir, train_step_ms, feed_step_ms, smi):
     the 16-image fixture, in fp32 without dropout, flip and mixup too:
     tools/torch_flagship_probe.py): (a) train to 30 with an eval every 10, a record
     every 5 and a checkpoint every 10, stopped by SIGTERM from a thread
-    once a record of step >= 12 is on disk (a preempt record at the next
-    completed step, its forced save); (b) a second main() resumes through
-    the iterator blob and runs to 30 (evals at 20 and 30); (c) --mode eval
+    once a record of step >= 12 is on disk and the next step dispatched
+    (a preempt record at the next completed step, its forced save); (b) a
+    second main() resumes through the iterator blob and runs to 30 (evals
+    at 20 and 30); (c) --mode eval
     (its counts equal the in-fit eval at 30), --mode eval from the best
     slot (its eval_top1 the slot's recorded score), --mode predict on the
     16 fixture JPEGs (top-1 equal to the eval forward's on the restored
@@ -1960,7 +1982,9 @@ def phase_train_e2e(feed_dir, train_step_ms, feed_step_ms, smi):
             return [json.loads(line) for line in f if line.strip()]
 
     # the watcher: SIGTERM to this process once a record of step >= 12
-    # is on disk; a signal after fit's handler is gone lands here
+    # is on disk and the step after it is dispatched (so the loop has
+    # passed that step's stop check, and the stop is a later step); a
+    # signal after fit's handler is gone lands here
     sent, late, stop_watch = {}, [], threading.Event()
 
     def watch():
@@ -1968,7 +1992,8 @@ def phase_train_e2e(feed_dir, train_step_ms, feed_step_ms, smi):
             if not os.path.exists(jsonl):
                 continue
             steps = [r["step"] for r in records() if r["event"] == "train"]
-            if steps and max(steps) >= 12:
+            if steps and max(steps) >= 12 \
+                    and any(int(s) >= max(steps) for s, _ in list(stamps)):
                 sent.update(step=max(steps), ns=time.monotonic_ns())
                 os.kill(os.getpid(), signal.SIGTERM)
                 return
@@ -2380,6 +2405,401 @@ def phase_train_autotune(feed_dir, smi):
     torch.cuda.empty_cache()
     return {k: launches["a"][k] + launches["b"][k] + launches["c"][k]
             for k in ("fwd", "bwd")}
+
+
+def _decode_run(files, items, cfg, batches, keep=(), keep_labels=False):
+    """The native decoder alone over TFRecord `files` (their `items`: path
+    index, offsets, lengths, labels) at `cfg`'s batch, size and threads:
+    batch 0 drawn untimed (it starts the workers), then `batches` more
+    into one pinned buffer, timed. Returns (images/s, {position: images
+    copied to the CPU} for `keep`, every drawn batch's labels when
+    `keep_labels`, the decode_stats and decode_profile of the run)."""
+    from distributed_vgg_f_tpu_torch.data import native_jpeg
+    path_idx, offsets, lengths, labels = items
+    b, size = cfg.data.global_batch_size, cfg.data.image_size
+    it = native_jpeg.NativeJpegTrainIterator(
+        files, labels, b, size, seed=cfg.train.seed,
+        mean=np.asarray(cfg.data.mean_rgb, np.float32),
+        std=np.asarray(cfg.data.stddev_rgb, np.float32),
+        image_dtype="uint8", num_threads=cfg.data.native_threads or None,
+        ranges=(path_idx, offsets, lengths),
+        hflip=not cfg.data.augment.owns_hflip)
+    images = torch.empty((b, size, size, 3), dtype=torch.uint8,
+                         pin_memory=True)
+    lab = torch.empty((b,), dtype=torch.int32, pin_memory=True)
+    native_jpeg.decode_stats(reset=True)
+    native_jpeg.decode_profile(reset=True)
+    kept, all_labels = {}, []
+    t0 = 0.0
+    try:
+        for pos in range(batches + 1):
+            if pos == 1:
+                t0 = time.perf_counter()
+            it.next_into(images, lab)
+            if pos in keep:
+                kept[pos] = images.clone()
+            if keep_labels:
+                all_labels.append(lab.clone())
+        rate = batches * b / (time.perf_counter() - t0)
+    finally:
+        it.close()
+    return (rate, kept, all_labels, native_jpeg.decode_stats(reset=True),
+            native_jpeg.decode_profile(reset=True))
+
+
+def _decode_surface(cfg, feed_dir, tmp, positions):
+    """Phase train_snapshot (d): decode-only images/s of the fixture's
+    shards with DCT-scaled decode and the SIMD resample each on and off,
+    and of the fixture re-encoded with a restart marker every MCU row
+    (`reencode_restart`, packed into 2048 records under `tmp`) at fan-out
+    1 and 4; each run's decode_stats, decode_profile split and the kinds
+    it dispatched to. Every run's batch 1 is byte-equal to the default
+    run's (at 224 px from 500x375 every train crop keeps scale 8/8, where
+    the scaled decode is the full one; SIMD and scalar, restart and
+    sequential, fan-out 1 and 4 are equal by the JAX package's tests).
+    The default run draws `positions` batches and returns their labels
+    and its first four batches (the uncached stream)."""
+    from distributed_vgg_f_tpu_torch.data import native_jpeg
+    from distributed_vgg_f_tpu_torch.data.imagenet import _tfrecord_items
+    from tools.tfrecord_write import write_shards
+    shards = sorted(os.path.join(feed_dir, f) for f in os.listdir(feed_dir)
+                    if f.startswith("train-"))
+    items = _tfrecord_items(shards, 1)
+    paths = sorted(f for f in os.listdir(_FIXTURE) if f.endswith(".jpg"))
+    marked = []
+    for f in paths:
+        with open(os.path.join(_FIXTURE, f), "rb") as fh:
+            marked.append(native_jpeg.reencode_restart(fh.read(), 0))
+    check(all(marked), "reencode_restart failed on the fixture")
+    rdir = os.path.join(tmp, "restart")
+    rfiles = write_shards(rdir, marked,
+                          [1 + (61 * k) % 1000 for k in range(len(marked))],
+                          shards=1, per_shard=2048)
+    ritems = _tfrecord_items(rfiles, 1)
+    switches = (native_jpeg.simd_kind(), native_jpeg.scaled_kind(),
+                native_jpeg.restart_kind(), native_jpeg.restart_fanout())
+    # the largest train crop of a 500 x 375 JPEG keeps DCT scale 8/8 at
+    # this size: the scaled decode is then the full one byte for byte
+    full_scale = native_jpeg.expected_scale_denom(500, 375,
+                                                  cfg.data.image_size) == 8
+    runs, ref, uncached = {}, None, None
+    try:
+        for name, simd, scaled, restart, fanout, fs, its, n in (
+                ("default", True, True, True, 1, shards, items, positions),
+                ("scaled_off", True, False, True, 1, shards, items, 3),
+                ("simd_off", False, True, True, 1, shards, items, 3),
+                ("scaled_off_simd_off", False, False, True, 1, shards, items,
+                 3),
+                ("restart_fanout1", True, True, True, 1, rfiles, ritems, 3),
+                ("restart_fanout4", True, True, True, 4, rfiles, ritems, 3),
+                ("restart_sequential", True, True, False, 1, rfiles, ritems,
+                 3)):
+            kinds = {"simd": native_jpeg.set_simd(simd),
+                     "scaled": native_jpeg.set_scaled(scaled),
+                     "restart": native_jpeg.set_restart(restart),
+                     "fanout": native_jpeg.set_restart_fanout(fanout),
+                     "partial": native_jpeg.partial_supported()}
+            native_jpeg.restart_stats(reset=True)
+            default = name == "default"
+            rate, kept, labels, stats, prof = _decode_run(
+                fs, its, cfg, n - 1 if default else n,
+                keep=(0, 1, 2, 3) if default else (1,),
+                keep_labels=default)
+            runs[name] = {"kinds": kinds, "images_per_s": rate,
+                          "timed_batches": n - 1 if default else n,
+                          "decode_stats": stats,
+                          "restart_stats": native_jpeg.restart_stats(
+                              reset=True),
+                          "jpeg_s": prof["jpeg_s"],
+                          "resample_s": prof["resample_s"],
+                          "jpeg_share": prof["jpeg_s"] / (
+                              prof["jpeg_s"] + prof["resample_s"])
+                          if prof["jpeg_s"] + prof["resample_s"] else None}
+            if default:
+                uncached = {"labels": labels, "images": kept}
+                ref = kept[1]
+            elif fs is shards:
+                runs[name]["batch1_equal_default"] = bool(
+                    torch.equal(kept[1], ref))
+            else:
+                runs[name]["batch1"] = kept[1]
+        rref = runs["restart_sequential"]["batch1"]
+        for name in ("restart_fanout1", "restart_fanout4",
+                     "restart_sequential"):
+            runs[name]["batch1_equal_sequential"] = bool(
+                torch.equal(runs[name].pop("batch1"), rref))
+    finally:
+        native_jpeg.set_simd(switches[0] != "scalar")
+        native_jpeg.set_scaled(switches[1] == "scaled")
+        native_jpeg.set_restart(switches[2] == "restart")
+        native_jpeg.set_restart_fanout(switches[3])
+    for name, run in runs.items():
+        for key in ("batch1_equal_default", "batch1_equal_sequential"):
+            check(run.get(key, True) or (not full_scale and "scaled_off"
+                                         in name),
+                  f"train_snapshot (d): {name}'s batch 1 differs ({key})")
+    check(runs["restart_fanout1"]["restart_stats"]["images"] > 0
+          and runs["restart_fanout4"]["restart_stats"]["fanout_images"] > 0,
+          "train_snapshot (d): the restart path or its fan-out never "
+          f"engaged: {runs['restart_fanout4']['restart_stats']}")
+    return runs, uncached
+
+
+def phase_train_snapshot(feed_dir, smi):
+    """The flagship's decoded-crop snapshot cache on train_feed's shards,
+    base_lr 0.001, a record every 4 steps, the store in a fresh temp dir:
+    (a) one fit of 24 steps, the 4 cold steps capturing the 4096 items
+    and 20 warm; a profile of 3 warm steps through a live feed; (b) a
+    fresh Trainer on the complete store, warm from batch 0 with no
+    decode; (c) checks: no warm miss, the labels at each position those
+    of the uncached native stream, the images of epochs 1 and later the
+    epoch-0 crops of the same items, and one corrupted payload byte one
+    miss, repaired to its cold crop; (d) the decode surface
+    (`_decode_surface`). Returns the LRN launches of (a) and (b)."""
+    import dataclasses
+
+    from distributed_vgg_f_tpu_torch.config import (SnapshotCacheConfig,
+                                                    get_config)
+    from distributed_vgg_f_tpu_torch.data import build_dataset, native_jpeg
+    from distributed_vgg_f_tpu_torch.data import snapshot_cache as sc
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.telemetry import get_registry
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train_snapshot_")
+    try:
+        base = get_config("vggf_imagenet_dp")
+        check(not base.data.snapshot_cache.enabled,
+              "the preset turns the snapshot cache on")
+        cfg = dataclasses.replace(
+            base, data=dataclasses.replace(
+                base.data, data_dir=feed_dir,
+                snapshot_cache=SnapshotCacheConfig(
+                    enabled=True, dir=os.path.join(tmp, "store"))),
+            optim=dataclasses.replace(base.optim, base_lr=0.001),
+            train=dataclasses.replace(base.train, log_every=4, seed=0))
+        from distributed_vgg_f_tpu_torch.data.imagenet import _tfrecord_items
+        b, size = cfg.data.global_batch_size, cfg.data.image_size
+        n_items = len(_tfrecord_items(sorted(
+            os.path.join(feed_dir, f) for f in os.listdir(feed_dir)
+            if f.startswith("train-")), 1)[3])
+        cold, steps = n_items // b, 24
+        check(cold * b == n_items and cold < steps - 4,
+              f"train_snapshot: {n_items} items in batches of {b}")
+        reg = get_registry()
+        names = ("prefetch/snapshot_hits", "prefetch/snapshot_misses",
+                 "prefetch/snapshot_bytes")
+
+        def counts():
+            return [reg.counter_value(n, 0) for n in names]
+
+        def spied(trainer, keep):
+            made, stamps = [], []
+            make, step = trainer.make_dataset, trainer.train_step
+
+            def make_spy(split="train", data_cfg=None):
+                made.append(make(split, data_cfg))
+                return made[-1]
+
+            def step_spy(state, batch, seed):
+                stamps.append(time.perf_counter())
+                if keep is not None:
+                    keep.append((batch["image"].clone(),
+                                 batch["label"].clone()))
+                return step(state, batch, seed)
+
+            step_spy.comm_meta = getattr(step, "comm_meta", None)
+            trainer.make_dataset, trainer.train_step = make_spy, step_spy
+            return made, stamps, step
+
+        def run(steps, keep=None):
+            trainer = Trainer(cfg)
+            made, stamps, step = spied(trainer, keep)
+            state = trainer.init_state(0)
+            before, dec0 = counts(), native_jpeg.decode_stats()["images"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+            lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            state = trainer.fit(state, num_steps=steps)
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            trainer.train_step = step
+            launches = {"fwd": lrn_cuda.LAUNCHES, "bwd": lrn_cuda.BWD_LAUNCHES,
+                        "vec_fwd": lrn_cuda.VEC_LAUNCHES,
+                        "vec_bwd": lrn_cuda.VEC_BWD_LAUNCHES}
+            moved = [a - c for a, c in zip(counts(), before)]
+            out = {"wall_s": time.perf_counter() - t0,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                   "step_ms": [(t1 - t0_) * 1e3
+                               for t0_, t1 in zip(stamps, stamps[1:])],
+                   "snapshot_hits": moved[0], "snapshot_misses": moved[1],
+                   "snapshot_bytes": moved[2],
+                   "decoded_images": native_jpeg.decode_stats()["images"]
+                   - dec0,
+                   "lrn_launches": launches}
+            recs = [r for r in trainer.records if r["event"] == "train"]
+            out["windows"] = [{
+                "step": r["step"], "verdict": r["stall"]["verdict"],
+                "infeed_fraction": r["stall"]["infeed_fraction"],
+                "host_wait_fraction": r["host_wait_fraction"],
+                "autotune": r.get("autotune")} for r in recs]
+            out["losses"] = [r["loss"] for r in recs]
+            check(len(made) == 1
+                  and isinstance(made[0], sc.SnapshotCachingTrainIterator),
+                  f"train_snapshot: the train stream is {made}, not the "
+                  "snapshot cache")
+            check(launches == {"fwd": 2 * steps, "bwd": 2 * steps,
+                               "vec_fwd": 2 * steps, "vec_bwd": 2 * steps},
+                  f"train_snapshot: LRN launches {launches} over {steps} "
+                  "steps, expected 2 + 2 a step, all vector")
+            check(all(math.isfinite(v) for v in out["losses"]),
+                  f"train_snapshot: losses {out['losses']}")
+            return trainer, state, made[0], out
+
+        # (a) 4 cold steps, then 20 warm
+        seen = []
+        trainer, state, wrapper, a = run(steps, keep=seen)
+        store = wrapper.store
+        # 616,562,688 bytes at full size: 4096 items of 224 x 224 x 3 u8
+        check(wrapper.warm and store.complete
+              and store.bytes_used == n_items * size * size * 3,
+              f"train_snapshot (a): warm {wrapper.warm}, complete "
+              f"{store.complete}, {store.bytes_used} store bytes")
+        check(a["snapshot_misses"] == 0, f"train_snapshot (a): "
+              f"{a['snapshot_misses']} warm misses")
+        # step_ms[i]: from step i's call to step i + 1's (the last, to
+        # the end of fit): the waits for batches 1..3 are cold, those for
+        # batches 6..23 warm (batches 4 and 5 the switch)
+        a["cold_step_ms_median"] = statistics.median(a["step_ms"][:cold - 1])
+        a["warm_step_ms_median"] = statistics.median(
+            a["step_ms"][cold + 1:steps - 1])
+        assembly = list(wrapper.warm_assembly_s)
+        a["warm_assembly_ms"] = [s * 1e3 for s in assembly]
+        a["warm_assembly_ms_median"] = statistics.median(assembly) * 1e3
+        a["store_bytes"] = store.bytes_used
+        # one epoch-1 batch's reads and checks alone, with nothing else
+        # running, at each thread count (median of 3)
+        keys = sc.shuffle_indices(n_items, cfg.train.seed, 1)[:b]
+        entries = [store.lookup(int(k)) for k in keys]
+        dst = torch.empty((b, size, size, 3), dtype=torch.uint8,
+                          pin_memory=True).numpy()
+        at = [j * size * size * 3 for j in range(b)]
+        gather_ms = {}
+        for threads in (1, 2, 4, 8):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                whys = store.fetch(entries, dst, at, threads)
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(whys == [None] * b, "train_snapshot (a): a stored payload "
+                  "failed its read")
+            gather_ms[threads] = statistics.median(times)
+        a["gather_ms_by_threads"] = gather_ms
+        del dst
+        # the card's idle share over warm steps through a live feed
+        ingest, feed = trainer.open_feed(state.step)
+        for _ in range(3):
+            state, _ = trainer.train_step(state, next(feed), cfg.train.seed)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                state, _ = trainer.train_step(state, next(feed),
+                                              cfg.train.seed)
+            torch.cuda.synchronize()
+        feed.close()
+        ingest.close()
+        t = _trace_breakdown(prof, 3, top=10)
+        a["warm_profile"] = {"steps": 3, "window_us_per_step": t["window_us"],
+                             "device_busy_us_per_step": t["busy_us"],
+                             "device_idle_share": t["idle_share"],
+                             "top_device_us_per_step": t["top_us"]}
+        del trainer, state, prof
+        gc.collect()
+
+        # (b) a fresh Trainer on the complete store: warm from batch 0
+        trainer, state, wrapper_b, bb = run(8)
+        check(bb["snapshot_misses"] == 0 and bb["decoded_images"] == 0
+              and bb["snapshot_hits"] >= 8 * b,
+              f"train_snapshot (b): {bb['snapshot_misses']} misses, "
+              f"{bb['decoded_images']} decoded, {bb['snapshot_hits']} hits")
+        bb["warm_step_ms_median"] = statistics.median(bb["step_ms"][1:7])
+        del trainer, state
+        gc.collect()
+
+        # (d) the decode surface; its default run is the uncached stream
+        runs, uncached = _decode_surface(cfg, feed_dir, tmp, steps)
+
+        # (c) the order, the re-served crops and a repaired payload
+        got_labels = [lab.cpu() for _, lab in seen]
+        labels_equal = [bool(torch.equal(g, w)) for g, w in
+                        zip(got_labels, uncached["labels"])]
+        check(len(seen) == steps and all(labels_equal),
+              f"train_snapshot (c): labels against the uncached stream "
+              f"{labels_equal}")
+        cold_equal = [bool(torch.equal(seen[p][0].cpu(),
+                                       uncached["images"][p]))
+                      for p in range(cold)]
+        check(all(cold_equal), f"train_snapshot (c): the cold batches "
+              f"against the uncached stream {cold_equal}")
+        epoch0 = torch.cat([seen[p][0] for p in range(cold)])
+        order0 = sc.shuffle_indices(n_items, cfg.train.seed, 0)
+        inv0 = np.empty_like(order0)
+        inv0[order0] = np.arange(n_items)
+        reserved = []
+        for p in range(cold, steps):
+            epoch = p * b // n_items
+            order = sc.shuffle_indices(n_items, cfg.train.seed, epoch)
+            idx = order[(p * b) % n_items + np.arange(b)]
+            src = torch.from_numpy(inv0[idx]).to(epoch0.device)
+            reserved.append(bool(torch.equal(seen[p][0], epoch0[src])))
+        check(all(reserved), f"train_snapshot (c): warm batches against "
+              f"the epoch-0 crops of their items {reserved}")
+        # one payload byte flipped: one miss, repaired to the cold crop
+        idx = int(sc.shuffle_indices(n_items, cfg.train.seed, 1)[0])
+        crop = epoch0[int(inv0[idx])].cpu()
+        off, nbytes = store._entries[idx][0], store._entries[idx][1]
+        with open(store._pack_path, "r+b") as f:
+            f.seek(off + nbytes // 2)
+            v = f.read(1)[0]
+            f.seek(off + nbytes // 2)
+            f.write(bytes([v ^ 0xFF]))
+        probe = build_dataset(cfg.data, "train", seed=cfg.train.seed)
+        try:
+            check(probe.restore_state(cold), "train_snapshot (c): no seek")
+            before = counts()
+            images = torch.empty((b, size, size, 3), dtype=torch.uint8,
+                                 pin_memory=True)
+            lab = torch.empty((b,), dtype=torch.int32, pin_memory=True)
+            probe.next_into(images, lab)
+            moved = [x - y for x, y in zip(counts(), before)]
+            repaired = probe.store.read(idx)
+            repair = {"item": idx, "hits": moved[0], "misses": moved[1],
+                      "served_equal_cold": bool(torch.equal(images[0], crop)),
+                      "store_equal_cold": repaired is not None and bool(
+                          torch.equal(torch.from_numpy(repaired), crop))}
+        finally:
+            probe.close()
+        check(repair["misses"] == 1 and repair["hits"] == b - 1
+              and repair["served_equal_cold"] and repair["store_equal_cold"],
+              f"train_snapshot (c): a corrupted payload gave {repair}")
+        del seen, epoch0
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("train_snapshot", config=cfg.name, data_dir_shards=4,
+             items=n_items, log_every=4, steps=steps, cold_steps=cold,
+             cpu_count=os.cpu_count(), batch_io_threads=sc.BATCH_IO_THREADS,
+             capacity_bytes=cfg.data.snapshot_cache.capacity_bytes,
+             a=a, b=bb, labels_equal=labels_equal, cold_equal=cold_equal,
+             reserved_equal=reserved, repair=repair, decode=runs,
+             phase_s=time.perf_counter() - t_phase, nvidia_smi=smi)
+        return {k: a["lrn_launches"][k] + bb["lrn_launches"][k]
+                for k in ("fwd", "bwd")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ------------------------------------------------------------- ViT phases
@@ -3871,6 +4291,7 @@ def main() -> int:
         e2e_launches = phase_train_e2e(feed_dir, train_ref["step_ms_median"],
                                        feed_ms, smi)
         autotune_launches = phase_train_autotune(feed_dir, smi)
+        snapshot_launches = phase_train_snapshot(feed_dir, smi)
     finally:
         shutil.rmtree(feed_dir, ignore_errors=True)
     del tree
@@ -4011,13 +4432,14 @@ def main() -> int:
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records, "bucket", 32,
         serve_launches + train_launches["fwd"] + zero2_launches["fwd"]
         + feed_launches["fwd"] + ckpt_launches["fwd"] + e2e_launches["fwd"]
-        + autotune_launches["fwd"],
+        + autotune_launches["fwd"] + snapshot_launches["fwd"],
         {"serve": serve_launches, "train": train_launches["fwd"],
          "train_zero2": zero2_launches["fwd"],
          "train_feed": feed_launches["fwd"],
          "train_ckpt": ckpt_launches["fwd"],
          "train_e2e": e2e_launches["fwd"],
-         "train_autotune": autotune_launches["fwd"]},
+         "train_autotune": autotune_launches["fwd"],
+         "train_snapshot": snapshot_launches["fwd"]},
         "both LRN sites of one bf16 forward at bucket 32, ReLU fused")
     at32 = lrn_times(lrn_sites(records, "bucket", 32), "relu_ms")
     lrn_fwd_row.update(
@@ -4029,13 +4451,14 @@ def main() -> int:
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:74", bwd_records, "batch",
         1024, train_launches["bwd"] + zero2_launches["bwd"]
         + feed_launches["bwd"] + ckpt_launches["bwd"] + e2e_launches["bwd"]
-        + autotune_launches["bwd"],
+        + autotune_launches["bwd"] + snapshot_launches["bwd"],
         {"serve": 0, "train": train_launches["bwd"],
          "train_zero2": zero2_launches["bwd"],
          "train_feed": feed_launches["bwd"],
          "train_ckpt": ckpt_launches["bwd"],
          "train_e2e": e2e_launches["bwd"],
-         "train_autotune": autotune_launches["bwd"]},
+         "train_autotune": autotune_launches["bwd"],
+         "train_snapshot": snapshot_launches["bwd"]},
         "both LRN sites of one bf16 training step at batch 1024, the ReLU's "
         "backward fused")
     at1024 = lrn_times(lrn_sites(bwd_records, "batch", 1024), "relu_bwd_ms")

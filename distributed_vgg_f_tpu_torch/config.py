@@ -14,7 +14,9 @@ checkpoints, eval cadence, best slot and preemption read, a
 (`apply_overrides`, `fold_override_items`, `parse_cli`: the JAX
 package's dotted `--set KEY=VALUE` keys and refusals).
 
-`AutotuneConfig` switches the ingest autotuner on or off.
+`AutotuneConfig` switches the ingest autotuner on or off;
+`SnapshotCacheConfig` (JAX `config.py:43–75`) the decoded-crop snapshot
+cache behind the train stream (data/snapshot_cache.py).
 Fields of later slices (telemetry, the admission controller, serving
 tiers, elastic resize, ...) are absent until their slice ports
 them: a field the port would accept and ignore is left out instead, and
@@ -103,6 +105,32 @@ class AugmentConfig:
 
 
 @dataclass(frozen=True)
+class SnapshotCacheConfig:
+    """The decoded-crop snapshot cache (data/snapshot_cache.py; JAX
+    `config.py:43–75`): the first pass writes each item's crop as the
+    native loader shipped it to a bounded on-disk store keyed by the
+    source set, the decode parameters and the native ABI; once every item
+    is there, batches come from the store and libjpeg never runs. A
+    complete store serves the next run from batch 0. Warm epochs re-serve
+    the first pass's crop geometry, so it is a lever for decode-bound
+    hosts, not a default. Warm reads are always crc32-checked: JAX's
+    `validate` switch is refused (`UNPORTED_KEYS`). Counters:
+    prefetch/snapshot_{hits,misses,bytes}."""
+    enabled: bool = False   # opt-in: a throughput lever for decode-bound hosts
+    # Store directory; "" places it under <data_dir>/.dvggf_snapshot.
+    dir: str = ""
+    # On-disk budget. Writes stop (and the cache never turns warm) rather
+    # than exceed it; stale parameter generations are evicted first.
+    capacity_bytes: int = 8 << 30
+
+    def __post_init__(self):
+        if self.capacity_bytes <= 0:
+            raise ValueError(
+                f"data.snapshot_cache.capacity_bytes must be > 0, got "
+                f"{self.capacity_bytes}")
+
+
+@dataclass(frozen=True)
 class AutotuneConfig:
     """The closed-loop ingest autotuner (data/autotune.py; JAX
     `config.py:77–158`): a per-process controller that reads each log
@@ -120,8 +148,8 @@ class DataConfig:
     read: the source (`build_dataset`: "synthetic" seeded u8 batches or
     "imagenet" TFRecords through the native decoder), the payload size,
     the batch and epoch geometry the schedule derives from, the device
-    finish's normalize constants and output dtype, the packed stem layout
-    and the on-device augmentation."""
+    finish's normalize constants and output dtype, the packed stem layout,
+    the on-device augmentation, the autotuner and the snapshot cache."""
     # the train stream's source (data.build_dataset): "synthetic" |
     # "imagenet"; another name (the JAX presets' "teacher") raises there
     name: str = "synthetic"
@@ -144,6 +172,8 @@ class DataConfig:
     space_to_depth: bool = False
     augment: AugmentConfig = field(default_factory=AugmentConfig)
     autotune: AutotuneConfig = field(default_factory=AutotuneConfig)
+    snapshot_cache: SnapshotCacheConfig = field(
+        default_factory=SnapshotCacheConfig)
 
     def __post_init__(self):
         if self.native_threads < 0:
@@ -468,7 +498,10 @@ UNPORTED_KEYS = (
     ("telemetry.", "the telemetry planes (TelemetryConfig) wait for "
                    "ROADMAP A14"),
     ("data.service.", "the ingest service client waits for ROADMAP A14"),
-    ("data.snapshot_cache.", "the snapshot cache waits for ROADMAP A14"),
+    ("data.snapshot_cache.validate", "warm reads are always crc32-checked; "
+                                     "a switch to serve unchecked bytes "
+                                     "waits for a deployment that needs it "
+                                     "(ROADMAP A14b)"),
     ("train.tensorboard_dir", "TensorBoard is not ported: the card's host "
                               "has no tensorflow or tensorboard package "
                               "(ROADMAP A14)"),

@@ -13,7 +13,10 @@ feed's knobs, tf.data's AUTOTUNE with a receipt trail:
 
 JAX's restart fan-out knob is bound only where its config raises
 `max_restart_fanout` above 1 and its wire knob only with the host wires:
-the port has neither setting, so neither knob (ROADMAP A14b, A17).
+the port has neither setting, so neither knob (ROADMAP A14b, A17). Under
+the snapshot cache (data/snapshot_cache.py) the decode pool closes at the
+switch to warm: `set_num_threads` then returns None, and the controller
+marks the thread knob unavailable at its next move.
 
 Control discipline: `K_WINDOWS` consecutive same-direction verdicts
 before any move (an actuation resets the streak); `COOLDOWN_WINDOWS`

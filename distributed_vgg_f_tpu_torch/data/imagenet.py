@@ -11,7 +11,8 @@ decoder (data/native_jpeg.py) reads them:
 
 - train: the endless deterministic stream on the uint8 wire (the device
   finish normalizes, casts and packs), flipped on the host only when the
-  device augment does not own the flip;
+  device augment does not own the flip, behind the decoded-crop snapshot
+  cache when `data.snapshot_cache.enabled` (data/snapshot_cache.py);
 - eval: the finite center-crop pass, host-normalized float32, the last
   batch padded and masked.
 
@@ -29,6 +30,8 @@ import numpy as np
 from distributed_vgg_f_tpu_torch.data.native_jpeg import (
     NativeJpegEvalIterator, NativeJpegTrainIterator)
 from distributed_vgg_f_tpu_torch.data.native_tfrecord import index_tfrecords
+from distributed_vgg_f_tpu_torch.data.snapshot_cache import \
+    wrap_train_iterator
 
 #: Where the TFRecord index cache lives.
 CACHE_DIR = os.path.join(os.path.expanduser("~"), ".cache",
@@ -71,8 +74,9 @@ def _tfrecord_items(files: list, label_offset: int):
 
 def _build_tfrecord_native(cfg, files: list, is_train: bool,
                            local_batch: int, seed: int, label_offset: int):
-    """Train: the u8-wire stream, never packed on the host; eval: the
-    float32 center-crop pass."""
+    """Train: the u8-wire stream, never packed on the host, behind the
+    snapshot cache when it is on (JAX `data/imagenet.py:420–432`); eval:
+    the float32 center-crop pass, never cached."""
     path_idx, offsets, lengths, labels = _tfrecord_items(files, label_offset)
     common = dict(
         batch=local_batch, image_size=cfg.image_size,
@@ -81,9 +85,12 @@ def _build_tfrecord_native(cfg, files: list, is_train: bool,
         num_threads=cfg.native_threads or None,
         ranges=(path_idx, offsets, lengths))
     if is_train:
-        return NativeJpegTrainIterator(
+        it = NativeJpegTrainIterator(
             files, labels, seed=seed, image_dtype="uint8",
             hflip=not cfg.augment.owns_hflip, **common)
+        return wrap_train_iterator(it, cfg, seed=seed, files=files,
+                                   labels=labels,
+                                   ranges=(path_idx, offsets, lengths))
     return NativeJpegEvalIterator(files, labels, image_dtype="float32",
                                   **common)
 

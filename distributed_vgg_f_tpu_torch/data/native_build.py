@@ -2,19 +2,20 @@
 JAX package's ``data/native_build.py`` `build_native_lib` (:163) and
 `load_abi_checked` (:205).
 
-The port compiles the repo's unedited ``native/*.cc`` sources with g++ and
-the JAX package's flags into ``build/native/<name>-<hash>.so`` at the root
-of the checkout, the hash covering the source, the headers it is compiled
-against and every flag, as `kernels/build.py` keys the CUDA kernels. A
-library of its own keeps the two packages from racing on one path, and
-an edited source gets a new path, so glibc never hands back a stale
-mapping of the old one. The hash covers this CPU's feature flags too:
-`-march=native` code built on one machine is never loaded on another, even
-when a copy of the checkout carries `build/` along. Processes that need the
-same library at once (pytest-xdist workers, ranks) take an `fcntl` lock
-around the compile, so one of them compiles and the others load its
-result; the compile writes a pid-unique temp file that `os.replace` moves
-into place.
+The port compiles the repo's unedited ``native/*.cc`` sources, and its own
+``distributed_vgg_f_tpu_torch/native/*.cc`` (`PORT_NATIVE_DIR`: the
+snapshot cache's batch I/O), with g++ and the JAX package's flags into
+``build/native/<name>-<hash>.so`` at the root of the checkout, the hash
+covering the source, the headers it is compiled against and every flag, as
+`kernels/build.py` keys the CUDA kernels. A library of its own keeps the
+two packages from racing on one path, and an edited source gets a new
+path, so glibc never hands back a stale mapping of the old one. The hash
+covers this CPU's feature flags too: `-march=native` code built on one
+machine is never loaded on another, even when a copy of the checkout
+carries `build/` along. Processes that need the same library at once
+(pytest-xdist workers, ranks) take an `fcntl` lock around the compile, so
+one of them compiles and the others load its result; the compile writes a
+pid-unique temp file that `os.replace` moves into place.
 
 Nothing falls back: a failed build raises with the compiler's output, a
 library whose ABI version differs from the binding's raises, and a host
@@ -42,6 +43,7 @@ from typing import Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
 NATIVE_DIR = os.path.join(_ROOT, "native")
+PORT_NATIVE_DIR = os.path.join(_PKG, "native")
 BUILD_DIR = os.path.join(_ROOT, "build", "native")
 JPEG_HEADERS = os.path.join(_PKG, "third_party", "libjpeg")
 
@@ -114,11 +116,12 @@ def _cpu_flags() -> str:
 
 
 def library_path(src_name: str, name: str, compile_args: Sequence[str] = (),
-                 link_args: Sequence[str] = ()) -> str:
+                 link_args: Sequence[str] = (),
+                 src_dir: str = NATIVE_DIR) -> str:
     digest = hashlib.sha256(" ".join(
         [*_CXX_FLAGS, *compile_args, "|", *link_args, "|",
          _cpu_flags()]).encode())
-    with open(os.path.join(NATIVE_DIR, src_name), "rb") as f:
+    with open(os.path.join(src_dir, src_name), "rb") as f:
         digest.update(f.read())
     # the headers of every -I directory: an edited header builds anew
     args = list(compile_args)
@@ -134,11 +137,12 @@ def library_path(src_name: str, name: str, compile_args: Sequence[str] = (),
 
 def build_native_lib(src_name: str, name: str,
                      compile_args: Sequence[str] = (),
-                     link_args: Sequence[str] = ()) -> str:
-    """Compile ``native/<src_name>`` unless its library exists; returns the
-    library's path. Raises RuntimeError with g++'s output when the compile
-    fails."""
-    path = library_path(src_name, name, compile_args, link_args)
+                     link_args: Sequence[str] = (),
+                     src_dir: str = NATIVE_DIR) -> str:
+    """Compile ``<src_dir>/<src_name>`` unless its library exists; returns
+    the library's path. Raises RuntimeError with g++'s output when the
+    compile fails."""
+    path = library_path(src_name, name, compile_args, link_args, src_dir)
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -149,7 +153,7 @@ def build_native_lib(src_name: str, name: str,
                 return path
             tmp = f"{path}.{os.getpid()}.tmp"
             cmd = ["g++", *_CXX_FLAGS, *compile_args, "-o", tmp,
-                   os.path.join(NATIVE_DIR, src_name), *link_args]
+                   os.path.join(src_dir, src_name), *link_args]
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True,
                                       timeout=CXX_TIMEOUT_S)
@@ -171,11 +175,13 @@ def build_native_lib(src_name: str, name: str,
 
 def load_abi_checked(src_name: str, name: str, abi_symbol: str,
                      expected_abi: int, compile_args: Sequence[str] = (),
-                     link_args: Sequence[str] = ()) -> ctypes.CDLL:
-    """Build (when needed) and dlopen ``native/<src_name>``, checking that
-    `abi_symbol`() returns `expected_abi`: a library of another ABI raises
-    instead of being called with the wrong signatures."""
-    path = build_native_lib(src_name, name, compile_args, link_args)
+                     link_args: Sequence[str] = (),
+                     src_dir: str = NATIVE_DIR) -> ctypes.CDLL:
+    """Build (when needed) and dlopen ``<src_dir>/<src_name>``, checking
+    that `abi_symbol`() returns `expected_abi`: a library of another ABI
+    raises instead of being called with the wrong signatures."""
+    path = build_native_lib(src_name, name, compile_args, link_args,
+                            src_dir)
     lib = ctypes.CDLL(path)
     fn = getattr(lib, abi_symbol)
     fn.restype = ctypes.c_int64

@@ -16,9 +16,22 @@ feed (raw resampled HWC pixels; the device finish normalizes them,
 data/device_ingest.py), and ``"float32"`` (host-normalized, the eval
 pass). A live loader's `set_num_threads` / `num_threads` are what the
 ingest autotuner's thread knob reaches (data/autotune.py). The bf16 host
-kind and the decode-tuning calls (SIMD, scaled decode, restart markers
-and fan-out, the resize switch, stats, restart re-encoding) are declared
-but not wrapped (ROADMAP A14b).
+kind is declared but not reachable (ROADMAP A17).
+
+The decoder's tuning surface (JAX `data/native_jpeg.py:229–676`), all
+process-wide switches of the one library: the resample path
+(`simd_kind`/`set_simd`), DCT-scaled and partial decode (`scaled_kind`,
+`set_scaled`, `partial_supported`, and `expected_scale_denom`, the mirror
+of the native scale chooser), the restart-marker excerpt decode and its
+intra-image fan-out (`restart_kind`, `set_restart`, `restart_fanout`,
+`set_restart_fanout`, `restart_stats`), the receipts (`decode_stats`,
+`decode_profile`), the lossless restart-marker transcode
+(`reencode_restart`) and the stateless one-image decode
+(`decode_single_image`, the snapshot cache's repair path,
+data/snapshot_cache.py). JAX's build-support probes (`scaled_supported`,
+`restart_supported`, `thread_resize_supported`), its pool-resize switch
+(`thread_resize_enabled`, `set_thread_resize`) and `choose_scale` are
+declared below but not wrapped: nothing in the port calls them.
 
 Determinism (train): the batch stream is a pure function of (seed, batch
 index) at any thread count, and `restore_state(step)` is an O(1) exact
@@ -173,6 +186,225 @@ def wire_u8_enabled() -> bool:
     """True iff a uint8-kind loader can be created now: compiled in and
     not refused by the DVGGF_WIRE_U8=0 switch the C side reads."""
     return bool(load_native_jpeg().dvgg_jpeg_wire_u8_kind())
+
+
+_SIMD_KINDS = {0: "scalar", 1: "avx2"}
+
+
+def simd_kind() -> str:
+    """The resample path the decoder dispatches to ('scalar' | 'avx2'); the
+    initial value honours cpuid and the DVGGF_DECODE_SIMD=0 switch."""
+    return _SIMD_KINDS.get(int(load_native_jpeg().dvgg_jpeg_simd_kind()),
+                           "unknown")
+
+
+def set_simd(enabled: bool) -> str:
+    """Force the resample path (False: scalar; True: SIMD where the CPU has
+    it); returns the now-active kind."""
+    return _SIMD_KINDS.get(
+        int(load_native_jpeg().dvgg_jpeg_set_simd(int(enabled))), "unknown")
+
+
+_SCALED_KINDS = {0: "full", 1: "scaled"}
+
+#: The power-of-two scale_num candidates (over a denominator of 8) the
+#: native chooser draws from: libjpeg-turbo has SIMD IDCTs only for these
+#: output sizes.
+SCALE_CANDIDATES = (1, 2, 4, 8)
+
+
+def expected_scale_denom(crop_w: int, crop_h: int, out_size: int) -> int:
+    """Mirror of the native scale chooser (`dvgg_jpeg_choose_scale`): the
+    smallest M of SCALE_CANDIDATES whose M/8-scaled crop still covers
+    `out_size` in both dims (floor), else 8, so the resample never
+    upscales pixels a smaller DCT scale threw away."""
+    for m in SCALE_CANDIDATES:
+        if (crop_w * m) // 8 >= out_size and (crop_h * m) // 8 >= out_size:
+            return m
+    return 8
+
+
+def scaled_kind() -> str:
+    """The decode strategy dispatched to ('full' | 'scaled'); the initial
+    value honours the DVGGF_DECODE_SCALED=0 switch."""
+    return _SCALED_KINDS.get(int(load_native_jpeg().dvgg_jpeg_scaled_kind()),
+                             "unknown")
+
+
+def set_scaled(enabled: bool) -> str:
+    """Force the decode strategy (False: full resolution; True: DCT-scaled
+    + partial where compiled in); returns the now-active kind."""
+    return _SCALED_KINDS.get(
+        int(load_native_jpeg().dvgg_jpeg_set_scaled(int(enabled))),
+        "unknown")
+
+
+def partial_supported() -> bool:
+    """Whether the running libjpeg has the turbo-only partial decode
+    (jpeg_crop_scanline + jpeg_skip_scanlines, probed with dlsym); without
+    it the scaled path decodes whole rows and discards, the same pixels."""
+    return bool(load_native_jpeg().dvgg_jpeg_partial_supported())
+
+
+_RESTART_KINDS = {0: "sequential", 1: "restart"}
+
+
+def restart_kind() -> str:
+    """The entropy-decode strategy dispatched to ('sequential' |
+    'restart'); the initial value honours DVGGF_DECODE_RESTART=0. 'restart'
+    engages per image, only on streams with usable RSTn markers
+    (`restart_stats()['marker_absent']` counts the others)."""
+    return _RESTART_KINDS.get(
+        int(load_native_jpeg().dvgg_jpeg_restart_kind()), "unknown")
+
+
+def set_restart(enabled: bool) -> str:
+    """Force the entropy strategy (False: sequential; True: restart
+    excerpts where compiled in); returns the now-active kind. The pixels
+    are the same either way."""
+    return _RESTART_KINDS.get(
+        int(load_native_jpeg().dvgg_jpeg_set_restart(int(enabled))),
+        "unknown")
+
+
+def restart_fanout() -> int:
+    """The intra-image fan-out width (1: none); the initial value honours
+    DVGGF_RESTART_FANOUT."""
+    return int(load_native_jpeg().dvgg_jpeg_restart_fanout())
+
+
+def set_restart_fanout(width: int) -> int:
+    """How many entropy chunks of one image's crop band decode at once
+    (clamped to [1, 64]); returns the now-active width. Fan-out trades
+    cores for one image's latency; width 1 serves throughput."""
+    return int(load_native_jpeg().dvgg_jpeg_set_restart_fanout(int(width)))
+
+
+#: Field order of dvgg_jpeg_restart_stats.
+_RESTART_STAT_FIELDS = (
+    "images", "marker_absent", "unsupported", "misaligned", "scan_failures",
+    "excerpt_fallbacks", "segments_used", "segments_skipped",
+    "fanout_images", "fanout_width_max", "chunk_jobs_pooled", "no_gain")
+
+
+def restart_stats(reset: bool = False) -> dict:
+    """Process-wide restart-path receipts since load (or the last reset):
+    images decoded through excerpts, the fallbacks by cause, entropy
+    segments decoded and skipped, fan-out accounting, and `no_gain`
+    (the band needed every segment)."""
+    lib = load_native_jpeg()
+    buf = (ctypes.c_int64 * 16)()
+    lib.dvgg_jpeg_restart_stats(buf)
+    if reset:
+        lib.dvgg_jpeg_restart_stats_reset()
+    return {k: int(buf[i]) for i, k in enumerate(_RESTART_STAT_FIELDS)}
+
+
+def reencode_restart(data: bytes, interval_mcus: int = 0) -> Optional[bytes]:
+    """Transcode one JPEG losslessly so its entropy stream carries a
+    restart marker every `interval_mcus` MCUs (0: one each MCU row, the
+    layout the excerpt decoder engages on). A coefficient-domain copy: the
+    decoded pixels are the source's (a progressive source becomes baseline).
+    None when the source does not decode."""
+    lib = load_native_jpeg()
+    data = bytes(data)
+    cap = len(data) + len(data) // 2 + 65536
+    for _ in range(2):
+        buf = ctypes.create_string_buffer(cap)
+        rc = int(lib.dvgg_jpeg_reencode_restart(data, len(data),
+                                                int(interval_mcus), buf, cap))
+        if rc > 0:
+            return buf.raw[:rc]
+        if rc == -1:
+            return None
+        if rc == -2:
+            raise ValueError("bad reencode_restart arguments")
+        cap = -rc  # the buffer was short: rc names the size it needs
+    raise RuntimeError("reencode_restart did not converge on a buffer size")
+
+
+def decode_stats(reset: bool = False) -> dict:
+    """Process-wide decode receipts since load (or the last reset): images,
+    the chosen-scale histogram {scale_num: count}, scanlines skipped above
+    and truncated below the crop, the decode-buffer pool's hits, misses and
+    hit rate, images through the partial path, and full-decode fallbacks."""
+    lib = load_native_jpeg()
+    buf = (ctypes.c_int64 * 16)()
+    lib.dvgg_jpeg_decode_stats(buf)
+    if reset:
+        lib.dvgg_jpeg_decode_stats_reset()
+    hits, misses = int(buf[11]), int(buf[12])
+    return {
+        "images": int(buf[0]),
+        "scale_histogram": {m: int(buf[m]) for m in range(1, 9)
+                            if int(buf[m])},
+        "rows_skipped": int(buf[9]),
+        "rows_truncated": int(buf[10]),
+        "pool_hits": hits,
+        "pool_misses": misses,
+        "pool_hit_rate": (hits / (hits + misses)
+                          if hits + misses else None),
+        "partial_images": int(buf[13]),
+        "full_fallbacks": int(buf[14]),
+    }
+
+
+def decode_profile(reset: bool = False) -> dict:
+    """Process-wide split of successful decodes since load (or the last
+    reset): {'jpeg_s', 'resample_s', 'images'}, libjpeg's entropy + IDCT
+    seconds against the resample kernels', summed over worker threads."""
+    lib = load_native_jpeg()
+    buf = (ctypes.c_int64 * 3)()
+    lib.dvgg_jpeg_profile_ns(buf)
+    if reset:
+        lib.dvgg_jpeg_profile_reset()
+    return {"jpeg_s": buf[0] / 1e9, "resample_s": buf[1] / 1e9,
+            "images": int(buf[2])}
+
+
+def decode_single_image(data: bytes, out_size: int, mean, std, *,
+                        image_dtype: str = "float32", eval_mode: bool = False,
+                        area_range=(0.08, 1.0), rng_seed: int = 0,
+                        hflip: bool = True, out=None):
+    """One image through the batch loader's crop, resize and (float32)
+    normalize (dvgg_jpeg_decode_single), stateless: the decoded (S, S, 3)
+    array, or None when the JPEG does not decode. `rng_seed` is the item's
+    decode RNG seed (the train crop and flip); `hflip=False` gives the crop
+    of a stream whose flip the device owns (the flip bit is drawn either
+    way, so the crop is the same). `out`, a C-contiguous array of that
+    shape and dtype, is decoded into and returned. The host never packs:
+    space-to-depth belongs to the device finish."""
+    lib = load_native_jpeg()
+    if image_dtype not in _OUT_KINDS:
+        raise ValueError(
+            f"image_dtype {image_dtype!r} not one of {sorted(_OUT_KINDS)}")
+    shape = (out_size, out_size, 3)
+    mean = np.ascontiguousarray(mean, np.float32)
+    std = np.ascontiguousarray(std, np.float32)
+    if out is None:
+        out = np.empty(shape, image_dtype)
+    else:
+        if tuple(out.shape) != shape:
+            raise ValueError(f"out shape {out.shape} != {shape}")
+        if out.dtype != np.dtype(image_dtype):
+            raise ValueError(f"out dtype {out.dtype} != {image_dtype}")
+        if not out.flags.c_contiguous:
+            raise ValueError("out must be C-contiguous")
+    rc = lib.dvgg_jpeg_decode_single(
+        bytes(data), len(data), int(out_size),
+        mean.ctypes.data_as(_F32P), std.ctypes.data_as(_F32P),
+        _OUT_KINDS[image_dtype], 0, int(eval_mode), int(hflip),
+        float(area_range[0]), float(area_range[1]), int(rng_seed),
+        out.ctypes.data_as(ctypes.c_void_p))
+    if rc == 1:
+        return None
+    if rc != 0:
+        if image_dtype == "uint8" and not wire_u8_enabled():
+            raise RuntimeError(
+                "uint8 wire refused by the native library (compiled out "
+                "with -DDVGGF_NO_WIRE_U8, or DVGGF_WIRE_U8=0)")
+        raise RuntimeError(f"dvgg_jpeg_decode_single rc={rc}")
+    return out
 
 
 def _paths_blob(files: Sequence[str]):

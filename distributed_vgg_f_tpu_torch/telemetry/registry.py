@@ -7,8 +7,9 @@
 - **gauges** — last-write-wins instantaneous values (`set_gauge`).
 
 Names follow `<subsystem>/<metric>` (e.g. `serving/requests`). The
-checkpoint layer's counters keep the JAX package's names
-(`CHECKPOINT_COUNTERS`; checkpoint/manager.py). Stdlib only.
+checkpoint layer's and the snapshot cache's counters keep the JAX
+package's names (`CHECKPOINT_COUNTERS`, checkpoint/manager.py;
+`SNAPSHOT_COUNTERS`, data/snapshot_cache.py). Stdlib only.
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ CHECKPOINT_COUNTERS = ("checkpoint/saves", "checkpoint/save_retries",
                        "checkpoint/integrity_fallbacks",
                        "checkpoint/restores", "checkpoint/restore_ns",
                        "checkpoint/wait_ns")
+
+#: The snapshot cache's counters (JAX `data/snapshot_cache.py:671–674`):
+#: warm items served from the store, items that missed it (repaired or
+#: filled), and the payload bytes served (data/snapshot_cache.py).
+SNAPSHOT_COUNTERS = ("prefetch/snapshot_hits", "prefetch/snapshot_misses",
+                     "prefetch/snapshot_bytes")
 
 
 class TelemetryRegistry:

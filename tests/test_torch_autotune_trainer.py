@@ -24,7 +24,11 @@ off), a record every step:
 - a run whose host depth and device ring have grown, preempted by a
   checkpoint at step 6 and resumed by a fresh trainer, is bit-equal to
   the uninterrupted run: the blob's cursor, not the read-ahead, sets the
-  resumed stream."""
+  resumed stream. The controller is fed `infeed_bound` for every window
+  there (`_recorded_verdicts`), so the growth does not hang on the host's
+  load: a step slower than three times the feed's sleep used to read
+  `compute_bound` on a loaded host and leave the device ring where it
+  was."""
 
 import io
 import json
@@ -286,24 +290,35 @@ def test_armed_receipt_binds_the_knobs_jax_binds(data_dir, tmp_path):
     assert got["unbound"] == {"wire_u8": WIRE_KNOB_UNBOUND}
 
 
+def _recorded_verdicts(monkeypatch, verdict="infeed_bound"):
+    """Every window's stall verdict, as the controller sees it, is
+    `verdict`: the records keep the measured `stall` block."""
+    observe = autotune.IngestAutotuner.observe
+    monkeypatch.setattr(
+        autotune.IngestAutotuner, "observe",
+        lambda self, stall=None: observe(self, {**(stall or {}),
+                                                "verdict": verdict}))
+
+
 def test_resume_after_the_read_ahead_grew_is_bit_equal(data_dir, tmp_path,
                                                        monkeypatch):
     monkeypatch.setattr(autotune, "K_WINDOWS", 1)
     monkeypatch.setattr(autotune, "COOLDOWN_WINDOWS", 0)
     monkeypatch.setattr(autotune, "MAX_THREADS", 2)  # the pool starts railed
     monkeypatch.setattr(autotune, "MAX_PREFETCH", 3)
+    _recorded_verdicts(monkeypatch)
     sets = {"data.data_dir": data_dir, "train.checkpoint_every_steps": "3"}
-    straight = _slowed(Trainer(_cfg(**sets), device="cpu"), 0.3)
+    straight = _slowed(Trainer(_cfg(**sets), device="cpu"), 0.05)
     want = straight.fit(straight.init_state(), num_steps=10)
     ck = {**sets, "train.checkpoint_dir": str(tmp_path / "ck")}
-    first = _slowed(Trainer(_cfg(**ck), device="cpu"), 0.3)
+    first = _slowed(Trainer(_cfg(**ck), device="cpu"), 0.05)
     first.fit(num_steps=6)
     grown = _train(first)[-1]["autotune"]["knobs"]
     assert grown["native_threads"] == 2      # railed from the start
     assert grown["host_prefetch"] == 3 and grown["prefetch_to_device"] > 2
     blob = first.checkpoints.iterator_state_at(6)
     assert blob["cursor"] == 6 and blob["source_cursor"] >= 6
-    second = _slowed(Trainer(_cfg(**ck), device="cpu"), 0.3)
+    second = _slowed(Trainer(_cfg(**ck), device="cpu"), 0.05)
     got = second.fit(num_steps=10)
     events = [r["event"] for r in second.records]
     assert "iterator_state_restore" in events

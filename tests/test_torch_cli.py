@@ -129,18 +129,44 @@ def test_both_refuse_an_unknown_key_or_a_bad_value(item):
 
 @pytest.mark.parametrize("key,item", [
     ("train.tensorboard_dir=/tb", "A14"), ("telemetry.enabled=false", "A14"),
-    ("data.snapshot_cache.enabled=true", "A14"), ("data.wire=host_f32", "A17"),
+    ("data.wire=host_f32", "A17"),
     ("mesh.elastic.min_survivors=3", "A13"), ("serving.enabled=true", "A11"),
     ("data.augment.rand_magnitude=0.3", "A4"),
     ("train.checkpoint_save_retries=5", "A14"),
     ("train.resume_data_fast_forward=false", "A14"),
     ("data.iterator_state.enabled=false", "A14"),
     ("data.autotune.k_windows=5", "A14b"), ("data.prefetch=4", "A14b"),
-    ("data.autotune.max_restart_fanout=4", "A14b")])
+    ("data.autotune.max_restart_fanout=4", "A14b"),
+    ("data.snapshot_cache.validate=false", "A14b")])
 def test_keys_the_port_has_not_raise_naming_their_item(key, item):
     jcfg.parse_cli(["--config", "vggf_imagenet_dp", "--set", key])
     with pytest.raises(KeyError, match=f"ROADMAP {item}"):
         tcfg.parse_cli(["--set", key])
+
+
+@pytest.mark.parametrize("items,error", [
+    (["data.snapshot_cache.enabled=true"], None),
+    (["data.snapshot_cache.enabled=true", "data.snapshot_cache.dir=/s",
+      "data.snapshot_cache.capacity_bytes=4096"], None),
+    (["data.snapshot_cache.capacity_bytes=0"],
+     "data.snapshot_cache.capacity_bytes must be > 0, got 0")])
+def test_snapshot_cache_keys_behave_as_jax(items, error, capsys):
+    argv = ["--config", "vggf_imagenet_dp"]
+    for item in items:
+        argv += ["--set", item]
+    if error is None:
+        port, ref = tcfg.parse_cli(argv), jcfg.parse_cli(argv)
+        # JAX's `validate` is refused in the port: warm reads are checked
+        assert dataclasses.asdict(port.data.snapshot_cache) == {
+            k: v for k, v in dataclasses.asdict(
+                ref.data.snapshot_cache).items() if k != "validate"}
+        assert ref.data.snapshot_cache.validate
+        assert port.data.snapshot_cache.enabled
+        return
+    for parse in (tcfg.parse_cli, jcfg.parse_cli):
+        with pytest.raises(SystemExit):
+            parse(argv)
+        assert error in capsys.readouterr().err
 
 
 def test_new_train_fields_validate():

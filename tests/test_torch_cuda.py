@@ -1192,6 +1192,59 @@ def test_ring_resize_under_live_copies_on_card(cuda_device, tmp_path,
     assert len(resized) == len(plain) == 14
 
 
+@pytest.mark.cuda
+def test_snapshot_cache_through_lent_pinned_buffers_on_card(cuda_device,
+                                                            tmp_path):
+    """The snapshot cache behind the card's feed: the cold pass captures
+    from the pinned buffers the host stage lends onward, the warm pass
+    reads the store into them (the side stream stalled before its first
+    copy, the consumer's stream slowed after each batch), and the device
+    batches over three epochs equal, byte for byte, the same cache's
+    stream on the CPU from a store of its own."""
+    from distributed_vgg_f_tpu_torch.config import (DataConfig,
+                                                    SnapshotCacheConfig)
+    from distributed_vgg_f_tpu_torch.data.iterator_state import \
+        ResumableIngest
+    from distributed_vgg_f_tpu_torch.data.prefetch import (
+        DevicePrefetchIterator, HostPrefetchIterator)
+    from distributed_vgg_f_tpu_torch.data.snapshot_cache import \
+        wrap_train_iterator
+    items = _fixture_tfrecords(tmp_path / "shards")
+    files, ranges, labels = items
+
+    def cached(root):
+        cfg = DataConfig(image_size=96, snapshot_cache=SnapshotCacheConfig(
+            enabled=True, dir=str(root)))
+        return wrap_train_iterator(_native_train(items), cfg, seed=1,
+                                   files=files, labels=labels, ranges=ranges)
+
+    ingest = ResumableIngest(lambda cfg: cached(tmp_path / "card"), None,
+                             seed=1, batches_per_epoch=1)
+    host = HostPrefetchIterator(ingest, depth=2, device=cuda_device)
+    feed = DevicePrefetchIterator(host, cuda_device, buffer_size=2)
+    assert host.lends_buffers
+    with torch.cuda.stream(feed.stream):
+        torch.cuda._sleep(int(0.3 * 2.2e9))
+    got = []
+    for _ in range(5):
+        batch = next(feed)
+        torch.cuda._sleep(int(0.03 * 2.2e9))
+        got.append({k: v.clone() for k, v in batch.items()})
+        del batch
+    torch.cuda.synchronize()
+    feed.close()
+    host.close()
+    ingest.close()
+    ref = cached(tmp_path / "cpu")
+    for g in got:
+        want = next(ref)
+        assert torch.equal(g["image"].cpu(), torch.from_numpy(want["image"]))
+        assert torch.equal(g["label"].cpu(), torch.from_numpy(want["label"]))
+    assert ref.warm
+    ref.close()
+    assert ingest.decode_errors() == 0
+
+
 class _BigBatches:
     """Endless 64 MB u8 batches, each filled with its index."""
 

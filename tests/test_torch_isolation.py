@@ -1,7 +1,7 @@
 """The port (distributed_vgg_f_tpu_torch) stands alone: importing every
-module of it (the stall attribution and the ingest autotuner included)
-pulls in no jax, no flax and nothing of the JAX package
-(distributed_vgg_f_tpu), no source file imports them, the scripts that
+module of it (the stall attribution, the ingest autotuner and the
+snapshot cache included) pulls in no jax, no flax and nothing of the JAX
+package (distributed_vgg_f_tpu), no source file imports them, the scripts that
 run on the card import none of them either, and the entry points refuse
 to run without CUDA unless the caller asks for the CPU."""
 
@@ -67,7 +67,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
             f"{PORT}.telemetry.schema", f"{PORT}.cli",
             f"{PORT}.parallel.preempt", f"{PORT}.utils.logging",
             f"{PORT}.train.predict", f"{PORT}.telemetry.stall",
-            f"{PORT}.data.autotune"} <= set(mods)
+            f"{PORT}.data.autotune",
+            f"{PORT}.data.snapshot_cache"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -99,6 +100,35 @@ def test_no_source_file_imports_jax_or_the_jax_package():
                 names = [node.module or ""]
             offenders += [(mod, n) for n in names if forbidden(n)]
     assert offenders == []
+
+
+def test_the_snapshot_cache_and_the_decoder_surface_run_without_jax(
+        tmp_path):
+    """A store written, read back and keyed, the shuffle mirror and the
+    decoder's receipts, in a process that imports nothing else."""
+    code = (
+        "import json, sys\n"
+        "import numpy as np\n"
+        f"from {PORT}.data import native_jpeg, snapshot_cache as sc\n"
+        f"store = sc.SnapshotStore({str(tmp_path)!r}, 'g', 1 << 20, 1)\n"
+        "crop = np.arange(48, dtype=np.uint8).reshape(4, 4, 3)\n"
+        "assert store.write(0, crop, (1, 2, -1, 0)) and store.complete\n"
+        "assert (store.read(0, (1, 2, -1, 0)) == crop).all()\n"
+        "assert sorted(sc.shuffle_indices(5, 0, 1)) == list(range(5))\n"
+        "sc.params_key(n_items=1, files=[], image_size=4,\n"
+        "              image_dtype='uint8', mean=(0, 0, 0),\n"
+        "              std=(1, 1, 1), area_range=(0.08, 1.0), seed=0)\n"
+        "native_jpeg.decode_stats()\n"
+        "native_jpeg.restart_kind()\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    import json
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert f"{PORT}.data.snapshot_cache" in loaded
+    assert [m for m in loaded if forbidden(m)] == []
 
 
 @pytest.fixture

@@ -8,8 +8,18 @@ Tolerances: fp32 rtol 2e-5 / atol 1e-6 — the oracle divides by
 d**beta while the port multiplies by d**-beta through rsqrt/sqrt (the
 JAX package measures its own forms within 2e-5 of each other); bf16 in
 and out rtol 1e-2 — both sides compute in fp32 and round once to bf16, so
-they differ by at most one bf16 ulp (2**-7 relative at worst)."""
+they differ by at most one bf16 ulp (2**-7 relative at worst).
 
+The fp32 oracle comes from `_oracle`: JAX's function compiled as one
+executable under a name of this file's own, so the persistent compile
+cache the suite shares (tests/conftest.py) keys it apart from every other
+file's op-by-op primitives, on a copy of the input, returned as an owned
+array, and held to the same formula in float64 numpy before the port is
+compared with it: a reference that moves fails as the oracle's, not as the
+port's. The port's side is correctly rounded division, sqrt and rsqrt on
+the calling thread."""
+
+import functools
 import os
 import subprocess
 import sys
@@ -50,11 +60,38 @@ def _input(c, seed=0, shape=(2, 5, 7)):
     return (rng.standard_normal(shape + (c,)) * 3.0).astype(np.float32)
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+def _port_test_lrn_oracle(x, depth_radius, bias, alpha, beta, alpha_scaled):
+    return jax_oracle(x, depth_radius, bias, alpha, beta,
+                      alpha_scaled=alpha_scaled)
+
+
+def _float64_lrn(x, depth_radius, bias, alpha, beta, alpha_scaled):
+    """The oracle's formula in float64 numpy."""
+    n = 2 * depth_radius + 1
+    a = alpha / n if alpha_scaled else alpha
+    xd = x.astype(np.float64)
+    pad = np.pad(xd * xd, [(0, 0)] * (x.ndim - 1)
+                 + [(depth_radius, depth_radius)])
+    sums = sum(pad[..., k:k + x.shape[-1]] for k in range(n))
+    return xd / (bias + a * sums) ** beta
+
+
+def _oracle(x, depth_radius=2, bias=2.0, alpha=1e-4, beta=0.75,
+            alpha_scaled=False):
+    """JAX's fp32 oracle on a copy of `x`, as an owned array, held to its
+    formula in float64 at the fp32 tolerance."""
+    args = (depth_radius, bias, alpha, beta, alpha_scaled)
+    want = np.array(_port_test_lrn_oracle(jnp.array(x), *args))
+    np.testing.assert_allclose(want, _float64_lrn(x, *args), rtol=2e-5,
+                               atol=1e-6, err_msg="the JAX oracle moved")
+    return want
+
+
 @pytest.mark.parametrize("c,alpha_scaled,beta", CASES)
 def test_plain_lrn_matches_jax_oracle_fp32(c, alpha_scaled, beta):
     x = _input(c)
-    want = np.asarray(jax_oracle(jnp.asarray(x), 2, 2.0, 1e-4, beta,
-                                 alpha_scaled=alpha_scaled))
+    want = _oracle(x, beta=beta, alpha_scaled=alpha_scaled)
     got = local_response_norm(torch.from_numpy(x), 2, 2.0, 1e-4, beta,
                               alpha_scaled=alpha_scaled).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
@@ -84,7 +121,7 @@ def test_plain_lrn_matches_jax_oracle_bf16(c):
 
 def test_plain_lrn_wide_radius_matches_oracle():
     x = _input(7, seed=3)
-    want = np.asarray(jax_oracle(jnp.asarray(x), depth_radius=4))
+    want = _oracle(x, depth_radius=4)
     got = local_response_norm(torch.from_numpy(x), depth_radius=4).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
 
