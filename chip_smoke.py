@@ -114,6 +114,28 @@ Phases, one JSON line each:
             all of the vector variant; then 20 steps on phase train's
             fixed batch with a save every 10 (at 1, 10, 20), their step
             ms beside phase train's; the card's name and power limit
+  zoo_model the zoo's VGG-16 and ResNet-50 (vgg16_imagenet,
+            resnet50_imagenet) at full width (224 px, 1000 classes, bf16)
+            through build_engine from an npz of seeded weights (ResNet's
+            with non-trivial running statistics and bn3 scales at
+            0.05-0.15) on the flagship's ladder: every bucket warmed, the
+            served statistics the npz's, probabilities finite and summing
+            to 1, fp32 and bf16 logits held against the CPU forward of the
+            same weights at phase model's tolerances, forward ms per
+            bucket, parameter and statistic counts; no hand kernel
+  zoo_train_parity one fp32 train step of each (TF32 off, dropout and
+            augment off, batch 2) on the card in fp32 and fp64 and on the
+            CPU in fp32 and fp64 from the seeded init: the card's fp64
+            step the CPU's within 1e-6 relative L2 on every gradient,
+            update and running statistic, its fp32 step within 1e-2 of the
+            fp64 step (VGG-16's fp32 gradients at batch 2 are no better
+            defined: the phase's docstring)
+  zoo_train Trainer.fit on each preset at full width (bf16, the preset's
+            dropout, flip, mixup, the non-finite skip and LR schedule) for
+            20 steps on one seeded u8 batch of 256 (the presets' 1024 over
+            four cards): losses finite, every statistic moved, no hand
+            kernel; step ms, images/s, peak memory, the LR and a
+            torch.profiler breakdown of 3 more steps
   flash_kernel the flash attention forward, dQ and dK/dV kernels against
             their plain versions on the card, at ViT-S/16's shapes
             (T = 197, 6 heads of 64) at batch 32 and 1024, at a ragged
@@ -250,6 +272,7 @@ exits non-zero without the last line; without a CUDA device it exits 2
 before doing anything.
 """
 
+import contextlib
 import gc
 import json
 import math
@@ -1119,31 +1142,110 @@ def phase_train():
                       "copy_us_per_step": profile["copy_us_per_step"]}
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """Runs its block on cuDNN's deterministic algorithms (restored
+    after). cuDNN's default fp32 backward algorithms sum in an order that
+    varies from run to run; through a few steps at the preset's LR on
+    batch 2 (ReLU and max-pool ties) that can grow past any tolerance of
+    two paths that do the same arithmetic."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def zero2_runs(tree, paths, *, steps=3):
+    """Phase `train_zero2` (a)'s runs: the flagship at full width in fp32
+    without dropout, from `tree`, `steps` steps on seeded u8 batches of 2,
+    one run per name in `paths`, each from a fresh model: a name that
+    starts with "zero2" takes the ZeRO-2 step over the preset's 4 MB
+    buckets in the one-rank group that is up, any other the replicated
+    step. Returns name -> the losses, the last grad norm, the params, the
+    momentum, ZeRO's flat momentum and layout, the LRN launches and the
+    step's comm_meta."""
+    from distributed_vgg_f_tpu_torch.config import ModelConfig, get_config
+    from distributed_vgg_f_tpu_torch.data.device_ingest import \
+        make_device_finish
+    from distributed_vgg_f_tpu_torch.models.registry import build_model
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.parallel.zero import zero_layout
+    from distributed_vgg_f_tpu_torch.train.schedule import (build_optimizer,
+                                                            build_schedule)
+    from distributed_vgg_f_tpu_torch.train.state import TrainState
+    from distributed_vgg_f_tpu_torch.train.step import build_train_step
+    from distributed_vgg_f_tpu_torch.weights import load_params
+    cfg = get_config("vggf_imagenet_dp")
+    mesh, size = cfg.mesh, cfg.data.image_size
+    zero_kw = dict(zero1=True, shard_gradients=True,
+                   comm_bucket_mb=mesh.comm_bucket_mb)
+    model_cfg = ModelConfig(num_classes=cfg.model.num_classes,
+                            compute_dtype="float32", dropout_rate=0.0)
+    rng = np.random.default_rng(4)
+    batches = [{"image": rng.integers(0, 256, (2, size, size, 3), np.uint8),
+                "label": rng.integers(0, cfg.model.num_classes, (2,))}
+               for _ in range(steps)]
+    finish = make_device_finish(cfg.data.mean_rgb, cfg.data.stddev_rgb)
+    runs = {}
+    for path in paths:
+        zero2 = path.startswith("zero2")
+        model = load_params(build_model(model_cfg, image_size=size),
+                            tree).to("cuda")
+        layout = None
+        if zero2:
+            layout = zero_layout(model, 1, mesh.comm_bucket_mb)
+            state = TrainState.create_sharded(
+                model, lambda ps: build_optimizer(cfg, ps)[0], layout)
+            schedule = build_schedule(cfg)
+        else:
+            opt, schedule = build_optimizer(cfg, model.parameters())
+            state = TrainState.create(model, opt)
+        step = build_train_step(
+            schedule, cfg.optim.weight_decay, skip_nonfinite=True,
+            device_finish=finish, device="cuda",
+            **(zero_kw if zero2 else {}))
+        lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+        losses = []
+        for b in batches:
+            state, metrics = step(state, b, 0)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        runs[path] = {
+            "losses": losses, "grad_norm": float(metrics["grad_norm"]),
+            "params": {k: p.detach().clone()
+                       for k, p in model.named_parameters()},
+            "momentum": state.momentum(),
+            "flat": state.momentum_global() if zero2 else None,
+            "layout": layout,
+            "launches": (lrn_cuda.LAUNCHES, lrn_cuda.BWD_LAUNCHES),
+            "comm_meta": dict(step.comm_meta)}
+        del model, state, step
+    return runs
+
+
 def phase_train_zero2(tree, train_ref):
     """The flagship's ZeRO-2 exchange over 4 MB buckets on the card,
     through a one-rank NCCL group the script keeps: (a) against the
-    replicated step, full width in fp32; (b) in bf16 at batch 1024 with
+    replicated step, full width in fp32, on cuDNN's deterministic
+    algorithms (`zero2_runs`); (b) in bf16 at batch 1024 with
     dropout, flip and mixup for 20 steps, timed beside phase train
     (`train_ref`). Returns (b)'s LRN launches."""
     import dataclasses
 
     import torch.distributed as dist
 
-    from distributed_vgg_f_tpu_torch.config import ModelConfig, get_config
-    from distributed_vgg_f_tpu_torch.data.device_ingest import \
-        make_device_finish
+    from distributed_vgg_f_tpu_torch.config import get_config
     from distributed_vgg_f_tpu_torch.data.synthetic import SyntheticU8
-    from distributed_vgg_f_tpu_torch.models.registry import build_model
     from distributed_vgg_f_tpu_torch.ops import lrn_cuda
     from distributed_vgg_f_tpu_torch.parallel.distributed import \
         initialize_distributed
     from distributed_vgg_f_tpu_torch.parallel.zero import zero_layout
-    from distributed_vgg_f_tpu_torch.train.schedule import (build_optimizer,
-                                                            build_schedule)
+    from distributed_vgg_f_tpu_torch.train.schedule import build_optimizer
     from distributed_vgg_f_tpu_torch.train.state import TrainState
     from distributed_vgg_f_tpu_torch.train.step import build_train_step
     from distributed_vgg_f_tpu_torch.train.trainer import Trainer
-    from distributed_vgg_f_tpu_torch.weights import load_params
     cfg = get_config("vggf_imagenet_dp")
     mesh, size = cfg.mesh, cfg.data.image_size
     check(mesh.sharding_label == "zero2" and mesh.comm_bucket_mb == 4.0,
@@ -1157,46 +1259,11 @@ def phase_train_zero2(tree, train_ref):
           "initialize_distributed did not start a one-rank NCCL group")
     init_s = time.perf_counter() - t0
 
-    # (a) ZeRO-2 against the replicated step, fp32
-    model_cfg = ModelConfig(num_classes=cfg.model.num_classes,
-                            compute_dtype="float32", dropout_rate=0.0)
-    rng = np.random.default_rng(4)
-    batches = [{"image": rng.integers(0, 256, (2, size, size, 3), np.uint8),
-                "label": rng.integers(0, cfg.model.num_classes, (2,))}
-               for _ in range(3)]
-    finish = make_device_finish(cfg.data.mean_rgb, cfg.data.stddev_rgb)
-    runs = {}
-    # the replicated step twice: its own run-to-run bits are the control
-    for path in ("replicated", "replicated_again", "zero2"):
-        model = load_params(build_model(model_cfg, image_size=size),
-                            tree).to("cuda")
-        if path == "zero2":
-            layout = zero_layout(model, 1, mesh.comm_bucket_mb)
-            state = TrainState.create_sharded(
-                model, lambda ps: build_optimizer(cfg, ps)[0], layout)
-            schedule = build_schedule(cfg)
-        else:
-            opt, schedule = build_optimizer(cfg, model.parameters())
-            state = TrainState.create(model, opt)
-        step = build_train_step(
-            schedule, cfg.optim.weight_decay, skip_nonfinite=True,
-            device_finish=finish, device="cuda",
-            **(zero_kw if path == "zero2" else {}))
-        lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
-        losses = []
-        for b in batches:
-            state, metrics = step(state, b, 0)
-            losses.append(float(metrics["loss"]))
-        torch.cuda.synchronize()
-        runs[path] = {
-            "losses": losses, "grad_norm": float(metrics["grad_norm"]),
-            "params": {k: p.detach().clone()
-                       for k, p in model.named_parameters()},
-            "momentum": state.momentum(),
-            "flat": (state.momentum_global() if path == "zero2" else None),
-            "launches": (lrn_cuda.LAUNCHES, lrn_cuda.BWD_LAUNCHES),
-            "comm_meta": dict(step.comm_meta)}
-        del model, state, step
+    # (a) ZeRO-2 against the replicated step, fp32; the replicated step
+    # twice: its own run-to-run bits are the control
+    with cudnn_deterministic():
+        runs = zero2_runs(tree, ("replicated", "replicated_again", "zero2"))
+    layout = runs["zero2"]["layout"]
     rep, z2 = runs["replicated"], runs["zero2"]
     again = runs["replicated_again"]
     control = {"losses": rep["losses"] == again["losses"],
@@ -1216,7 +1283,8 @@ def phase_train_zero2(tree, train_ref):
     loss_err = max(abs(a - b) / abs(b)
                    for a, b in zip(z2["losses"], rep["losses"]))
     emit("train_zero2", part="a", batch=2, image_size=size, dtype="float32",
-         tf32=False, steps=len(batches), backend="nccl", world=1,
+         tf32=False, cudnn_deterministic=True, steps=len(rep["losses"]),
+         backend="nccl", world=1,
          init_s=init_s, comm_meta=z2["comm_meta"],
          losses_zero2=z2["losses"], losses_replicated=rep["losses"],
          grad_norm_zero2=z2["grad_norm"],
@@ -3153,6 +3221,391 @@ def _tree_size(tree):
                    for v in tree.values()))
 
 
+#: the zoo's BASELINE presets and their models (phases zoo_*)
+_ZOO = (("vgg16", "vgg16_imagenet"), ("resnet50", "resnet50_imagenet"))
+#: zoo_train's global batch: the presets' 1024 over four cards
+_ZOO_BATCH = 256
+
+
+def _hand_kernel_counts():
+    """Every hand kernel's launch count (LRN and flash, block included)."""
+    from distributed_vgg_f_tpu_torch.ops import flash_cuda, lrn_cuda
+    counts = {k: getattr(lrn_cuda, k) for k in (
+        "LAUNCHES", "BWD_LAUNCHES", "VEC_LAUNCHES", "VEC_BWD_LAUNCHES")}
+    counts.update({k: getattr(flash_cuda, k) for k in dir(flash_cuda)
+                   if k.endswith("_LAUNCHES")})
+    return counts
+
+
+def _zoo_tree(name, preset):
+    """Seeded weights (init_params, seed 0) and, for ResNet, non-trivial
+    BatchNorm statistics (means N(0, 0.1), variances U(0.8, 1.25)) with
+    bn3's scales drawn at 0.05–0.15, so the residual branches reach the
+    logits (their init of zeros would silence them)."""
+    from distributed_vgg_f_tpu_torch.config import get_config
+    from distributed_vgg_f_tpu_torch.weights import (init_batch_stats,
+                                                      init_params)
+    cfg = get_config(preset)
+    tree = init_params(cfg.model, 0, image_size=cfg.data.image_size)
+    stats = init_batch_stats(cfg.model)
+    rng = np.random.default_rng(0)
+
+    def draw(node, name=""):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                draw(value, key)
+                continue
+            if name == "bn3" and key == "scale":
+                value = rng.uniform(0.05, 0.15, value.shape)
+            elif key == "mean":
+                value = 0.1 * rng.standard_normal(value.shape)
+            elif key == "var":
+                value = rng.uniform(0.8, 1.25, value.shape)
+            node[key] = value.astype(np.float32)
+
+    if stats:
+        draw(tree)
+        draw(stats)
+    return cfg, tree, stats
+
+
+def _write_npz(path, tree, stats):
+    """The flat 'layer/leaf' npz build_engine reads, the statistics under
+    'batch_stats/'."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat["/".join(prefix + (k,))] = v
+
+    walk(tree, ())
+    walk(stats, ("batch_stats",))
+    np.savez(path, **flat)
+
+
+def phase_zoo_model(name, preset, tmp):
+    """A zoo model at full width (224 px, 1000 classes, bf16) through
+    build_engine on the flagship's ladder, from an npz of seeded weights
+    (and ResNet's statistics); logits against the CPU forward of the same
+    weights. Returns (cfg, tree, stats)."""
+    from distributed_vgg_f_tpu_torch.config import ModelConfig
+    from distributed_vgg_f_tpu_torch.models.registry import build_model
+    from distributed_vgg_f_tpu_torch.ops.batch_norm import batch_stats_of
+    from distributed_vgg_f_tpu_torch.serving.engine import build_engine
+    from distributed_vgg_f_tpu_torch.weights import load_params
+    t0 = time.perf_counter()
+    cfg, tree, stats = _zoo_tree(name, preset)
+    path = os.path.join(tmp, f"{name}.npz")
+    _write_npz(path, tree, stats)
+    init_s = time.perf_counter() - t0
+    size, classes = cfg.data.image_size, cfg.model.num_classes
+    before = _hand_kernel_counts()
+    engine = build_engine(name, size, classes, cfg.serving.buckets,
+                          cfg.serving.max_batch, weights=path,
+                          device="cuda", compute_dtype=cfg.model.compute_dtype,
+                          extra=cfg.model.extra)
+    os.remove(path)
+    check(engine.buckets == (1, 2, 4, 8, 16, 32),
+          f"{name} ladder is {engine.buckets}")
+    engine.warmup()
+    torch.cuda.synchronize()
+    check(sorted(engine.compile_log) == list(engine.buckets),
+          f"{name} warmed {sorted(engine.compile_log)}")
+    served = dict(engine._model.named_buffers())
+    for key, v in batch_stats_of(engine._model).items():
+        layer, leaf = key.rsplit(".", 1)
+        node = stats
+        for part in layer.split("."):
+            node = node[part]
+        check(bool(torch.equal(v.cpu(), torch.from_numpy(node[leaf]))),
+              f"{name} served statistic {key} is not the npz's")
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, (32, size, size, 3)).astype(np.uint8)
+    probs, bucket = engine.run(imgs)
+    check(probs.shape == (32, classes) and bucket == 32,
+          f"{name} probs {probs.shape} bucket {bucket}")
+    check(bool(np.isfinite(probs).all()), f"{name} non-finite probabilities")
+    sums_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+    check(sums_err <= 1e-3, f"{name} probabilities sum off 1 by {sums_err}")
+    forward_ms = {}
+    for b in engine.buckets:
+        ts = []
+        for _ in range(10):
+            t1 = time.perf_counter()
+            engine.run(imgs[:b])
+            ts.append((time.perf_counter() - t1) * 1e3)
+        forward_ms[str(b)] = statistics.median(ts)
+    check(_hand_kernel_counts() == before,
+          f"{name} launched a hand kernel: {before} -> "
+          f"{_hand_kernel_counts()}")
+    x = torch.from_numpy(((imgs[:2].astype(np.float32)
+                           - np.asarray(cfg.data.mean_rgb, np.float32))
+                          * (np.float32(1.0) / np.asarray(
+                              cfg.data.stddev_rgb, np.float32))))
+    fp32 = ModelConfig(name=name, num_classes=classes,
+                       compute_dtype="float32", extra=cfg.model.extra)
+    ref_model = load_params(build_model(fp32, image_size=size), tree,
+                            stats).eval()
+    with torch.no_grad():
+        ref = ref_model(x).numpy()
+        card32 = load_params(build_model(fp32, image_size=size), tree,
+                             stats).cuda()
+        got32 = card32(x.cuda()).cpu().numpy()
+        del card32
+        card16 = load_params(build_model(cfg.model, image_size=size), tree,
+                             stats).cuda()
+        got16 = card16(x.cuda()).cpu().numpy()
+        del card16
+    err32 = float(np.abs(got32 - ref).max())
+    err16 = float(np.abs(got16 - ref).max())
+    scale = float(np.abs(ref).max())
+    # phase model's tolerances: fp32 (TF32 off) 1e-3; bf16 2e-2 of the
+    # largest logit
+    check(np.allclose(got32, ref, rtol=1e-3, atol=1e-3),
+          f"{name} fp32 card logits off the CPU by {err32}")
+    check(np.allclose(got16, ref, rtol=2e-2, atol=2e-2 * scale),
+          f"{name} bf16 card logits off the CPU fp32 by {err16}")
+    n_params = sum(p.numel() for p in engine._model.parameters())
+    n_stats = sum(v.numel() for v in batch_stats_of(engine._model).values())
+    emit("zoo_model", model=name, preset=preset, image_size=size,
+         num_classes=classes, compute_dtype=cfg.model.compute_dtype,
+         params=n_params, param_leaves=len(list(engine._model.parameters())),
+         batch_stats=n_stats, batch_stat_leaves=len(batch_stats_of(
+             engine._model)), buffers=len(served), init_s=init_s,
+         buckets=list(engine.buckets),
+         warmup_s={str(b): s for b, s in sorted(engine.compile_log.items())},
+         probs_sum_max_err=sums_err, forward_ms=forward_ms,
+         images_per_s={b: int(b) / (ms / 1e3)
+                       for b, ms in forward_ms.items()},
+         ref_max_abs_logit=scale, fp32_max_abs_err=err32,
+         bf16_max_abs_err=err16,
+         hbm_estimate_bytes=engine.hbm_estimate_bytes,
+         hand_kernel_launches=0)
+    del engine, ref_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, tree, stats
+
+
+def phase_zoo_train_parity(name, cfg):
+    """One fp32 train step of a zoo model at full width (TF32 off,
+    dropout and augment off, batch 2) on the card, from the seeded init
+    (init_params seed 0, Flax's initial statistics; ResNet's bn3 scales
+    are the init's zeros, so its branch convs get exactly zero gradients)
+    and a seeded u8 batch, against the same step on the CPU in fp64; the
+    CPU's fp32 step and the card's fp64 step beside them. Checks: the
+    card's fp64 step is the CPU's, every gradient, update and statistic
+    within 1e-6 relative L2 (the same function and derivative on both
+    devices, to the rounding of the fp32 logits and loss both keep; 1.5e-8
+    and 1.8e-8 measured); the card's fp32 step within 1e-2 relative L2
+    of the fp64 step. Phase train_parity's 1e-4 cannot hold here: at batch
+    2 the CPU's own fp32 VGG-16 step parts from its fp64 step by 3.7e-3
+    (conv1, ReLU kinks and max-pool ties that fp32 rounding flips), and
+    the card's by 6.7e-3 (cuDNN's fp32 3x3 algorithms, 1.4e-3 in conv4-5
+    where the CPU's is within 2.5e-5); ResNet-50's card step by 1.5e-3 in
+    stage 4's bn3 scales, where the fast variance E[x²] - E[x]² loses
+    digits to the card's fp32 sums (the CPU sums float in double: 5.8e-6).
+    Measured in the first card runs of this phase, on cuDNN's default
+    algorithms; the card's steps now run on its deterministic ones."""
+    import dataclasses
+
+    from distributed_vgg_f_tpu_torch.data.device_ingest import \
+        make_device_finish
+    from distributed_vgg_f_tpu_torch.models.registry import build_model
+    from distributed_vgg_f_tpu_torch.ops.batch_norm import batch_stats_of
+    from distributed_vgg_f_tpu_torch.train.schedule import build_optimizer
+    from distributed_vgg_f_tpu_torch.train.state import TrainState
+    from distributed_vgg_f_tpu_torch.train.step import build_train_step
+    from distributed_vgg_f_tpu_torch.weights import (init_batch_stats,
+                                                      init_params,
+                                                      load_params)
+    t0 = time.perf_counter()
+    size = cfg.data.image_size
+    model_cfg = dataclasses.replace(cfg.model, compute_dtype="float32",
+                                    dropout_rate=0.0)
+    tree = init_params(model_cfg, 0, image_size=size)
+    stats0 = init_batch_stats(model_cfg)
+    # past the warmup's zero: the step's update is its gradient's
+    opt_cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, warmup_epochs=0.0))
+    rng = np.random.default_rng(2)
+    batch = {"image": rng.integers(0, 256, (2, size, size, 3), np.uint8),
+             "label": rng.integers(0, cfg.model.num_classes, (2,))}
+    finish = make_device_finish(cfg.data.mean_rgb, cfg.data.stddev_rgb)
+    out = {}
+    before = _hand_kernel_counts()
+    # the card's steps on cuDNN's deterministic algorithms, so the gaps
+    # below are the same in every run (see cudnn_deterministic)
+    with cudnn_deterministic():
+        for run, dev, dtype in (("fp64", "cpu", torch.float64),
+                                ("cpu", "cpu", torch.float32),
+                                ("cuda", "cuda", torch.float32),
+                                ("cuda64", "cuda", torch.float64)):
+            model = load_params(build_model(model_cfg, image_size=size),
+                                tree, stats0).to(dev, dtype)
+            model.compute_dtype = dtype
+            p0 = {k: p.detach().cpu().double().clone()
+                  for k, p in model.named_parameters()}
+            opt, schedule = build_optimizer(opt_cfg, model.parameters())
+            state = TrainState.create(model, opt)
+            step = build_train_step(schedule, cfg.optim.weight_decay,
+                                    skip_nonfinite=True,
+                                    device_finish=finish, device=dev)
+            state, metrics = step(state, batch, 0)
+            torch.cuda.synchronize()
+            out[run] = {
+                "loss": float(metrics["loss"]),
+                "grads": {k: p.grad.cpu().double()
+                          for k, p in model.named_parameters()},
+                "updates": {k: p.detach().cpu().double() - p0[k]
+                            for k, p in model.named_parameters()},
+                "stats": {k: v.cpu().double()
+                          for k, v in batch_stats_of(model).items()}}
+            del model, opt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(_hand_kernel_counts() == before, f"{name} launched a hand kernel")
+    ref, cpu, card, card64 = (out["fp64"], out["cpu"], out["cuda"],
+                              out["cuda64"])
+    tol, tol64 = 1e-2, 1e-6
+    errs, cpu_errs, vs_cpu, errs64 = {}, {}, {}, {}
+    for part in ("grads", "updates", "stats"):
+        for table, got in ((errs, card), (cpu_errs, cpu), (errs64, card64)):
+            table[part] = {k: _rel_l2(got[part][k], ref[part][k])
+                           for k in ref[part]}
+        vs_cpu[part] = {k: _rel_l2(card[part][k], cpu[part][k])
+                        for k in ref[part]}
+    spread = max(max(e.values(), default=0.0) for e in cpu_errs.values())
+    loss_err = abs(card["loss"] - ref["loss"]) / abs(ref["loss"])
+    zero = sorted(k for k, g in ref["grads"].items()
+                  if not bool(g.abs().max() > 0))
+
+    def worst(e):
+        return sorted(e.items(), key=lambda kv: -kv[1])[:3]
+
+    emit("zoo_train_parity", model=name, batch=2, image_size=size,
+         dtype="float32", tf32=False, reference="cpu float64",
+         loss_card=card["loss"], loss_cpu=cpu["loss"],
+         loss_fp64=ref["loss"], loss_rel_err=loss_err, tolerance_rel_l2=tol,
+         max_rel_l2={part: max(e.values()) if e else None
+                     for part, e in errs.items()},
+         cpu_fp32_max_rel_l2={part: max(e.values()) if e else None
+                              for part, e in cpu_errs.items()},
+         card_vs_cpu_fp32_max_rel_l2={part: max(e.values()) if e else None
+                                      for part, e in vs_cpu.items()},
+         worst={part: worst(e) for part, e in errs.items()},
+         cpu_fp32_spread=spread,
+         card_fp64_max_rel_l2={part: max(e.values()) if e else None
+                               for part, e in errs64.items()},
+         tolerance_fp64_rel_l2=tol64,
+         leaves=len(ref["grads"]), zero_grad_leaves=len(zero),
+         stat_leaves=len(ref["stats"]), seconds=time.perf_counter() - t0)
+    check(loss_err <= 1e-4, f"{name} loss card {card['loss']} fp64 "
+          f"{ref['loss']}")
+    for part in errs:
+        bad = {k: v for k, v in errs64[part].items() if v > tol64}
+        check(not bad, f"{name} {part}: the card's fp64 step is not the "
+              f"CPU's: {bad}")
+        bad = {k: v for k, v in errs[part].items() if v > tol}
+        check(not bad, f"{name} {part} off the fp64 step: {bad}")
+    check(all(bool(v.abs().max() > 0) for k, v in card["stats"].items()
+              if k.endswith(".mean")),
+          f"{name}: the step left a running mean at its init")
+
+
+def phase_zoo_train(name, preset):
+    """Trainer.fit on a zoo preset at full width (bf16, the preset's
+    dropout, flip, mixup, the non-finite skip, its LR schedule) for 20
+    steps on one seeded u8 batch of 256 — the preset's global 1024 over
+    four cards, cut to one card's share — then a torch.profiler breakdown
+    of 3 more steps."""
+    import dataclasses
+
+    from distributed_vgg_f_tpu_torch.config import get_config
+    from distributed_vgg_f_tpu_torch.data.synthetic import SyntheticU8
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    cfg = get_config(preset)
+    steps = 20
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data,
+                                      global_batch_size=_ZOO_BATCH),
+        train=dataclasses.replace(cfg.train, log_every=1, seed=0))
+    b, size = cfg.data.global_batch_size, cfg.data.image_size
+    data = SyntheticU8(b, size, cfg.model.num_classes, seed=0, pin=True)
+    stamps = []
+    trainer = Trainer(cfg, log=lambda event, rec: stamps.append(
+        time.perf_counter()) if event == "train" else None)
+    state = trainer.init_state(0)
+    stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = _hand_kernel_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(state, data, num_steps=steps)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches_same = _hand_kernel_counts() == before
+    recs = [r for r in trainer.records if r["event"] == "train"]
+    losses = [r["loss"] for r in recs]
+    stamps.insert(0, t0)
+    step_ms = [(t1 - t0_) * 1e3 for t0_, t1 in zip(stamps, stamps[1:])]
+    median_ms = statistics.median(step_ms[4:])
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    moved = sum(int(not torch.equal(v, stats0[k]))
+                for k, v in state.batch_stats.items())
+    profile = _profile_train(trainer, state, next(iter(data)))
+    emit("zoo_train", model=name, config=cfg.name, image_size=size,
+         batch=b, preset_global_batch=get_config(preset).data
+         .global_batch_size, cut="batch 256 = the preset's 1024 over four "
+         "cards; 20 steps; one seeded u8 batch; one card",
+         num_classes=cfg.model.num_classes,
+         compute_dtype=cfg.model.compute_dtype,
+         dropout_rate=cfg.model.dropout_rate,
+         augment={"hflip": cfg.data.augment.hflip,
+                  "mixup_alpha": cfg.data.augment.mixup_alpha},
+         skip_nonfinite=cfg.train.skip_nonfinite, steps=steps,
+         lr=[r["lr"] for r in recs], wall_s=wall_s,
+         first_step_ms=step_ms[0], step_ms_median=median_ms,
+         step_ms=step_ms, images_per_s=b / (median_ms / 1e3),
+         meter_images_per_sec=recs[-1]["images_per_sec"],
+         peak_memory_bytes=peak, allocated_before_fit_bytes=allocated_before,
+         losses=losses, grad_norms=[r["grad_norm"] for r in recs],
+         loss_first5_mean=first, loss_last5_mean=last,
+         loss_fell=last < first, stat_leaves_moved=moved,
+         stat_leaves=len(stats0), hand_kernel_launches=0
+         if launches_same else "nonzero", profile=profile)
+    check(state.step == steps + profile["steps"] and len(recs) == steps,
+          f"{name}: {state.step} steps, {len(recs)} records")
+    check(launches_same, f"{name} launched a hand kernel")
+    check(all(math.isfinite(v) for v in losses), f"{name} losses {losses}")
+    check(all(r["bad_step"] == 0.0 for r in recs), f"{name}: a step was "
+          "skipped")
+    check(moved == len(stats0), f"{name}: {moved} of {len(stats0)} "
+          "statistics moved")
+    del trainer, state, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms_median": median_ms, "peak_memory_bytes": peak}
+
+
+def phases_zoo():
+    """zoo_model, zoo_train_parity and zoo_train for VGG-16 and
+    ResNet-50."""
+    tmp = tempfile.mkdtemp(prefix="zoo_")
+    try:
+        for name, preset in _ZOO:
+            cfg, _, _ = phase_zoo_model(name, preset, tmp)
+            phase_zoo_train_parity(name, cfg)
+            phase_zoo_train(name, preset)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _vit_cfg():
     """vit_s16_imagenet with the flash layout."""
     import dataclasses
@@ -4295,6 +4748,7 @@ def main() -> int:
     finally:
         shutil.rmtree(feed_dir, ignore_errors=True)
     del tree
+    phases_zoo()
 
     flash_records = phase_flash_kernel(peaks)
     t0 = time.perf_counter()

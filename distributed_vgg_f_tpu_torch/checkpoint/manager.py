@@ -12,6 +12,8 @@ state as JSON:
     <root>/<step>/state/opt/trace/<layer>/<leaf>.npy  per parameter
     <root>/<step>/state/opt/count.npy             optax's count, int32
     <root>/<step>/state/ema_params/...            when the run keeps one
+    <root>/<step>/state/batch_stats/<layer>/{mean,var}.npy  BatchNorm's
+    <root>/<step>/state/ema_batch_stats/...       their EMA
     <root>/<step>/extra.json                      receipts and the blob
     <root>/<step>/metrics.json                    the score (best_metric)
 

@@ -13,8 +13,11 @@ GeometryReceiptError when it does not reproduce. When the saved layout and
 receipt equal the run's, each rank takes its (S,) row as it is (the fast
 path); otherwise parallel/zero.py `convert_opt_state` moves the vector
 into the run's layout, bit for bit, and each rank keeps its own row.
-Params are always saved as the tree and load as they are. ZeRO-3's
-params branches and elastic resize are not ported (ROADMAP A13).
+Params are always saved as the tree and load as they are; so are the
+BatchNorm statistics and their EMA, which are replicated in every layout
+(JAX `parallel/zero.py:86–90`) and cross any change of shard count
+unchanged: only the optimizer state is converted. ZeRO-3's params
+branches and elastic resize are not ported (ROADMAP A13).
 """
 
 from __future__ import annotations

@@ -9,8 +9,11 @@ the trainer's feed and eval use,
 checkpoints, eval cadence, best slot and preemption read, a
 `ServingConfig` limited to the fields the port honours,
 `resolve_serving_buckets`, the derived `scaled_lr` / `steps_per_epoch` /
-`total_steps`, the `vggf_imagenet_dp`, `vggf_teacher` and
-`vit_s16_imagenet` presets, and the command line's override machinery
+`total_steps`, `supports_space_to_depth` and `zoo_data` (each zoo
+preset's data through its model's ingest descriptor), the
+`vggf_imagenet_dp`, `vggf_teacher`, `vgg16_imagenet`,
+`resnet50_imagenet` and `vit_s16_imagenet` presets, and the command
+line's override machinery
 (`apply_overrides`, `fold_override_items`, `parse_cli`: the JAX
 package's dotted `--set KEY=VALUE` keys and refusals).
 
@@ -409,6 +412,39 @@ class ExperimentConfig:
                                      / self.optim.reference_batch_size)
 
 
+#: Datasets whose host pipeline implements the packed stem layout.
+SPACE_TO_DEPTH_DATASETS = frozenset({"synthetic", "imagenet"})
+
+
+def supports_space_to_depth(model_name: str, image_size: int,
+                            dataset_name: Optional[str] = None) -> bool:
+    """Whether a config may set `data.space_to_depth` (JAX
+    `config.py:1099`): the model's ingest descriptor packs, the image
+    side is a multiple of 4 and, with `dataset_name`, its pipeline packs
+    too. The trainer refuses the flag otherwise."""
+    from distributed_vgg_f_tpu_torch.models.ingest import ingest_descriptor
+    return ingest_descriptor(model_name).space_to_depth \
+        and image_size % 4 == 0 and (
+            dataset_name is None or dataset_name in SPACE_TO_DEPTH_DATASETS)
+
+
+def zoo_data(base: DataConfig, model_name: str) -> DataConfig:
+    """One zoo preset's data section derived from `base` through the
+    model's ingest descriptor (JAX `config.py:1114`): the packed layout
+    and the normalize constants come from models/ingest.py. The wire is
+    the descriptor's too; the port feeds the u8 wire only (ROADMAP A17),
+    which every zoo descriptor names."""
+    from distributed_vgg_f_tpu_torch.models.ingest import ingest_descriptor
+    d = ingest_descriptor(model_name)
+    if d.wire != "u8":
+        raise ValueError(f"{model_name}'s ingest descriptor ships the "
+                         f"{d.wire!r} wire; the port feeds u8 only "
+                         "(ROADMAP A17)")
+    return replace(base, space_to_depth=d.space_to_depth,
+                   mean_rgb=tuple(d.mean_rgb),
+                   stddev_rgb=tuple(d.stddev_rgb))
+
+
 def _vggf_imagenet_dp() -> ExperimentConfig:
     """The flagship: VGG-F on ImageNet-1k at 224 px, bf16 compute with
     fp32 params, global batch 1024, step LR at 30/60/80 epochs, flips and
@@ -424,12 +460,13 @@ def _vggf_imagenet_dp() -> ExperimentConfig:
         optim=OptimConfig(base_lr=0.01, reference_batch_size=256,
                           weight_decay=5e-4,
                           decay_epochs=(30.0, 60.0, 80.0)),
-        data=DataConfig(name="imagenet", image_size=224,
-                        global_batch_size=1024,
-                        space_to_depth=True,
-                        augment=AugmentConfig(enabled=True, hflip=True,
-                                              mixup_alpha=0.2),
-                        autotune=AutotuneConfig(enabled=True)),
+        data=zoo_data(
+            DataConfig(name="imagenet", image_size=224,
+                       global_batch_size=1024,
+                       augment=AugmentConfig(enabled=True, hflip=True,
+                                             mixup_alpha=0.2),
+                       autotune=AutotuneConfig(enabled=True)),
+            "vggf"),
         mesh=MeshConfig(shard_opt_state=True, shard_gradients=True,
                         comm_bucket_mb=4.0),
         train=TrainConfig(epochs=90.0),
@@ -473,12 +510,49 @@ def _vit_s16_imagenet() -> ExperimentConfig:
         optim=OptimConfig(base_lr=1e-3, reference_batch_size=1024,
                           momentum=0.9, weight_decay=1e-4,
                           schedule="cosine", warmup_epochs=5.0),
-        data=replace(base.data, space_to_depth=False),
+        data=zoo_data(base.data, "vit_s16"),
         train=TrainConfig(epochs=300.0))
+
+
+def _vgg16_imagenet() -> ExperimentConfig:
+    """VGG-16 on ImageNet-1k (BASELINE config #3: the deeper conv stack on
+    the flagship's data-parallel path): the flagship with VGG-16, its own
+    step LR (0.01 per 256 images after 2 warmup epochs) and its ingest
+    descriptor's data (the plain (S, S, 3) layout, no packing)."""
+    base = _vggf_imagenet_dp()
+    return replace(
+        base,
+        name="vgg16_imagenet",
+        model=ModelConfig(name="vgg16", num_classes=1000),
+        optim=OptimConfig(base_lr=0.01, reference_batch_size=256,
+                          weight_decay=5e-4,
+                          decay_epochs=(30.0, 60.0, 80.0),
+                          warmup_epochs=2.0),
+        data=zoo_data(base.data, "vgg16"))
+
+
+def _resnet50_imagenet() -> ExperimentConfig:
+    """ResNet-50 on ImageNet-1k with cross-replica sync-BN (BASELINE
+    config #4): the flagship with ResNet-50 (no dropout), 0.1 per 256
+    images after 5 warmup epochs, L2 1e-4 and its ingest descriptor's
+    data."""
+    base = _vggf_imagenet_dp()
+    return replace(
+        base,
+        name="resnet50_imagenet",
+        model=ModelConfig(name="resnet50", num_classes=1000,
+                          dropout_rate=0.0),
+        optim=OptimConfig(base_lr=0.1, reference_batch_size=256,
+                          weight_decay=1e-4,
+                          decay_epochs=(30.0, 60.0, 80.0),
+                          warmup_epochs=5.0),
+        data=zoo_data(base.data, "resnet50"))
 
 
 PRESETS = {"vggf_imagenet_dp": _vggf_imagenet_dp,
            "vggf_teacher": _vggf_teacher,
+           "vgg16_imagenet": _vgg16_imagenet,
+           "resnet50_imagenet": _resnet50_imagenet,
            "vit_s16_imagenet": _vit_s16_imagenet}
 
 

@@ -62,6 +62,25 @@ def _build_vggf_student(cfg: ModelConfig, image_size: int) -> nn.Module:
                 fc_features=2048, dropout_rate=cfg.dropout_rate, **cfg.extra)
 
 
+@register("vgg16")
+def _build_vgg16(cfg: ModelConfig, image_size: int) -> nn.Module:
+    # `cfg.extra`: block_sizes, block_features; `image_size` sizes fc6
+    from distributed_vgg_f_tpu_torch.models.vgg16 import VGG16
+    return VGG16(cfg.num_classes, compute_dtype=compute_dtype(cfg),
+                 image_size=image_size, dropout_rate=cfg.dropout_rate,
+                 **cfg.extra)
+
+
+@register("resnet50")
+def _build_resnet50(cfg: ModelConfig, image_size: int) -> nn.Module:
+    # `cfg.extra`: stage_sizes, bn_axis_name, stem; the model is the same
+    # at any image size (a spatial mean before the head) and has no
+    # dropout, as JAX's registry passes none
+    from distributed_vgg_f_tpu_torch.models.resnet import ResNet50
+    return ResNet50(cfg.num_classes, compute_dtype=compute_dtype(cfg),
+                    **cfg.extra)
+
+
 @register("vit_s16")
 def _build_vit_s16(cfg: ModelConfig, image_size: int) -> nn.Module:
     # `cfg.extra` carries ViT's overrides: hidden_dim, depth, num_heads,

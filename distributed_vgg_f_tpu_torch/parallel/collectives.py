@@ -6,7 +6,8 @@ The gradient exchange: `cast_to_wire` / `cast_from_wire` (the one place
 where every exchange leg narrows to mesh.reduce_dtype; the ZeRO param
 all-gather never calls it), `all_reduce_gradients` (the per-leaf mean),
 `cross_replica_mean` (the step's metrics, packed into one all-reduce),
-`replica_index`, and the sum legs `all_reduce_sum`, `reduce_scatter_sum`
+`replica_index`, `pmean` (the differentiable mean sync-BN averages its
+statistics with), and the sum legs `all_reduce_sum`, `reduce_scatter_sum`
 and `all_gather_flat` that parallel/buckets.py issues. A mean is the sum
 divided by the group size, as `lax.pmean` is: NCCL and gloo both sum,
 and gloo has no average.
@@ -121,6 +122,41 @@ def all_reduce_gradients(grads: Sequence[torch.Tensor], group=None,
         if wire is not g:
             g.copy_(wire)
         g.div_(n)
+
+
+class _PMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return pmean_(x.detach().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return pmean_(g.detach().clone(), ctx.group), None
+
+
+def pmean_(x: torch.Tensor, group=None) -> torch.Tensor:
+    """In-place mean of `x` over the group (the sum, then / n); `x`
+    itself without a group or in a group of one."""
+    _, n = rank_and_size(group)
+    if n > 1:
+        dist.all_reduce(x, group=group)
+        x.div_(n)
+    return x
+
+
+def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`lax.pmean(x, axis)`: the mean of `x` over the group, one
+    all-reduce. Differentiable: the backward is the transpose of the mean,
+    the mean of the incoming gradient over the group (one all-reduce
+    more), so each rank's gradient of its local loss carries every rank's
+    dependence on the shared statistic, as JAX's under `shard_map` does.
+    Without a group, or in a group of one, `x` comes back: no collective.
+    A collective that fails raises; nothing falls back to the local
+    value."""
+    if rank_and_size(group)[1] == 1:
+        return x
+    return _PMean.apply(x, group)
 
 
 Metrics = Union[torch.Tensor, Mapping[str, torch.Tensor]]

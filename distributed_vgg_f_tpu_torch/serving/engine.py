@@ -29,6 +29,7 @@ from distributed_vgg_f_tpu_torch.data.device_ingest import make_device_finish
 from distributed_vgg_f_tpu_torch.device import resolve_device
 from distributed_vgg_f_tpu_torch.models.ingest import (IngestDescriptor,
                                                        ingest_descriptor)
+from distributed_vgg_f_tpu_torch.ops.batch_norm import batch_stats_of
 from distributed_vgg_f_tpu_torch.train.predict import build_forward
 
 
@@ -62,13 +63,18 @@ class PredictEngine:
         self._first_run_lock = threading.Lock()
         #: bucket -> seconds of its first run (warmup or first request)
         self.compile_log: Dict[int, float] = {}
-        self._params_bytes = sum(p.numel() * p.element_size()
-                                 for p in self._model.parameters())
+        # the BatchNorm statistics live on the device beside the params
+        # (JAX `serving/engine.py:120`)
+        self._params_bytes = sum(
+            t.numel() * t.element_size()
+            for t in [*self._model.parameters(),
+                      *batch_stats_of(self._model).values()])
 
     @property
     def hbm_estimate_bytes(self) -> int:
-        """Analytic device-residency lower bound: parameters at their
-        storage dtypes plus the top bucket's wire-in/probs-out buffers."""
+        """Analytic device-residency lower bound: parameters and BatchNorm
+        statistics at their storage dtypes plus the top bucket's
+        wire-in/probs-out buffers."""
         top = self.buckets[-1]
         io = top * (self.image_size * self.image_size * 3 * 4  # f32 finish
                     + self.image_size * self.image_size * 3    # u8 wire
@@ -141,19 +147,27 @@ def build_engine(model_name: str, image_size: int, num_classes: int,
                  seed: int = 0,
                  extra: Optional[Mapping[str, Any]] = None) -> PredictEngine:
     """An engine over the weights npz (the flat 'layer/leaf' file the JAX
-    package's distill writes) or, without one, the seeded Flax init.
-    `extra` is the model's `ModelConfig.extra` (for ViT: widths, depth
-    and `attention_layout`, e.g. ``{"attention_layout": "flash"}``)."""
+    package's distill writes; a model with BatchNorm reads its statistics
+    from the file's ``batch_stats/<layer>/<leaf>`` keys) or, without one,
+    the seeded Flax init and Flax's initial statistics. `extra` is the
+    model's `ModelConfig.extra` (for ViT: widths, depth and
+    `attention_layout`, e.g. ``{"attention_layout": "flash"}``; for
+    ResNet: `stage_sizes`, `stem`)."""
     from distributed_vgg_f_tpu_torch.models.registry import build_model
-    from distributed_vgg_f_tpu_torch.weights import (init_params, load_npz,
+    from distributed_vgg_f_tpu_torch.weights import (init_batch_stats,
+                                                      init_params, load_npz,
                                                       load_params)
     dev = resolve_device(device)
     cfg = ModelConfig(name=model_name, num_classes=num_classes,
                       compute_dtype=compute_dtype, extra=dict(extra or {}))
     model = build_model(cfg, image_size=image_size)
-    tree = load_npz(weights) if weights \
-        else init_params(cfg, seed, image_size=image_size)
-    load_params(model, tree)
+    if weights:
+        tree = load_npz(weights)
+        stats = tree.pop("batch_stats", {})
+    else:
+        tree = init_params(cfg, seed, image_size=image_size)
+        stats = init_batch_stats(cfg, image_size=image_size)
+    load_params(model, tree, stats)
     return PredictEngine(model_name=model_name, model=model,
                          image_size=image_size, num_classes=num_classes,
                          buckets=buckets, max_batch=max_batch, device=dev)

@@ -78,8 +78,10 @@ def collect_images(inputs: Sequence[str]) -> list[str]:
 def restore_predict_params(trainer) -> torch.nn.Module:
     """The model of the trainer's checkpoint (`restore_or_init`: the
     latest, or the best slot with `train.restore_from_best`), holding the
-    EMA weights when the run tracks them, in eval mode. Raises without a
-    checkpoint: predict never classifies with random weights."""
+    EMA weights and the EMA of the BatchNorm statistics when the run
+    tracks them (JAX `train/predict.py:76–77`: the statistics swap with
+    the weights), in eval mode. Raises without a checkpoint: predict
+    never classifies with random weights."""
     if trainer.checkpoints is None \
             or trainer.checkpoints.latest_step() is None:
         raise RuntimeError(
@@ -92,6 +94,9 @@ def restore_predict_params(trainer) -> torch.nn.Module:
         with torch.no_grad():
             for name, p in model.named_parameters():
                 p.copy_(state.ema_params[name])
+            stats = state.batch_stats
+            for name, v in (state.ema_batch_stats or {}).items():
+                stats[name].copy_(v)
     return model.eval()
 
 

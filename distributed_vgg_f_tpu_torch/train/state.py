@@ -1,8 +1,13 @@
 """Train state: the step counter, the model (its parameters), the
-optimizer (its momentum buffers), the optimizer's own update count and
-the optional parameter EMA — the unit the train step updates. The
-counterpart of the JAX package's ``train/state.py TrainState``; the model
-has no batch statistics (VGG-F has no BN), so there is no `batch_stats`.
+optimizer (its momentum buffers), the optimizer's own update count, the
+BatchNorm statistics, and the optional EMA of the parameters and of the
+statistics — the unit the train step updates. The counterpart of the JAX
+package's ``train/state.py TrainState``. `batch_stats` is the model's
+BatchNorm buffers (ops/batch_norm.py; live: the training forward moves
+them in place), empty for a model without BatchNorm (VGG-F, VGG-16,
+ViT), as JAX's is `{}` there; `ema_batch_stats` their EMA, kept beside
+`ema_params` (`{}` without BatchNorm, None without an EMA). Both stay
+replicated under ZeRO-1/2, as in JAX `parallel/zero.py:86–90`.
 
 Under ZeRO-1/2 (`create_sharded`) the state also holds this rank's (S,)
 fp32 parameter shard of the flat layout (parallel/zero.py
@@ -17,9 +22,11 @@ The state is mutable: the step updates parameters and momentum in place
 the checkpoint's arrays (checkpoint/manager.py), in the Flax names and
 layouts: `step`, `opt/count` (optax's count), `params/<layer>/<leaf>`,
 the momentum as `opt/trace` (the ZeRO (T,) vector, gathered) or
-`opt/trace/<layer>/<leaf>`, and `ema_params/<layer>/<leaf>`. Every
-layout change is a copy through `weights.flax_view`, so the round trip
-is bitwise.
+`opt/trace/<layer>/<leaf>`, `ema_params/<layer>/<leaf>`, and the
+statistics as `batch_stats/<layer>/<leaf>` and
+`ema_batch_stats/<layer>/<leaf>` (`mean`, `var`; absent without
+BatchNorm, as JAX's empty trees write nothing). Every layout change is a
+copy through `weights.flax_view`, so the round trip is bitwise.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from distributed_vgg_f_tpu_torch.ops.batch_norm import batch_stats_of
 from distributed_vgg_f_tpu_torch.parallel.buckets import (GradBucketLayout,
                                                           canonical_leaves)
 from distributed_vgg_f_tpu_torch.parallel.collectives import (
@@ -49,6 +57,9 @@ class TrainState:
     opt_count: int = 0
     # name -> fp32 tensor, or None when train.ema_decay is 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    # the BatchNorm statistics' EMA by buffer name ({} without BatchNorm),
+    # or None when train.ema_decay is 0
+    ema_batch_stats: Optional[Dict[str, torch.Tensor]] = None
     # ZeRO-1/2: this rank's (S,) fp32 parameter shard (the optimizer's one
     # tensor), the flat layout it lives in, and the process group
     param_shard: Optional[torch.Tensor] = None
@@ -59,9 +70,11 @@ class TrainState:
     def create(cls, model: torch.nn.Module,
                optimizer: torch.optim.Optimizer, *,
                ema: bool = False) -> "TrainState":
-        """A fresh state; `ema=True` starts the EMA at the current params."""
+        """A fresh state; `ema=True` starts the EMA at the current params
+        and statistics."""
         return cls(step=0, model=model, optimizer=optimizer,
-                   ema_params=_ema_start(model) if ema else None)
+                   ema_params=_ema_start(model) if ema else None,
+                   ema_batch_stats=_ema_stats_start(model) if ema else None)
 
     @classmethod
     def create_sharded(cls, model: torch.nn.Module,
@@ -80,7 +93,15 @@ class TrainState:
         shard = layout.local_param_shard(layout.leaves(model), rank)
         return cls(step=0, model=model, optimizer=make_optimizer([shard]),
                    ema_params=_ema_start(model) if ema else None,
+                   ema_batch_stats=_ema_stats_start(model) if ema else None,
                    param_shard=shard, layout=layout, group=group)
+
+    @property
+    def batch_stats(self) -> Dict[str, torch.Tensor]:
+        """The model's BatchNorm statistics by buffer name: the live
+        buffers, which the training forward moves in place ({} without
+        BatchNorm)."""
+        return batch_stats_of(self.model)
 
     def momentum_shard(self) -> Optional[torch.Tensor]:
         """ZeRO: this rank's (S,) momentum (None before the first
@@ -176,25 +197,35 @@ class TrainState:
                               for k, v in self.momentum().items()})
         if self.ema_params is not None:
             add("ema_params", self.ema_params)
+        for prefix, stats in (("batch_stats", self.batch_stats),
+                              ("ema_batch_stats", self.ema_batch_stats)):
+            for key, value in (stats or {}).items():
+                tree[f"{prefix}/{key.replace('.', '/')}"] = value.detach()
         return tree
 
     def load_checkpoint_tree(
             self, tree: Mapping[str, Any],
             momentum: Union[Mapping[str, torch.Tensor], torch.Tensor]
     ) -> Optional[str]:
-        """Load a checkpoint's step, count, params and EMA from `tree`
-        (`checkpoint_tree`'s names) and `momentum`, already in this
-        state's layout (checkpoint/retopology.py): the per-parameter
+        """Load a checkpoint's step, count, params, statistics and EMA
+        from `tree` (`checkpoint_tree`'s names) and `momentum`, already in
+        this state's layout (checkpoint/retopology.py): the per-parameter
         buffers, or this rank's (S,) shard under ZeRO. Returns the EMA
         event: "ema_seeded_from_params" when the run keeps an EMA the
-        checkpoint lacks, "ema_dropped_on_restore" for the converse, else
-        None. Params saved for another model raise GeometryReceiptError."""
+        checkpoint lacks (the statistics' EMA starts at the restored
+        statistics), "ema_dropped_on_restore" for the converse, else
+        None. Params or statistics saved for another model raise
+        GeometryReceiptError."""
         model = self.model
         named = dict(model.named_parameters())
+        stats = self.batch_stats
         with torch.no_grad():
             for key, value in leaves_from_tree(tree, "params",
                                                model).items():
                 named[key].copy_(value)
+            for key, value in stats_from_tree(tree, "batch_stats",
+                                              stats).items():
+                stats[key].copy_(value)
             if self.param_shard is not None:
                 rank = rank_and_size(self.group)[0]
                 self.param_shard.copy_(self.layout.local_param_shard(
@@ -203,8 +234,11 @@ class TrainState:
         event = None
         if self.ema_params is not None and saved_ema:
             self.ema_params = leaves_from_tree(tree, "ema_params", model)
+            self.ema_batch_stats = stats_from_tree(tree, "ema_batch_stats",
+                                                   stats)
         elif self.ema_params is not None:
             self.ema_params = _ema_start(model)
+            self.ema_batch_stats = _ema_stats_start(model)
             event = "ema_seeded_from_params"
         elif saved_ema:
             event = "ema_dropped_on_restore"
@@ -245,5 +279,33 @@ def leaves_from_tree(tree: Mapping[str, Any], prefix: str,
     return out
 
 
+def stats_from_tree(tree: Mapping[str, Any], prefix: str,
+                    like: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """The checkpoint's statistics under `prefix/<layer>/<leaf>` -> buffer
+    name -> fp32 tensor on the device of `like` (the model's
+    `batch_stats`). A missing, extra or misshapen leaf raises
+    GeometryReceiptError."""
+    saved = {k[len(prefix) + 1:].replace("/", "."): k for k in tree
+             if k.startswith(prefix + "/")}
+    if set(saved) != set(like):
+        raise GeometryReceiptError(
+            f"checkpoint {prefix} {sorted(saved)} are not this model's "
+            f"{sorted(like)}")
+    out = {}
+    for key, ref in like.items():
+        arr = torch.as_tensor(np.asarray(tree[saved[key]]))
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise GeometryReceiptError(
+                f"checkpoint {saved[key]} has shape {tuple(arr.shape)}; "
+                f"this model's is {tuple(ref.shape)}")
+        out[key] = arr.to(ref.device, torch.float32).clone()
+    return out
+
+
 def _ema_start(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in model.named_parameters()}
+
+
+def _ema_stats_start(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in batch_stats_of(model).items()}

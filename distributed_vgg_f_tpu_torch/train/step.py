@@ -3,13 +3,16 @@ torch.distributed process group.
 
 The counterpart of the JAX package's ``train/step.py`` `build_train_step`
 (:66) and `build_eval_step` (:645): the finish, then the augment keyed
-off the step, the forward in training mode, CE (or lam*CE(y) +
-(1-lam)*CE(y[perm]) under mixup) plus the coupled L2, the backward, the
-exchange, the global gradient norm and its clip, the SGD update, the EMA
-and the non-finite skip. The metric keys are the reference's: `loss`
-(the CE), `l2_loss`, `top1`, `grad_norm`, `lr` (the schedule at the step
-counter) and, with the skip on, `bad_step`. `loss`, `l2_loss` and `top1`
-are each rank's values averaged over the group in one all-reduce.
+off the step, the forward in training mode (which moves the BatchNorm
+statistics in place, over the group with sync-BN, once a micro-batch),
+CE (or lam*CE(y) + (1-lam)*CE(y[perm]) under mixup) plus the coupled L2,
+the backward, the exchange, the global gradient norm and its clip, the
+SGD update, the EMA (of the BatchNorm statistics too, with the same
+decay) and the non-finite skip. The metric keys are the reference's:
+`loss` (the CE), `l2_loss`, `top1`, `grad_norm`, `lr` (the schedule at
+the step counter) and, with the skip on, `bad_step`. `loss`, `l2_loss`
+and `top1` are each rank's values averaged over the group in one
+all-reduce.
 
 Each process is one replica of the group and steps on its local batch.
 The exchange follows JAX `train/step.py:360–531`:
@@ -54,7 +57,8 @@ batch and the same dropout mask.
 The non-finite skip reads the step's finiteness on the host (one device
 sync a step) before the update, from the all-reduced loss and the global
 norm, so every rank takes the same branch: a bad step leaves params,
-momentum, the optimizer's count and the EMA bitwise unchanged (under
+momentum, the optimizer's count, the BatchNorm statistics (copied before
+the forward and put back) and both EMAs bitwise unchanged (under
 ZeRO it skips the shard update and the gather on every rank), and only
 the step counter advances. The reference decides on the device with a
 select per state leaf instead; the states they leave are the same.
@@ -263,6 +267,11 @@ def build_train_step(schedule: Callable[[int], float],
             opt.zero_grad(set_to_none=True)
         acc = (torch.zeros(lay.shard_size, dtype=torch.float32, device=dev)
                if grad_accum_shard else None)
+        # the forwards move the BatchNorm statistics in place, once a
+        # micro-batch in order; a skipped step puts them back
+        stats = state.batch_stats
+        stats_before = ({k: v.clone() for k, v in stats.items()}
+                        if skip_nonfinite and stats else None)
         ex = None
         parts = []
         for i in range(k):
@@ -342,6 +351,15 @@ def build_train_step(schedule: Callable[[int], float],
                     for name, p in model.named_parameters():
                         state.ema_params[name].mul_(ema_decay).add_(
                             p, alpha=1.0 - ema_decay)
+                    # the statistics' EMA, with the same decay (JAX
+                    # `train/step.py:546–551`)
+                    for name, v in stats.items():
+                        state.ema_batch_stats[name].mul_(ema_decay).add_(
+                            v, alpha=1.0 - ema_decay)
+        elif stats_before is not None:
+            with torch.no_grad():
+                for name, v in stats.items():
+                    v.copy_(stats_before[name])
         state.step += 1
         return state, metrics
 
@@ -354,7 +372,9 @@ def build_eval_step(device_finish: Optional[Callable] = None, *,
     """Returns `eval_step(state, batch, use_ema=False) -> {'top1',
     'top5', 'count'}`: correct counts (int tensors) of the unaugmented
     eval forward, with `batch['valid']` (optional) masking padding rows.
-    `use_ema` scores the EMA weights instead of the raw ones."""
+    `use_ema` scores the EMA weights, with the EMA of the BatchNorm
+    statistics, instead of the raw ones; BatchNorm reads its running
+    statistics either way."""
     dev = resolve_device("cuda" if device is None else device)
 
     def eval_step(state: TrainState, batch: Batch, use_ema: bool = False):
@@ -369,8 +389,12 @@ def build_eval_step(device_finish: Optional[Callable] = None, *,
                 if state.ema_params is None:
                     raise ValueError("use_ema=True but the state has no EMA "
                                      "(train.ema_decay is 0)")
+                # the averaged weights with the averaged statistics (JAX
+                # `train/trainer.py:1766`)
                 logits = torch.func.functional_call(
-                    state.model, state.ema_params, (images,))
+                    state.model, {**state.ema_params,
+                                  **(state.ema_batch_stats or {})},
+                    (images,))
             else:
                 logits = state.model(images)
             k5 = min(5, logits.shape[-1])

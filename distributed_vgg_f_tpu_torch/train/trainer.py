@@ -16,7 +16,11 @@ with seeded params (weights.init_params) on that device, its optimizer
 (over this rank's flat shard under ZeRO) and the optional EMA;
 `restore_or_init()` restores the newest intact checkpoint of
 `train.checkpoint_dir` (or, with `train.restore_from_best`, the best
-slot) into such a state, or returns it fresh.
+slot) into such a state, or returns it fresh. A model with BatchNorm
+(the zoo's ResNet) carries its statistics through all of it: the state,
+the step (sync-BN over the group), the checkpoints, the EMA and eval.
+`data.space_to_depth` on a model whose stem does not take the packed
+layout raises, as JAX's trainer does.
 
 `fit(state=None, dataset=None, num_steps=None, eval_dataset=None)`
 (JAX `trainer.py:856–1593`) runs the steps from `state.step` to
@@ -95,7 +99,8 @@ which are collective; rank 0 writes.
 `evaluate(state, dataset, num_batches=None, use_ema=None, step=None)`
 (JAX `trainer.py:1734–1815`) scores a finite dataset exactly, to its
 end, with the padding rows masked; an infinite one for
-`num_eval_examples // global_batch_size` batches.
+`num_eval_examples // global_batch_size` batches; with the EMA, the
+averaged weights and the averaged statistics together.
 
 Records go to `self.records` (as ``{"event": ..., **payload}``) and to
 the optional `log(event, payload)` callable on rank 0 only, as the JAX
@@ -119,7 +124,8 @@ from distributed_vgg_f_tpu_torch import telemetry
 from distributed_vgg_f_tpu_torch.checkpoint.manager import CheckpointManager
 from distributed_vgg_f_tpu_torch.checkpoint.retopology import \
     restore_any_topology
-from distributed_vgg_f_tpu_torch.config import ExperimentConfig
+from distributed_vgg_f_tpu_torch.config import (ExperimentConfig,
+                                                 supports_space_to_depth)
 from distributed_vgg_f_tpu_torch.data import build_dataset
 from distributed_vgg_f_tpu_torch.data import autotune
 from distributed_vgg_f_tpu_torch.data.augment import make_device_augment
@@ -144,7 +150,8 @@ from distributed_vgg_f_tpu_torch.train.state import TrainState
 from distributed_vgg_f_tpu_torch.train.step import (build_eval_step,
                                                     build_train_step)
 from distributed_vgg_f_tpu_torch.utils.meter import ThroughputMeter
-from distributed_vgg_f_tpu_torch.weights import init_params, load_params
+from distributed_vgg_f_tpu_torch.weights import (init_batch_stats,
+                                                  init_params, load_params)
 
 
 #: Why the autotuner's wire knob is unbound in the `autotune_armed`
@@ -176,6 +183,17 @@ class Trainer:
         #: the ingest autotuner of the last `fit` that armed one
         self.autotuner: Optional[autotune.IngestAutotuner] = None
         mesh, k = cfg.mesh, cfg.train.grad_accum_steps
+        if cfg.data.space_to_depth and not supports_space_to_depth(
+                cfg.model.name, cfg.data.image_size, cfg.data.name):
+            # the packed layout is VGG-F's stem input (JAX
+            # `trainer.py:89–100`): another model (a `--set model.name=`
+            # on the flagship) takes (S, S, 3)
+            raise ValueError(
+                "data.space_to_depth needs the vggf model, "
+                "image_size % 4 == 0, and a dataset that implements packing "
+                f"(got model={cfg.model.name!r}, "
+                f"image_size={cfg.data.image_size}, "
+                f"dataset={cfg.data.name!r})")
         if mesh.shard_params or mesh.elastic.enabled:
             raise NotImplementedError(
                 "mesh.shard_params (ZeRO-3) and mesh.elastic are not ported "
@@ -236,14 +254,16 @@ class Trainer:
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Seeded params (train.seed unless `seed` is given; the same on
-        every rank), a fresh optimizer at count 0 (over this rank's flat
-        shard under ZeRO), and the EMA when train.ema_decay > 0."""
+        every rank), BatchNorm statistics at Flax's init (mean 0, var 1),
+        a fresh optimizer at count 0 (over this rank's flat shard under
+        ZeRO), and the EMA of both when train.ema_decay > 0."""
         cfg = self.cfg
         seed = cfg.train.seed if seed is None else seed
         size = cfg.data.image_size
         return self._state_for(load_params(
             build_model(cfg.model, image_size=size),
-            init_params(cfg.model, seed, image_size=size)))
+            init_params(cfg.model, seed, image_size=size),
+            init_batch_stats(cfg.model, image_size=size)))
 
     def _state_for(self, model: torch.nn.Module) -> TrainState:
         """`model`, moved to this trainer's device, with a fresh optimizer

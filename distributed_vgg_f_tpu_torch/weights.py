@@ -9,15 +9,23 @@ Each leaf maps by a transpose or a reshape, so the round trip is bitwise:
 - conv kernels HWIO <-> OIHW; dense kernels (in, out) <-> (out, in);
 - ViT's fused ``qkv`` kernel (D, 3, H, hd) <-> (3*H*hd, D) and its bias
   (3, H, hd) <-> flat; the ``out`` kernel (H, hd, D) <-> (D, H*hd);
-- LayerNorm ``scale`` <-> ``weight``; raw parameters as they are.
+- LayerNorm and BatchNorm ``scale`` <-> ``weight``; raw parameters as
+  they are.
 
 The way back needs the head count H (`params_to_flax(num_heads=...)`).
 VGG-F's fc6 needs no row permutation: the port flattens pool5 in NHWC
 order, as Flax does.
 
+BatchNorm (the zoo's ResNet) adds Flax's second collection, the
+`batch_stats` tree (``<layer>/mean``, ``<layer>/var``): raw leaves to
+these maps, so `params_from_flax` and `params_to_flax` carry it to and
+from the BatchNorm layers' ``mean`` and ``var`` buffers as they are; a
+BatchNorm's ``weight`` is Flax's ``scale``, as a LayerNorm's is.
+
 `load_npz` reads the flat ``'conv1/kernel'`` npz the JAX package's
 `train/distill.py save_params` writes; `init_params` makes a seeded tree
-with the Flax initializers for runs without a weights file.
+with the Flax initializers for runs without a weights file, and
+`init_batch_stats` the statistics Flax's init starts at.
 `momentum_from_optax` maps optax's SGD momentum trace (a param-shaped
 tree) through the same maps, so a port run can continue a JAX run;
 `momentum_shard_from_optax` takes the trace of a JAX ZeRO state (the
@@ -106,7 +114,7 @@ def _flax_leaf_view(key: str, arr: np.ndarray, num_heads: Optional[int]
         if path[-1] == "qkv":     # flat -> (3, H, hd)
             arr = arr.reshape(3, num_heads, -1)
         return path + ("bias",), arr
-    if arr.ndim == 1:             # LayerNorm
+    if arr.ndim == 1:             # LayerNorm, BatchNorm
         return path + ("scale",), arr
     if path[-1] == "qkv":         # (3*H*hd, D) -> (D, 3, H, hd)
         out = arr.T.reshape(arr.shape[1], 3, num_heads, -1)
@@ -228,14 +236,21 @@ def load_npz(path: str) -> dict:
     return tree
 
 
+#: Layers whose Flax scale starts at zero (the JAX ResNet's `bn3`,
+#: `scale_init=nn.initializers.zeros`: an identity residual branch at init)
+_ZERO_SCALE_LAYERS = ("bn3",)
+
+
 def init_params(model_cfg: ModelConfig, seed: int, *,
                 image_size: int = 224) -> dict:
     """Seeded Flax param tree for `model_cfg` at `image_size`, drawn leaf
     by leaf from one `torch.Generator` with the Flax initializers:
     lecun-normal kernels (normal truncated at two standard deviations,
     stddev sqrt(1/fan_in) corrected for the truncation, fan_in over the
-    contracted axes), zero biases, LayerNorm scales of one, a zero cls
-    token and a normal(0.02) position embedding."""
+    contracted axes), zero biases, LayerNorm and BatchNorm scales of one
+    (zero for ResNet's `bn3`), a zero cls token and a normal(0.02)
+    position embedding. The BatchNorm statistics are
+    `init_batch_stats`'."""
     from distributed_vgg_f_tpu_torch.models.registry import build_model
     model = build_model(model_cfg, image_size=image_size)
     num_heads = getattr(model, "num_heads", None)
@@ -248,7 +263,8 @@ def init_params(model_cfg: ModelConfig, seed: int, *,
         if leaf in ("bias", "cls"):
             value = np.zeros(like.shape, np.float32)
         elif leaf == "scale":
-            value = np.ones(like.shape, np.float32)
+            value = (np.zeros if path[-2] in _ZERO_SCALE_LAYERS
+                     else np.ones)(like.shape, np.float32)
         elif leaf == "pos_embed":
             value = (torch.randn(like.shape, generator=gen)
                      * 0.02).numpy()
@@ -265,7 +281,23 @@ def init_params(model_cfg: ModelConfig, seed: int, *,
     return tree
 
 
-def load_params(model: torch.nn.Module, tree: Mapping) -> torch.nn.Module:
-    """Load a Flax param tree into `model` (every parameter, exactly)."""
-    model.load_state_dict(params_from_flax(tree), strict=True)
+def init_batch_stats(model_cfg: ModelConfig, *,
+                     image_size: int = 224) -> dict:
+    """The Flax `batch_stats` tree of a fresh `model_cfg` model, as
+    Flax's init makes it: every BatchNorm's `mean` zeros and `var` ones
+    (an empty tree for a model without BatchNorm)."""
+    from distributed_vgg_f_tpu_torch.models.registry import build_model
+    from distributed_vgg_f_tpu_torch.ops.batch_norm import batch_stats_of
+    stats = batch_stats_of(build_model(model_cfg, image_size=image_size))
+    return params_to_flax(stats)
+
+
+def load_params(model: torch.nn.Module, tree: Mapping,
+                batch_stats: Optional[Mapping] = None) -> torch.nn.Module:
+    """Load a Flax param tree, and a Flax `batch_stats` tree for a model
+    with BatchNorm, into `model`: strict over parameters and buffers
+    both, so a ResNet loaded without its statistics raises."""
+    state = params_from_flax(tree)
+    state.update(params_from_flax(batch_stats or {}))
+    model.load_state_dict(state, strict=True)
     return model

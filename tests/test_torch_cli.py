@@ -2,7 +2,9 @@
 config overrides, JSONL records and predict, against the JAX package's.
 
 - `parse_cli` against JAX's on the same argv: every field both configs
-  have takes the same value, and both refuse the same malformed items;
+  have takes the same value, on the flagship and on every preset both
+  packages have (the zoo's `vgg16_imagenet` and `resnet50_imagenet`
+  among them), and both refuse the same malformed items;
   keys the port has not raise, naming their ROADMAP item.
 - `MetricLogger`: non-finite floats written as null with a sibling
   `<key>_nonfinite`, a schema_version on every record; the port's
@@ -104,6 +106,29 @@ def test_parse_cli_matches_jax_on_every_shared_field(sets):
     assert len(shared) > 60
     for key in sorted(shared):
         assert a[key] == b[key], key
+
+
+@pytest.mark.parametrize("sets", [[], ["model.name=resnet50"],
+                                  ["model.extra.stem=space_to_depth",
+                                   "train.ema_decay=0.999"]])
+@pytest.mark.parametrize("preset", sorted(set(tcfg.PRESETS)
+                                          & set(jcfg.PRESETS)))
+def test_every_shared_preset_matches_jax_field_by_field(preset, sets):
+    argv = ["--config", preset]
+    for item in sets:
+        argv += ["--set", item]
+    a = _fields(tcfg.parse_cli(argv))
+    b = _fields(jcfg.parse_cli(argv))
+    shared = set(a) & set(b)
+    assert len(shared) > 60
+    for key in sorted(shared):
+        assert a[key] == b[key], key
+
+
+def test_the_zoo_presets_are_shared():
+    assert {"vgg16_imagenet", "resnet50_imagenet", "vit_s16_imagenet",
+            "vggf_imagenet_dp", "vggf_teacher"} <= set(tcfg.PRESETS) \
+        & set(jcfg.PRESETS)
 
 
 def test_parse_cli_defaults_to_the_flagship():

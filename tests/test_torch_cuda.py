@@ -41,7 +41,10 @@ of one) against `flash_self_attention`: fp32 2e-5 (output) and 5e-5
 every gradient and update within 1e-4 relative L2 of the CPU step.
 The training feed (`-k prefetch`): the prefetcher's device batches equal
 the CPU decode of the same cursors byte for byte, its copies overlap a
-kernel, and close() leaves no worker and no pinned slot."""
+kernel, and close() leaves no worker and no pinned slot.
+Sync-BN across four cards (`-k resnet50_sync_bn`): ResNet-50's running
+statistics bit-equal on every rank, losses and statistics within 1e-5
+relative of one card on the same global batches (fp32, TF32 off)."""
 
 import numpy as np
 import pytest
@@ -1366,3 +1369,92 @@ def test_flagship_cli_across_four_cards(cuda_device, tmp_path):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     print(json.dumps({"cli_four_cards": out}), flush=True)
+
+
+@pytest.mark.cuda
+def test_resnet50_sync_bn_across_four_cards(cuda_device, tmp_path,
+                                            monkeypatch):
+    """Sync-BN across cards: the full-width ResNet-50 preset with its own
+    mesh (ZeRO-2 over 4 MB buckets) in a 4-rank NCCL group, one card a
+    rank, started by tests/_torch_zoo_worker.py. (a) fp32 with TF32 off,
+    augment off, the LR without its warmup (0.1 per 256 images, so the
+    weights move), global batch 64 (16 a card) of seeded u8 images, 3
+    steps through Trainer.fit: the running statistics bit-equal on every
+    rank (one all-reduce of each (mean, E[x^2]) pair a layer), and the
+    losses and every statistic within 1e-5 relative (relative L2 a leaf)
+    of one card's Trainer on the same global batches (replicated SGD,
+    the batch's statistics over all 64). (b) The preset itself (bf16,
+    flip, mixup, the non-finite skip) at 256 a card, the preset's global
+    1024, for 20 steps: each rank's step ms, peak memory and a profile of
+    3 more steps with NCCL's device µs, printed as one
+    `{"resnet50_four_cards": ...}` line with `-s`. Needs 4 cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices, one a rank of the NCCL group")
+    import json
+    import subprocess
+
+    from _torch_zoo_worker import port_config, run_group
+
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    steps, world, batch = 3, 4, 64
+    over = {"model.compute_dtype": "float32", "data.augment.enabled": "false",
+            "data.global_batch_size": str(batch), "optim.warmup_epochs": "0",
+            "train.seed": "0", "train.log_every": "1"}
+    rng = np.random.default_rng(30)
+    arrays = {}
+    for i in range(steps):
+        arrays[f"batch{i}/image"] = rng.integers(
+            0, 256, (batch, 224, 224, 3), dtype=np.uint8)
+        arrays[f"batch{i}/label"] = rng.integers(0, 1000, batch)
+    fit = {"name": "fit", "overrides": over, "steps": steps}
+    cases = [fit, {"name": "timed", "kind": "timed", "steps": 20}]
+    outs = run_group(world, {"cases": cases}, arrays, str(tmp_path),
+                     timeout=1200, device="cuda")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    one = Trainer(port_config(fit), device="cuda")
+    state = one.fit(one.init_state(), [
+        {"image": arrays[f"batch{i}/image"],
+         "label": arrays[f"batch{i}/label"]} for i in range(steps)],
+        num_steps=steps)
+    one_losses = np.array([r["loss"] for r in one.records
+                           if r["event"] == "train"])
+    one_stats = {k: v.cpu() for k, v in state.batch_stats.items()}
+    r0 = outs[0]
+    stat_err = {k: _rel_l2(torch.from_numpy(r0[f"fit/stats/{k}"]), v)
+                for k, v in one_stats.items()}
+    loss_err = float(np.abs(r0["fit/loss"] / one_losses - 1).max())
+    timed = {
+        "device": str(r0["timed/device"]),
+        "local_batch": int(r0["timed/local_batch"]),
+        "step_ms_median": [float(np.median(o["timed/step_ms"][4:]))
+                           for o in outs],
+        "peak_memory_bytes": [int(o["timed/peak_memory_bytes"])
+                              for o in outs],
+        "losses": r0["timed/loss"].tolist(),
+        "comm_meta": json.loads(str(r0["timed/comm_meta"])),
+        "profile": [json.loads(str(o["timed/profile"])) for o in outs]}
+    timed["images_per_s"] = world * timed["local_batch"] / (
+        max(timed["step_ms_median"]) / 1e3)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    print(json.dumps({"resnet50_four_cards": {
+        "card": card, "losses_group": r0["fit/loss"].tolist(),
+        "losses_one_card": one_losses.tolist(), "loss_rel_err": loss_err,
+        "stat_rel_l2_max": max(stat_err.values()),
+        "stat_rel_l2_worst": sorted(stat_err.items(),
+                                    key=lambda kv: -kv[1])[:5],
+        "comm_meta": json.loads(str(r0["fit/comm_meta"])),
+        "timed": timed}}), flush=True)
+    assert json.loads(str(r0["fit/comm_meta"]))["sharding"] == "zero2"
+    assert len({str(o["fit/stats_sha"]) for o in outs}) == 1
+    assert len({str(o["timed/stats_sha"]) for o in outs}) == 1
+    assert loss_err <= 1e-5
+    assert max(stat_err.values()) <= 1e-5, stat_err
+    for o in outs:
+        assert bool(o["timed/sharded"])
+        assert np.isfinite(o["timed/loss"]).all()
+        assert not o["timed/bad_step"].any()
+    assert timed["comm_meta"]["sharding"] == "zero2"

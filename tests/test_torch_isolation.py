@@ -1,6 +1,7 @@
 """The port (distributed_vgg_f_tpu_torch) stands alone: importing every
-module of it (the stall attribution, the ingest autotuner and the
-snapshot cache included) pulls in no jax, no flax and nothing of the JAX
+module of it (the stall attribution, the ingest autotuner, the
+snapshot cache and the zoo's VGG-16, ResNet and BatchNorm included)
+pulls in no jax, no flax and nothing of the JAX
 package (distributed_vgg_f_tpu), no source file imports them, the scripts that
 run on the card import none of them either, and the entry points refuse
 to run without CUDA unless the caller asks for the CPU."""
@@ -68,7 +69,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
             f"{PORT}.parallel.preempt", f"{PORT}.utils.logging",
             f"{PORT}.train.predict", f"{PORT}.telemetry.stall",
             f"{PORT}.data.autotune",
-            f"{PORT}.data.snapshot_cache"} <= set(mods)
+            f"{PORT}.data.snapshot_cache", f"{PORT}.models.vgg16",
+            f"{PORT}.models.resnet", f"{PORT}.ops.batch_norm"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -218,6 +220,33 @@ def test_explicit_cpu_runs(no_cuda):
     assert bucket == 1 and np.isfinite(probs).all()
 
 
+@pytest.mark.parametrize("model", ["vgg16", "resnet50"])
+def test_zoo_engines_refuse_without_cuda_and_run_on_the_cpu_when_asked(
+        no_cuda, model):
+    from distributed_vgg_f_tpu_torch.serving.engine import build_engine
+    extra = {"stage_sizes": (1,)} if model == "resnet50" else {
+        "block_sizes": (1, 1), "block_features": (4, 8)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_engine(model, 32, 10, (1,), 1, extra=extra)
+    engine = build_engine(model, 32, 10, (1,), 1, device="cpu",
+                          compute_dtype="float32", extra=extra)
+    probs, bucket = engine.run(np.zeros((1, 32, 32, 3), np.uint8))
+    assert bucket == 1 and np.isfinite(probs).all()
+
+
+def test_the_zoo_worker_imports_no_jax():
+    """tests/_torch_zoo_worker.py runs the four-card case on the card's
+    machine."""
+    path = os.path.join(REPO, "tests", "_torch_zoo_worker.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert [n for n in names if forbidden(n)] == []
+
+
 def test_unknown_device_is_refused():
     from distributed_vgg_f_tpu_torch.device import resolve_device
     with pytest.raises(ValueError, match="unsupported device"):
@@ -237,6 +266,25 @@ def test_flagship_probe_imports_no_jax_and_refuses_without_cuda():
     assert [n for n in names if forbidden(n)] == []
     out = subprocess.run([sys.executable, "-m", "tools.torch_flagship_probe",
                           "--part", "hostwait"], cwd=REPO,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 1 and out.stdout == "", out.stderr
+
+
+@pytest.mark.parametrize("tool", ["torch_zoo_probe", "torch_zero2_repeat"])
+def test_card_tools_import_no_jax_and_refuse_without_cuda(tool):
+    """The card's tools run on its machine, where JAX is not installed:
+    they import nothing of it, and without a CUDA device they exit 1
+    before printing anything."""
+    path = os.path.join(REPO, "tools", tool + ".py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert [n for n in names if forbidden(n)] == []
+    out = subprocess.run([sys.executable, "-m", "tools." + tool], cwd=REPO,
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 1 and out.stdout == "", out.stderr

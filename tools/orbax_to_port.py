@@ -15,6 +15,8 @@ arrays are written, in the Flax names and layouts, through the port's
     opt/trace/<layer>/<leaf>   or one array per parameter
     opt/count                  optax's count (the LR schedule's position)
     step, ema_params/...       the step and the EMA when the run kept one
+    batch_stats/<layer>/<leaf> the BatchNorm statistics (ResNet), and
+    ema_batch_stats/...        their EMA
 
 and the step's `extra` (`examples_seen`, the `opt_layout` receipt, the
 iterator blob) is carried over as it is. A JAX ZeRO-2 state written on
@@ -55,16 +57,14 @@ def _walk(tree: Any, path: tuple = ()):
 def port_arrays(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """A restored JAX TrainState tree (numpy leaves) -> the port's array
     names. Exactly one momentum `trace` and one `count` in the optax
-    state; no batch statistics."""
-    if any(True for _ in _walk(state.get("batch_stats") or {})):
-        raise ValueError("the checkpoint holds batch statistics; the port's "
-                         "models have none")
+    state; the BatchNorm statistics and their EMA as they are."""
     out: Dict[str, np.ndarray] = {
         "step": np.asarray(state["step"], np.int32)}
-    for prefix in ("params", "ema_params"):
+    for prefix in ("params", "ema_params", "batch_stats", "ema_batch_stats"):
         for path, leaf in _walk(state.get(prefix)):
             out["/".join((prefix,) + path)] = np.asarray(leaf)
-    if "params" in out or "ema_params" in out:
+    if any(k in out for k in ("params", "ema_params", "batch_stats",
+                               "ema_batch_stats")):
         raise ValueError("the checkpoint's params are not a tree (ZeRO-3 "
                          "flat params are not ported)")
     traces = [(p, leaf) for p, leaf in _walk(state["opt_state"])
