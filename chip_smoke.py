@@ -17,8 +17,10 @@ Phases, one JSON line each:
   kernel    the LRN forward kernel, unfused and with the ReLU fused,
             against its plain PyTorch versions on the card, in bf16 and
             fp32: the vector variant at the served path's shapes (buckets
-            1 and 32), the training batch 1024 (bf16) and C = 8 … 256 at
-            radius 0–4, the general variant at odd shapes; each record
+            1 and 32; the student tier's 32 and 128 channels too), the
+            training batch 1024 (bf16), the distillation tool's shapes
+            and C = 8 … 256 at radius 0–4, the general variant at odd
+            shapes; each record
             names its variant and shows that the fused kernel gives the
             unfused kernel's bits on F.relu(z) (z with exact zeros) and
             that two launches give the same bits. At buckets 1, 32 and
@@ -29,7 +31,7 @@ Phases, one JSON line each:
             against the unfused kernel's on F.relu(z) then the ReLU's
             threshold_backward), timed at both sites' shapes at batch 32
             and the training batch 1024 (library: the autograd backward of
-            F.local_response_norm)
+            F.local_response_norm), checked at the distillation tool's
   profile   torch.profiler over served forwards at buckets 1 and 32:
             device time by kernel, LRN share, device idle share
   model     full-width VGG-F (224 px, 1000 classes, bf16 compute, seeded
@@ -42,6 +44,32 @@ Phases, one JSON line each:
             sequential u8 POSTs, a bad-size POST; kernel launch counts are
             zeroed just before and read just after (every LRN launch of
             the vector variant)
+  serve_tiers the tier ladder on the flagship (bf16 compute): the base
+            route ("fp32": the model at its compute dtype), bf16 (params
+            cast once), int8 (the default calibration of 4 x 8) and a
+            seeded vggf_student behind one server; every bucket warmed,
+            4 POSTs a tier each bit-equal to the tier's engine.run (cuDNN
+            deterministic); relative logit gaps: the route and the
+            student against the CPU forward of their weights, bf16 and
+            int8 against the route, int8 compacted against the dense
+            heads with and without its elision (with both paths' int8
+            codes); forward ms at buckets 1 and 32, resident bytes
+            beside hbm_estimate_bytes, LRN launches by tier (all
+            vector); then the admission controller under 3 s of 96
+            closed-loop clients (windows of 0.1 s, queue of 32): its
+            windows, verdicts and moves, each replayed through a fresh
+            controller, and the window back at its baseline once quiet;
+            and, recorded only, 160 clients for 6 windows at the
+            preset's queue of 128 and 2 s windows
+  serve_cli `python -m distributed_vgg_f_tpu_torch.cli --mode serve` (tiers
+            on) as a subprocess over the checkpoint of a 2-step fit (batch
+            64), its answers against --mode predict's within the bf16
+            gate, SIGINT ending it with 0, its own LRN counts
+  distill   the distillation tool (vggf_student, 32 px, fp32): 3 steps
+            on the card against the CPU from one start (losses within
+            1e-4 relative), then its `main` for 20 steps and an eval:
+            the npz written, 2 forward and 2 backward LRN launches a
+            step (all vector)
   train_parity one train step of full-width VGG-F (fp32, TF32 off,
             dropout and augment off, batch 2) on the card and on the CPU
             from the same weights and batch: every parameter's gradient,
@@ -263,7 +291,8 @@ Phases, one JSON line each:
             and dispatched kinds, every run's batch 1 equal to its
             reference; 2 + 2 LRN launches a step, all vector
   isolation no jax, flax or JAX-package module was imported (the CLI,
-            preempt, logging and predict modules imported first)
+            preempt, logging, predict, serving tiers and controller,
+            teacher and distillation modules imported first)
   wall      the script's wall seconds
 then the kernels summary line (each flash row with the head dims its
 kernel was checked at), the nvidia-smi line, and as the last line
@@ -448,10 +477,11 @@ def _ptxas_report(logs):
 
 # ------------------------------------------------------------------ phases
 #: LRN variant checks: the vector variant at every lane-group width the
-#: main path's rule gives (C = 8 … 256) and every radius it is built for,
+#: main path's rule gives (C = 8 … 256: 32 is the student's conv1) and
+#: every radius it is built for,
 #: the general variant at odd shapes (C = 5 and 100: no whole 16-byte
 #: vectors; 24: 3 lanes; radius 5: wider than the vector variant's)
-_LRN_VEC_CASES = [((2, 5, 7, c), r) for c in (8, 16, 64, 128, 256)
+_LRN_VEC_CASES = [((2, 5, 7, c), r) for c in (8, 16, 32, 64, 128, 256)
                   for r in range(5)]
 _LRN_GENERAL_CASES = [((3, 7, 9, 5), 2), ((2, 5, 7, 100), 2),
                       ((2, 5, 7, 24), 2), ((2, 5, 7, 64), 5)]
@@ -493,7 +523,16 @@ def phase_kernel(peaks):
     main = [((32, 54, 54, 64), "conv1", 32), ((32, 27, 27, 256), "conv2", 32),
             ((1, 54, 54, 64), "conv1", 1), ((1, 27, 27, 256), "conv2", 1),
             ((1024, 54, 54, 64), "conv1", 1024),
-            ((1024, 27, 27, 256), "conv2", 1024)]
+            ((1024, 27, 27, 256), "conv2", 1024),
+            # the student tier's two sites (vggf_student: 32 and 128
+            # channels) at buckets 1 and 32, and the distillation tool's
+            # (32 px, batch 64)
+            ((32, 54, 54, 32), "student_conv1", 32),
+            ((32, 27, 27, 128), "student_conv2", 32),
+            ((1, 54, 54, 32), "student_conv1", 1),
+            ((1, 27, 27, 128), "student_conv2", 1),
+            ((64, 6, 6, 32), "distill_conv1", None),
+            ((64, 3, 3, 128), "distill_conv2", None)]
     for dtype, rtol in ((torch.bfloat16, 8e-3), (torch.float32, 1e-5)):
         for shape, site, bucket, r, want in _lrn_cases(main):
             if bucket == 1024 and dtype != torch.bfloat16:
@@ -633,6 +672,25 @@ def phase_profile(engine, imgs):
              top_device_us_per_forward=t["top_us"])
 
 
+def _forward_ms(engines, imgs, buckets=(1, 32), reps=10):
+    """Median host ms of engine.run at each bucket (the u8 upload, the
+    forward and the probabilities' download, which waits for the card)
+    for each engine of the mapping, timed in turns: each repetition runs
+    every engine once at each bucket, in the order given and then
+    reversed, so no engine always runs first. Returns engine name ->
+    bucket -> ms."""
+    ts = {name: {str(b): [] for b in buckets} for name in engines}
+    order = list(engines)
+    for rep in range(reps):
+        for name in (order if rep % 2 == 0 else order[::-1]):
+            for b in buckets:
+                t0 = time.perf_counter()
+                engines[name].run(imgs[:b])
+                ts[name][str(b)].append((time.perf_counter() - t0) * 1e3)
+    return {name: {b: statistics.median(v) for b, v in by.items()}
+            for name, by in ts.items()}
+
+
 def phase_model(tree):
     """Full-width VGG-F through build_engine on the flagship ladder, and
     logits held against the CPU forward of the same weights."""
@@ -668,22 +726,10 @@ def phase_model(tree):
     check(bool(np.isfinite(probs).all()), "non-finite probabilities")
     sums_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
     check(sums_err <= 1e-3, f"probabilities sum off 1 by {sums_err}")
-    # steady-state forward time per bucket (host clock around work that
-    # ends in a device sync: u8 upload, forward, probs download)
-    forward_ms = {}
-    for b in engine.buckets:
-        ts = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            engine.run(imgs[:b])
-            ts.append((time.perf_counter() - t0) * 1e3)
-        forward_ms[str(b)] = statistics.median(ts)
+    forward_ms = _forward_ms({"e": engine}, imgs, engine.buckets)["e"]
 
     # reference: the CPU forward (plain LRN, fp32) of the same weights
-    x = torch.from_numpy(((imgs[:2].astype(np.float32)
-                           - np.asarray(cfg.data.mean_rgb, np.float32))
-                          * (np.float32(1.0) / np.asarray(
-                              cfg.data.stddev_rgb, np.float32))))
+    x = _normalized(imgs[:2], cfg.data)
     fp32 = ModelConfig(num_classes=classes, compute_dtype="float32")
     ref_model = load_params(build_model(fp32, image_size=size), tree).eval()
     with torch.no_grad():
@@ -856,6 +902,783 @@ def phase_serve(tree):
     return launches
 
 
+def _logit_gap(got, ref):
+    """The relative logit gap of two (N, classes) arrays of logits or
+    log-probabilities: each row less its mean (which removes the per-row
+    constant softmax drops), then max |got - ref| over the largest
+    |ref|. A scale error of x % in the logits reads as about x %."""
+    g = np.asarray(got, np.float64)
+    r = np.asarray(ref, np.float64)
+    g = g - g.mean(axis=1, keepdims=True)
+    r = r - r.mean(axis=1, keepdims=True)
+    return float(np.abs(g - r).max() / np.abs(r).max())
+
+
+def _normalized(imgs, data):
+    """u8 NHWC images as the CPU reference forward takes them: the fp32
+    finish (mean and stddev of the preset)."""
+    return torch.from_numpy(
+        (imgs.astype(np.float32) - np.asarray(data.mean_rgb, np.float32))
+        * (np.float32(1.0) / np.asarray(data.stddev_rgb, np.float32)))
+
+
+def _int8_paths(base, calib, images):
+    """The int8 heads three ways on one trunk output of `images` (8 at a
+    time, the engine's bucket 8): `mirror`, the tier's own arithmetic
+    (its folded constants, `_quantized_heads`), as probabilities; and two
+    references built apart from it (`quantize_dense` and the
+    calibration's scales, full-width GEMMs), as logits: `elided`, the
+    dense heads with the codes of the channels the tier drops set to 0
+    (what the compacted GEMMs compute, summed in another order), and
+    `dense`, `dense_int8_reference`'s arithmetic (nothing dropped). Per
+    head input: `flips`, the kept codes where mirror and `elided` part (a
+    rounding boundary crossed by a sum in another order) and `flip_step`,
+    the largest such difference; `elided_nonzero`, the codes `dense`
+    holds on dropped channels (inputs above the calibrated range: the
+    elision's cost), and `dense_differ`, the kept codes where `dense`
+    parts from `elided` downstream of them."""
+    from distributed_vgg_f_tpu_torch.data.device_ingest import \
+        make_device_finish
+    from distributed_vgg_f_tpu_torch.serving import tiers as tiers_mod
+    params = tiers_mod._head_tree(base._model)
+    folded, _ = tiers_mod._quantized_heads(params, calib)
+    _, heads = tiers_mod._split_params(params)
+    trunk = tiers_mod._make_trunk(base._model,
+                                  make_device_finish(base._mean, base._std))
+    layers = ("fc6", "fc7", "fc8")
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    def q(h, layer):
+        return torch.clamp(torch.round(h / calib.scales[layer]), -127, 127)
+
+    dense_w, folded_w, keep, dropped = {}, {}, {}, {}
+    for layer in layers:
+        wq, sc = tiers_mod.quantize_dense(heads[layer]["kernel"])
+        dense_w[layer] = (dev(wq.astype(np.float32)
+                              * (calib.scales[layer] * sc)),
+                          dev(np.asarray(heads[layer]["bias"], np.float32)))
+        folded_w[layer] = (dev(folded[layer]["w"]), dev(folded[layer]["b"]))
+        keep[layer] = dev(calib.keep[layer].astype(np.int64))
+        dropped[layer] = torch.ones(calib.widths[layer], dtype=torch.bool,
+                                    device="cuda")
+        dropped[layer][keep[layer]] = False
+    counts = {layer: {"codes": 0, "elided_channels": int(
+        dropped[layer].sum()), "flips": 0, "flip_step": 0.0,
+        "elided_nonzero": 0, "dense_differ": 0} for layer in layers}
+    out = {"mirror": [], "elided": [], "dense": []}
+    with torch.inference_mode():
+        for i in range(0, len(images), 8):
+            x = trunk(torch.from_numpy(images[i:i + 8]).cuda())
+            hm = he = hd = x
+            for layer in layers:
+                qm, qe, qd = q(hm, layer), q(he, layer), q(hd, layer)
+                if layer == "fc6":  # the tier selects fc6's kept inputs
+                    qm = torch.index_select(qm, 1, keep[layer])
+                qe[:, dropped[layer]] = 0.0
+                kept_e = torch.index_select(qe, 1, keep[layer])
+                step = (qm - kept_e).abs()
+                c = counts[layer]
+                c["codes"] += int(qd.numel())
+                c["flips"] += int((step != 0).sum())
+                c["flip_step"] = max(c["flip_step"], float(step.max()))
+                c["elided_nonzero"] += int((qd[:, dropped[layer]] != 0)
+                                           .sum())
+                c["dense_differ"] += int((torch.index_select(
+                    qd, 1, keep[layer]) != kept_e).sum())
+                hm = qm @ folded_w[layer][0] + folded_w[layer][1]
+                he = qe @ dense_w[layer][0] + dense_w[layer][1]
+                hd = qd @ dense_w[layer][0] + dense_w[layer][1]
+                if layer != "fc8":
+                    hm, he, hd = torch.relu(hm), torch.relu(he), \
+                        torch.relu(hd)
+            out["mirror"].append(torch.softmax(hm.float(), dim=-1))
+            out["elided"].append(he)
+            out["dense"].append(hd)
+    return counts, {k: torch.cat(v).float().cpu().numpy()
+                    for k, v in out.items()}
+
+
+#: The int8 tier's gates in phase serve_tiers, at about 3-10x the
+#: readings PERF.md records for it (seeded weights and images, so a
+#: rerun reads the same up to cuDNN's choice of algorithms). Relative
+#: logit gaps (`_logit_gap`): against the base route, the noise of three
+#: int8 heads (read 3.7e-2); against the dense heads with the tier's
+#: elision, the same function summed in another order, where one code
+#: crossing a rounding boundary reads 5e-4 (none: 1e-6), so a scale off
+#: by 1 % fails; against the dense reference, the elision's cost, by
+#: stream (read 5.2e-3 on the calibration stream, 2.4e-2 past it).
+#: Codes: at most this share of them cross a boundary (read 1 of
+#: 557,056), by one step; on the calibration stream no fc6 input is
+#: nonzero on a dropped channel (the trunk that set the ranges) and at
+#: most this share of the fc7 and fc8 inputs is (read 14 of 262,144:
+#: their ranges came from unquantized inputs, as in the JAX package)
+_INT8_ROUTE_GAP = 0.1
+_INT8_ELIDED_GAP = 5e-3
+_INT8_DENSE_GAP = {"calibration": 2e-2, "seed99": 0.1}
+_INT8_FLIPS = 1e-4
+_INT8_CALIBRATION_ELIDED = 1e-3
+
+
+class _KnobOnly:
+    """The admission-window surface of a batcher, for replaying a
+    controller's recorded windows."""
+
+    def __init__(self, window_ms, queue_limit):
+        self.window_ms = int(window_ms)
+        self.queue_limit = int(queue_limit)
+
+    def set_window_ms(self, ms):
+        self.window_ms = max(1, int(ms))
+        return self.window_ms
+
+
+def _controller_burst(base, serving, *, queue_limit, interval_s, seconds,
+                      clients, checked):
+    """Part (c) of phase serve_tiers: a server over the warm base engine
+    with the admission controller on (windows of `interval_s`, a queue of
+    `queue_limit`, the serving defaults' hysteresis), `clients`
+    closed-loop clients POSTing for `seconds`, then quiet until the
+    window is back at its baseline (30 s at most). Every window's
+    verdict, stats and move are recorded, and replayed through a fresh
+    controller, which must make the same verdicts and moves. `checked`:
+    the burst must also have widened the window and the quiet brought it
+    back (else the windows are only recorded). Returns (record, LRN
+    launches, flushes)."""
+    import dataclasses
+
+    from distributed_vgg_f_tpu_torch import telemetry
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.serving.controller import \
+        AdmissionController
+    from distributed_vgg_f_tpu_torch.serving.server import PredictServer
+    cfg = dataclasses.replace(serving, controller=True, warmup=False,
+                              queue_limit=queue_limit,
+                              controller_interval_s=interval_s)
+    server = PredictServer(cfg)
+    server.add_engine(base)
+    key = (base.model_name, base.tier)
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (base.image_size, base.image_size, 3)
+                       ).astype(np.uint8)
+    statuses, stop = [], threading.Event()
+    lock = threading.Lock()
+    before = lrn_cuda.LAUNCHES, lrn_cuda.VEC_LAUNCHES
+    port = server.start()
+
+    def client():
+        while not stop.is_set():
+            try:
+                code = _post(port, img)[0]
+            except urllib.error.HTTPError as e:
+                e.read()
+                code = e.code
+            with lock:
+                statuses.append(code)
+
+    try:
+        threads = [threading.Thread(target=client) for _ in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(seconds)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        check(not any(t.is_alive() for t in threads), "burst clients hung")
+        burst_s = time.perf_counter() - t0
+        widest = max(r["records"][key]["window_ms"]
+                     for r in list(server.window_log))
+        deadline = time.perf_counter() + 30
+        while server.batcher(*key).window_ms != int(cfg.max_latency_ms) \
+                and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        quiet_s = time.perf_counter() - t0 - burst_s
+        window_now = server.batcher(*key).window_ms
+        flushes = sum(server.batcher(*key).describe()[
+            "bucket_occupancy"].values())
+    finally:
+        server.close()
+    torch.cuda.synchronize()
+    launches = lrn_cuda.LAUNCHES - before[0]
+    vec = lrn_cuda.VEC_LAUNCHES - before[1]
+    windows = [r["records"][key] for r in list(server.window_log)]
+    check(windows and list(server.window_log)[0]["window"] == 1,
+          "the controller's window log lost its first windows")
+    # the replay: the same verdicts and moves from the recorded evidence
+    fake = _KnobOnly(cfg.max_latency_ms, cfg.queue_limit)
+    fresh = AdmissionController(cfg, fake,
+                                registry=telemetry.TelemetryRegistry())
+    moves = []
+    for i, rec in enumerate(windows):
+        again = fresh.observe_window(dict(rec["stats"]))
+        got = [(a["from"], a["to"]) for a in again.get("actuations", [])]
+        want = [(a["from"], a["to"]) for a in rec.get("actuations", [])]
+        check(again["serving_verdict"] == rec["serving_verdict"]
+              and got == want and fake.window_ms == rec["window_ms"],
+              f"window {i + 1}: replay {again['serving_verdict']} {got} "
+              f"-> {fake.window_ms}, recorded {rec['serving_verdict']} "
+              f"{want} -> {rec['window_ms']}")
+        moves += [(i + 1, *m) for m in want]
+    ups = [m for m in moves if m[2] > m[1]]
+    seen = "".join(w["serving_verdict"][0] for w in windows)
+    if checked:
+        check(ups, f"no window was widened under the burst ({len(windows)} "
+              f"windows, verdicts {seen}: q pressure, s steady)")
+        check(window_now == int(cfg.max_latency_ms),
+              f"window {window_now} ms, not back at its baseline "
+              f"{cfg.max_latency_ms} ms 30 s after the burst")
+    check(launches == 2 * flushes and vec == launches,
+          f"burst: {launches} LRN launches ({vec} vector) for {flushes} "
+          "forwards")
+    return {"checked": checked, "clients": clients, "burst_s": burst_s,
+            "quiet_s": quiet_s, "window_at_end_ms": window_now,
+            "pressure_at_queue": cfg.queue_pressure_fraction
+            * cfg.queue_limit,
+            "requests": len(statuses),
+            "statuses": {str(c): statuses.count(c) for c in set(statuses)},
+            "queue_limit": cfg.queue_limit,
+            "interval_s": cfg.controller_interval_s,
+            "k_windows": cfg.controller_k_windows,
+            "cooldown_windows": cfg.controller_cooldown_windows,
+            "relax_after_windows": cfg.controller_relax_after_windows,
+            "windows": len(windows),
+            "verdicts": [w["serving_verdict"] for w in windows],
+            "queue_peaks": [w["stats"]["queue_peak"] for w in windows],
+            "sheds": [w["stats"]["shed"] for w in windows],
+            "window_ms": [w["window_ms"] for w in windows],
+            "moves": moves, "widest_ms": widest,
+            "replayed": True, "flushes": flushes}, launches, flushes
+
+
+def phase_serve_tiers(tree):
+    """The serving tier ladder on the flagship at full width (224 px, 1000
+    classes, bf16 compute, seeded weights): (a) the base engine (the
+    "fp32" route: the model at its compute dtype, bf16 here) and its
+    bf16, int8 (the default calibration, 4 batches of 8) and student
+    (a seeded vggf_student, bf16) tiers built, each engine's resident
+    device bytes measured beside its hbm_estimate_bytes; every bucket of
+    each warmed as the server registers it, then 4 POSTs to each tier in
+    turn (`?tier=`), each answer bit-equal to that tier's own engine.run
+    (cuDNN deterministic); LRN launch counts zeroed before the builds and
+    read after the POSTs, by tier (2 a forward, all of the vector
+    variant: the student's 32 and 128 channels too); (b) each comparison
+    a relative logit gap (`_logit_gap`): the base route and the student
+    against the CPU forward of their weights (fp32, plain LRN; the bf16
+    gate, 2e-2), bf16 and int8 against the base route at bucket 32 (with
+    top-1 agreement), int8 compacted (the engine) against the port's
+    dense int8 reference on the calibration stream and on 8 images past
+    it (TF32 off), with and without the tier's elision, and the int8
+    codes of each path at each head input (`_int8_paths`); forward ms at
+    buckets 1 and 32 (the tiers timed in turns) and the peak device bytes
+    of a bucket-32 forward for each tier; (c) the admission controller
+    under a burst, at the cut setting (checked) and at the preset's
+    (recorded: `_controller_burst`).
+    Returns the LRN launches of (a) and (c)."""
+    import dataclasses
+
+    from distributed_vgg_f_tpu_torch import telemetry
+    from distributed_vgg_f_tpu_torch.config import (ModelConfig,
+                                                    ServingTiersConfig,
+                                                    get_config)
+    from distributed_vgg_f_tpu_torch.models.registry import build_model
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.serving import tiers as tiers_mod
+    from distributed_vgg_f_tpu_torch.serving.engine import PredictEngine
+    from distributed_vgg_f_tpu_torch.serving.server import PredictServer
+    from distributed_vgg_f_tpu_torch.weights import init_params, load_params
+    cfg = get_config("vggf_imagenet_dp")
+    size, classes = cfg.data.image_size, cfg.model.num_classes
+    serving = dataclasses.replace(
+        cfg.serving, enabled=True, controller=False, warmup=True,
+        tiers=ServingTiersConfig(enabled=True))
+    reg = telemetry.get_registry()
+    reg.reset()
+    scfg = ModelConfig(name="vggf_student", num_classes=classes,
+                       compute_dtype=cfg.model.compute_dtype)
+    student_tree = init_params(scfg, 1, image_size=size)
+    student_model = load_params(build_model(scfg, image_size=size),
+                                student_tree)
+    base_model = load_params(build_model(cfg.model, image_size=size), tree)
+    rng = np.random.default_rng(2)
+    imgs = rng.integers(0, 256, (32, size, size, 3)).astype(np.uint8)
+    singles = rng.integers(0, 256, (4, size, size, 3)).astype(np.uint8)
+
+    resident, build_s = {}, {}
+
+    def built(tier, make):
+        torch.cuda.synchronize()
+        m0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        eng = make()
+        torch.cuda.synchronize()
+        resident[tier] = torch.cuda.memory_allocated() - m0
+        build_s[tier] = time.perf_counter() - t0
+        return eng
+
+    lrn_cuda.LAUNCHES = lrn_cuda.VEC_LAUNCHES = 0
+    base = built("fp32", lambda: PredictEngine(
+        model_name="vggf", model=base_model, image_size=size,
+        num_classes=classes, buckets=serving.buckets,
+        max_batch=serving.max_batch, image_dtype=cfg.data.image_dtype,
+        mean_rgb=cfg.data.mean_rgb, stddev_rgb=cfg.data.stddev_rgb,
+        device="cuda"))
+    ladder = {"fp32": base,
+              "bf16": built("bf16", lambda: tiers_mod.build_bf16_engine(base)),
+              "int8": built("int8", lambda: tiers_mod.build_int8_engine(
+                  base, tiers_cfg=serving.tiers))}
+    calib = ladder["int8"].calibration
+    calib_launches = lrn_cuda.LAUNCHES
+    check(calib_launches == 2 * calib.batches,
+          f"calibration of {calib.batches} batches launched the LRN kernel "
+          f"{calib_launches} times")
+    ladder["student"] = built(
+        "student", lambda: tiers_mod.build_student_engine(
+            base, student_model=student_model))
+    check(ladder["student"].served_by == "vggf_student"
+          and all(e.tier == t for t, e in ladder.items()),
+          "tier engines mislabelled")
+
+    server = PredictServer(serving)
+    by_tier = {}
+    with cudnn_deterministic():
+        for tier in tiers_mod.TIERS:
+            n0 = lrn_cuda.LAUNCHES
+            server.add_engine(ladder[tier])
+            torch.cuda.synchronize()
+            check(sorted(ladder[tier].compile_log)
+                  == list(ladder[tier].buckets),
+                  f"{tier}: warm buckets {sorted(ladder[tier].compile_log)}")
+            by_tier[tier] = {"warmup": lrn_cuda.LAUNCHES - n0}
+        port = server.start()
+        bodies = {}
+        try:
+            for tier in tiers_mod.TIERS:
+                n0 = lrn_cuda.LAUNCHES
+                bodies[tier] = []
+                for img in singles:
+                    req = urllib.request.Request(
+                        f"http://127.0.0.1:{port}/v1/predict/vggf?tier="
+                        f"{tier}&k={classes}", data=img.tobytes(),
+                        method="POST")
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        body = json.loads(r.read())
+                    check(r.status == 200 and body["tier"] == tier
+                          and body["bucket"] == 1,
+                          f"{tier} POST {r.status} {body.get('tier')}")
+                    bodies[tier].append(body)
+                torch.cuda.synchronize()
+                by_tier[tier]["served"] = lrn_cuda.LAUNCHES - n0
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/v1/models", timeout=60) as r:
+                table = json.loads(r.read())["models"]["vggf"]
+        finally:
+            server.close()
+        torch.cuda.synchronize()
+        launches, vec = lrn_cuda.LAUNCHES, lrn_cuda.VEC_LAUNCHES
+        # each tier's answers against its own engine.run (not counted)
+        for tier in tiers_mod.TIERS:
+            for img, body in zip(singles, bodies[tier]):
+                probs, _ = ladder[tier].run(img[None])
+                served = {r["class"]: r["prob"] for r in body["top_k"]}
+                check(all(served[c] == float(p)
+                          for c, p in enumerate(probs[0])),
+                      f"{tier}: served probabilities differ from its "
+                      "engine.run")
+    check(sorted(table["tiers"]) == sorted(tiers_mod.TIERS),
+          f"/v1/models tiers {sorted(table['tiers'])}")
+    forwards = calib.batches + sum(
+        len(e.buckets) for e in ladder.values()) + 4 * len(ladder)
+    check(launches == 2 * forwards and vec == launches,
+          f"{launches} LRN launches ({vec} vector) for {forwards} forwards")
+    for tier, n in by_tier.items():
+        check(n == {"warmup": 2 * len(ladder[tier].buckets), "served": 8},
+              f"{tier}: LRN launches {n}")
+
+    # (b) every comparison as a relative logit gap (`_logit_gap`): the
+    # served probabilities' logs against the reference's logits.
+    # The base route and the student against the CPU forward of their
+    # weights (fp32, plain LRN) within the bf16 gate, as phase model
+    # holds the model; bf16 and int8 against the base route
+    x = _normalized(imgs[:2], cfg.data)
+    on_cpu = {}
+    for tier, mcfg, weights in (("fp32", cfg.model, tree),
+                                ("student", scfg, student_tree)):
+        ref_model = load_params(build_model(dataclasses.replace(
+            mcfg, compute_dtype="float32"), image_size=size), weights).eval()
+        with torch.no_grad():
+            want = ref_model(x).numpy()
+        probs, _ = ladder[tier].run(imgs[:2])
+        gap = _logit_gap(np.log(probs), want)
+        on_cpu[tier] = {"logit_gap": gap, "tolerance": 2e-2,
+                        "top1_agree": float(np.mean(
+                            probs.argmax(1) == want.argmax(1)))}
+        check(bool(np.isfinite(probs).all()) and gap <= 2e-2,
+              f"{tier} tier off the CPU forward of its weights: logit gap "
+              f"{gap}")
+        del ref_model
+    ref, _ = base.run(imgs)
+    against = {}
+    for tier, tol in (("bf16", 2e-2), ("int8", _INT8_ROUTE_GAP)):
+        probs, _ = ladder[tier].run(imgs)
+        gap = _logit_gap(np.log(probs), np.log(ref))
+        against[tier] = {
+            "logit_gap": gap, "tolerance": tol,
+            "max_abs_prob_err": float(np.abs(probs - ref).max()),
+            "largest_prob": float(ref.max()),
+            "top1_agree": float(np.mean(probs.argmax(1) == ref.argmax(1)))}
+        check(bool(np.isfinite(probs).all()) and gap <= tol,
+              f"{tier} off the fp32 route: logit gap {gap} > {tol}")
+    # int8 compacted (the served engine) against two references built
+    # apart from it (`_int8_paths`), on the calibration stream itself and
+    # on 8 images past it (seed 99): the dense heads with the tier's
+    # elision (the same function summed in another order) and without
+    # it (the dense int8 reference: the elision's cost)
+    dense_cmp = {}
+    for name, cal in (
+            ("calibration", tiers_mod.calibration_images(
+                size, batches=calib.batches, batch_size=calib.batch_size,
+                seed=calib.seed)),
+            ("seed99", tiers_mod.calibration_images(
+                size, batches=1, batch_size=8, seed=99))):
+        compacted = np.concatenate([
+            ladder["int8"].run(cal[i:i + 8])[0]
+            for i in range(0, len(cal), 8)])
+        codes, paths = _int8_paths(base, calib, cal)
+        rec = {"images": int(len(cal)),
+               "mirror_max_abs_prob_err": float(np.abs(
+                   compacted - paths["mirror"]).max()),
+               "elided_logit_gap": _logit_gap(np.log(compacted),
+                                              paths["elided"]),
+               "elided_tolerance": _INT8_ELIDED_GAP,
+               "dense_logit_gap": _logit_gap(np.log(compacted),
+                                             paths["dense"]),
+               "dense_tolerance": _INT8_DENSE_GAP[name],
+               "dense_max_abs_prob_err": float(np.abs(
+                   compacted - torch.softmax(torch.from_numpy(
+                       paths["dense"]), -1).numpy()).max()),
+               "codes": codes}
+        dense_cmp[name] = rec
+        # the mirror is the tier's own arithmetic: it must be the engine
+        check(rec["mirror_max_abs_prob_err"] <= 1e-6,
+              f"int8 mirror off the engine on {name}: "
+              f"{rec['mirror_max_abs_prob_err']}")
+        flips = sum(c["flips"] for c in codes.values())
+        check(all(c["flip_step"] <= 1 for c in codes.values())
+              and flips <= _INT8_FLIPS * sum(c["codes"]
+                                             for c in codes.values())
+              and rec["elided_logit_gap"] <= _INT8_ELIDED_GAP,
+              f"int8 compacted off the dense heads with its elision on "
+              f"{name}: logit gap {rec['elided_logit_gap']} > "
+              f"{_INT8_ELIDED_GAP} or codes {codes}")
+        check(rec["dense_logit_gap"] <= _INT8_DENSE_GAP[name],
+              f"int8 compacted off its dense reference on {name}: logit "
+              f"gap {rec['dense_logit_gap']} > {_INT8_DENSE_GAP[name]}; "
+              f"codes {codes}")
+        if name == "calibration":
+            later = [codes[k] for k in ("fc7", "fc8")]
+            check(codes["fc6"]["elided_nonzero"] == 0
+                  and sum(c["elided_nonzero"] for c in later)
+                  <= _INT8_CALIBRATION_ELIDED * sum(c["codes"]
+                                                    for c in later),
+                  f"int8 elision on its own calibration stream: {codes}")
+    rows = {}
+    in_turns = _forward_ms(ladder, imgs)
+    for tier, eng in ladder.items():
+        forward_ms = in_turns[tier]
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng.run(imgs)
+        torch.cuda.synchronize()
+        rows[tier] = {
+            "served_by": eng.served_by, "build_s": build_s[tier],
+            "forward_ms": forward_ms,
+            "images_per_s_32": 32 / (forward_ms["32"] / 1e3),
+            "hbm_estimate_bytes": eng.hbm_estimate_bytes,
+            "resident_bytes": resident[tier],
+            "forward32_peak_extra_bytes":
+                torch.cuda.max_memory_allocated() - m0,
+            "warmup_s": {str(b): s for b, s in
+                         sorted(eng.compile_log.items())},
+            "lrn_launches": by_tier[tier]}
+    # the cut setting, where the front end can fill the queue: checked
+    burst, burst_launches, _ = _controller_burst(
+        base, serving, queue_limit=32, interval_s=0.1, seconds=3.0,
+        clients=96, checked=True)
+    # the preset's queue and windows, 160 clients for 6 windows: recorded
+    preset, preset_launches, _ = _controller_burst(
+        base, serving, queue_limit=serving.queue_limit,
+        interval_s=serving.controller_interval_s,
+        seconds=6 * serving.controller_interval_s, clients=160,
+        checked=False)
+    emit("serve_tiers", model="vggf", image_size=size, num_classes=classes,
+         base_compute_dtype=cfg.model.compute_dtype,
+         student_compute_dtype=scfg.compute_dtype,
+         buckets=list(base.buckets), calibration=calib.receipt(),
+         tiers=rows, against_cpu=on_cpu, against_fp32=against,
+         int8_against_dense=dense_cmp,
+         served_bit_equal=True, lrn_launches=launches,
+         lrn_vec_launches=vec, calibration_launches=calib_launches,
+         controller=burst, burst_lrn_launches=burst_launches,
+         controller_at_preset=preset,
+         preset_burst_lrn_launches=preset_launches)
+    del ladder, base, server, student_model, base_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches + burst_launches + preset_launches
+
+
+#: The serving process of phase serve_cli: the console's `--mode serve`
+#: run as __main__, reporting its LRN launch counts when it exits.
+_SERVE_MAIN = (
+    "import atexit, json, runpy, sys\n"
+    "from distributed_vgg_f_tpu_torch.ops import lrn_cuda\n"
+    "atexit.register(lambda: print('LRN ' + json.dumps({\n"
+    "    'launches': lrn_cuda.LAUNCHES,\n"
+    "    'vec_launches': lrn_cuda.VEC_LAUNCHES}), flush=True))\n"
+    "sys.argv = ['distributed_vgg_f_tpu_torch.cli'] + sys.argv[1:]\n"
+    "runpy.run_module('distributed_vgg_f_tpu_torch.cli', "
+    "run_name='__main__')\n")
+
+
+def phase_serve_cli():
+    """`python -m distributed_vgg_f_tpu_torch.cli --mode serve` as a user
+    starts it, over a checkpoint of the flagship at full width: (a) a
+    short fit of its own (2 steps on seeded u8 batches of 64, bf16,
+    Trainer.fit with a checkpoint directory; cut from the preset's 1024
+    for time), then --mode predict on 4 .npy u8 images in this process;
+    (b) the server as a subprocess with serving.enabled and
+    serving.tiers.enabled (so bf16 and int8 are built from the
+    checkpoint), started through runpy so it reports its own LRN counts
+    as it exits: it prints `serving on HOST:PORT`; the 4 images POSTed
+    one at a time (the fp32 route) agree with predict's probabilities
+    within PERF.md's bf16 gate (2e-2 of the largest) and in top-1, one
+    POST each to the bf16 and int8 tiers answers 200, /v1/models lists the
+    ladder; SIGINT ends it with 0 and its serving_start record carries
+    the ladder. Returns the LRN launches of the serving process."""
+    import contextlib
+    import dataclasses
+    import io
+    import signal
+
+    from distributed_vgg_f_tpu_torch import cli
+    from distributed_vgg_f_tpu_torch.config import parse_cli
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    root = tempfile.mkdtemp(prefix="serve_cli_")
+    ck = os.path.join(root, "ck")
+    sets = ["--config", "vggf_imagenet_dp", "--set", "data.name=synthetic",
+            "--set", "data.global_batch_size=64", "--set",
+            f"train.checkpoint_dir={ck}", "--set", "train.steps=2",
+            "--set", "train.checkpoint_every_steps=2"]
+    try:
+        cfg = parse_cli(sets)
+        size = cfg.data.image_size
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg)
+        trainer.fit(trainer.init_state(0))
+        fit_s = time.perf_counter() - t0
+        check(trainer.checkpoints.latest_step() == 2,
+              f"the fit saved step {trainer.checkpoints.latest_step()}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(4)
+        imgs = rng.integers(0, 256, (4, size, size, 3)).astype(np.uint8)
+        npys = []
+        for i, img in enumerate(imgs):
+            npys.append(os.path.join(root, f"img{i}.npy"))
+            np.save(npys[-1], img)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(sets + ["--mode", "predict", "--images", *npys])
+        predicted = [json.loads(line) for line in out.getvalue().splitlines()
+                     if line.startswith("{")]
+        check(len(predicted) == len(npys),
+              f"predict printed {len(predicted)} records")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        serve = sets + ["--mode", "serve", "--set", "serving.enabled=true",
+                        "--set", "serving.tiers.enabled=true"]
+        err_path = os.path.join(root, "serve.stderr")
+        t0 = time.perf_counter()
+        with open(err_path, "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", _SERVE_MAIN, *serve],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=err, text=True)
+        lines = []
+        reader = threading.Thread(
+            target=lambda: [lines.append(x.strip()) for x in proc.stdout],
+            daemon=True)
+        reader.start()
+        try:
+            deadline = time.perf_counter() + 300
+            while not any(x.startswith("serving on ") for x in lines):
+                check(proc.poll() is None and time.perf_counter() < deadline,
+                      "the server printed no 'serving on' line: "
+                      + open(err_path).read()[-2000:])
+                time.sleep(0.05)
+            start_s = time.perf_counter() - t0
+            endpoint = next(x for x in lines
+                            if x.startswith("serving on ")).split()[-1]
+            served, latency, errs = [], [], []
+            for img, rec in zip(imgs, predicted):
+                t1 = time.perf_counter()
+                req = urllib.request.Request(
+                    f"http://{endpoint}/v1/predict/vggf?k=1000",
+                    data=img.tobytes(), method="POST")
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    body = json.loads(r.read())
+                latency.append((time.perf_counter() - t1) * 1e3)
+                check(body["tier"] == "fp32" and body["bucket"] == 1,
+                      f"served {body.get('tier')} bucket {body.get('bucket')}")
+                probs = {e["class"]: e["prob"] for e in body["top_k"]}
+                want = {e["class"]: e["prob"] for e in rec["top_k"]}
+                top = max(want.values())
+                errs.append(max(abs(probs[c] - p) for c, p in want.items()))
+                served_top1 = body["top_k"][0]["class"]
+                check(errs[-1] <= 2e-2 * top and (
+                    served_top1 == rec["top_k"][0]["class"]
+                    or abs(probs[served_top1] - top) <= 2e-2 * top),
+                      f"served probabilities off predict's by {errs[-1]} "
+                      f"(largest {top}), top-1 {served_top1} against "
+                      f"{rec['top_k'][0]['class']}")
+                served.append(body)
+            for tier in ("bf16", "int8"):
+                req = urllib.request.Request(
+                    f"http://{endpoint}/v1/predict/vggf?tier={tier}",
+                    data=imgs[0].tobytes(), method="POST")
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    body = json.loads(r.read())
+                check(r.status == 200 and body["tier"] == tier,
+                      f"{tier} POST {r.status} {body.get('tier')}")
+            with urllib.request.urlopen(f"http://{endpoint}/v1/models",
+                                        timeout=60) as r:
+                table = json.loads(r.read())["models"]["vggf"]
+            check(sorted(table["tiers"]) == ["bf16", "fp32", "int8"],
+                  f"/v1/models tiers {sorted(table['tiers'])}")
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+            stop_s = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        reader.join(timeout=30)
+        check(rc == 0, f"serve exited {rc}: " + open(err_path).read()[-2000:])
+        counts = json.loads(next(x for x in lines
+                                 if x.startswith("LRN "))[4:])
+        tiers_cfg = cfg.serving.tiers
+        forwards = tiers_cfg.calibration_batches + 3 * len(
+            table["buckets"]) + len(imgs) + 2
+        check(counts["launches"] == 2 * forwards
+              and counts["vec_launches"] == counts["launches"],
+              f"serving process LRN launches {counts} for {forwards} "
+              "forwards")
+        with open(os.path.join(ck, "metrics.jsonl")) as f:
+            starts = [json.loads(x) for x in f
+                      if '"serving_start"' in x]
+        check(len(starts) == 1 and sorted(starts[0]["ladder"]["vggf"])
+              == ["bf16", "fp32", "int8"],
+              f"serving_start records {starts}")
+        ladder = starts[0]["ladder"]["vggf"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("serve_cli", fit_s=fit_s, fit_batch=cfg.data.global_batch_size,
+         fit_steps=2, server_start_s=start_s, endpoint=endpoint,
+         predict_max_abs_err=max(errs),
+         tolerance="2e-2 x the largest probability",
+         latency_ms=latency, sigint_to_exit_s=stop_s, exit_code=rc,
+         lrn_launches=counts["launches"],
+         lrn_vec_launches=counts["vec_launches"],
+         ladder_hbm_estimate_bytes={t: r["hbm_estimate_bytes"]
+                                    for t, r in ladder.items()},
+         ladder_warmup_s={t: r["warmup_s"] for t, r in ladder.items()})
+    return counts["launches"]
+
+
+def phase_distill():
+    """The distillation tool on the card (vggf_student, 32 px, 10
+    classes, batch 64, fp32, TF32 off): (a) 3 steps of train_distilled at
+    dropout 0 from one seeded start on the card and on the CPU, the
+    losses within 1e-4 relative; (b) the tool as a user runs it (`python
+    -m distributed_vgg_f_tpu_torch.train.distill`), here through its
+    `main` (20 steps, 256 eval images): its npz written and read back,
+    the final loss finite, the LRN launch counts zeroed just before and
+    read just after: 2 forward launches a training step and an eval
+    batch, 2 backward a training step, all of the vector variant (32 and
+    128 channels). Returns (b)'s forward and backward launches."""
+    import contextlib
+    import io
+
+    from distributed_vgg_f_tpu_torch.config import ModelConfig
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.train import distill
+    from distributed_vgg_f_tpu_torch.weights import init_params
+    start = init_params(ModelConfig(name="vggf_student", num_classes=10,
+                                    compute_dtype="float32"), 3,
+                        image_size=32)
+    losses, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        _, hist = distill.train_distilled(
+            "vggf_student", steps=3, log_every=1, dropout_rate=0.0,
+            init_params=start, device=dev)
+        seconds[dev] = time.perf_counter() - t0
+        losses[dev] = [h["loss"] for h in hist]
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(losses["cuda"], losses["cpu"]))
+    check(len(losses["cuda"]) == 3
+          and all(math.isfinite(v) for v in losses["cuda"])
+          and rel <= 1e-4,
+          f"distillation losses on the card {losses['cuda']} against the "
+          f"CPU's {losses['cpu']}: {rel} relative")
+    steps, evals, batch = 20, 256, 64
+    root = tempfile.mkdtemp(prefix="distill_")
+    try:
+        out_path = os.path.join(root, "student.npz")
+        out = io.StringIO()
+        lrn_cuda.LAUNCHES = lrn_cuda.VEC_LAUNCHES = 0
+        lrn_cuda.BWD_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = distill.main(["--steps", str(steps), "--eval-examples",
+                               str(evals), "--batch-size", str(batch),
+                               "--out", out_path])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        fwd, vec = lrn_cuda.LAUNCHES, lrn_cuda.VEC_LAUNCHES
+        bwd, vec_bwd = lrn_cuda.BWD_LAUNCHES, lrn_cuda.VEC_BWD_LAUNCHES
+        printed = [json.loads(x) for x in out.getvalue().splitlines()
+                   if x.startswith("{")]
+        tree = distill.load_params(out_path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    final = printed[-1] if printed else {}
+    check(rc == 0 and final.get("final_loss") is not None
+          and sorted(tree) == sorted(start),
+          f"the distillation tool exited {rc}, printed {final}, wrote "
+          f"layers {sorted(tree)}")
+    want_fwd, want_bwd = 2 * (steps + evals // batch), 2 * steps
+    check(fwd == want_fwd and bwd == want_bwd and vec == fwd
+          and vec_bwd == bwd,
+          f"distillation LRN launches: {fwd} forward ({vec} vector), {bwd} "
+          f"backward ({vec_bwd} vector); expected {want_fwd} and "
+          f"{want_bwd}")
+    emit("distill", model="vggf_student", image_size=32, num_classes=10,
+         batch=batch, parity_steps=3, losses_card=losses["cuda"],
+         losses_cpu=losses["cpu"], loss_max_rel_err=rel,
+         loss_tolerance=1e-4, parity_s=seconds, main_steps=steps,
+         main_eval_images=evals, main_s=main_s,
+         eval_top1=final.get("eval_top1"),
+         final_loss=final.get("final_loss"), lrn_fwd_launches=fwd,
+         lrn_bwd_launches=bwd)
+    return {"fwd": fwd, "bwd": bwd}
+
+
 def phase_kernel_bwd(peaks):
     """LRN backward kernel, both variants, unfused and with the ReLU's
     backward fused, vs the plain backward on the card; returns the
@@ -894,7 +1717,11 @@ def phase_kernel_bwd(peaks):
     main = [((1024, 54, 54, 64), "conv1", 1024),
             ((1024, 27, 27, 256), "conv2", 1024),
             ((32, 54, 54, 64), "conv1", 32),
-            ((32, 27, 27, 256), "conv2", 32)]
+            ((32, 27, 27, 256), "conv2", 32),
+            # the distillation tool's two sites (vggf_student at 32 px,
+            # batch 64), untimed
+            ((64, 6, 6, 32), "distill_conv1", None),
+            ((64, 3, 3, 128), "distill_conv2", None)]
     for dtype, rtol, atol in ((torch.bfloat16, 8e-3, 1e-6),
                               (torch.float32, 1e-5, 1e-5)):
         for shape, site, batch, r, want in _lrn_cases(main):
@@ -3330,21 +4157,11 @@ def phase_zoo_model(name, preset, tmp):
     check(bool(np.isfinite(probs).all()), f"{name} non-finite probabilities")
     sums_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
     check(sums_err <= 1e-3, f"{name} probabilities sum off 1 by {sums_err}")
-    forward_ms = {}
-    for b in engine.buckets:
-        ts = []
-        for _ in range(10):
-            t1 = time.perf_counter()
-            engine.run(imgs[:b])
-            ts.append((time.perf_counter() - t1) * 1e3)
-        forward_ms[str(b)] = statistics.median(ts)
+    forward_ms = _forward_ms({"e": engine}, imgs, engine.buckets)["e"]
     check(_hand_kernel_counts() == before,
           f"{name} launched a hand kernel: {before} -> "
           f"{_hand_kernel_counts()}")
-    x = torch.from_numpy(((imgs[:2].astype(np.float32)
-                           - np.asarray(cfg.data.mean_rgb, np.float32))
-                          * (np.float32(1.0) / np.asarray(
-                              cfg.data.stddev_rgb, np.float32))))
+    x = _normalized(imgs[:2], cfg.data)
     fp32 = ModelConfig(name=name, num_classes=classes,
                        compute_dtype="float32", extra=cfg.model.extra)
     ref_model = load_params(build_model(fp32, image_size=size), tree,
@@ -3651,14 +4468,7 @@ def phase_vit_model(tree):
     check(bool(np.isfinite(probs).all()), "non-finite probabilities")
     sums_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
     check(sums_err <= 1e-3, f"probabilities sum off 1 by {sums_err}")
-    forward_ms = {}
-    for b in engine.buckets:
-        ts = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            engine.run(imgs[:b])
-            ts.append((time.perf_counter() - t0) * 1e3)
-        forward_ms[str(b)] = statistics.median(ts)
+    forward_ms = _forward_ms({"e": engine}, imgs, engine.buckets)["e"]
 
     x = torch.from_numpy(((imgs[:2].astype(np.float32)
                            - np.asarray(cfg.data.mean_rgb, np.float32))
@@ -4665,7 +5475,11 @@ def phase_isolation():
     port = ["distributed_vgg_f_tpu_torch.cli",
             "distributed_vgg_f_tpu_torch.parallel.preempt",
             "distributed_vgg_f_tpu_torch.utils.logging",
-            "distributed_vgg_f_tpu_torch.train.predict"]
+            "distributed_vgg_f_tpu_torch.train.predict",
+            "distributed_vgg_f_tpu_torch.serving.tiers",
+            "distributed_vgg_f_tpu_torch.serving.controller",
+            "distributed_vgg_f_tpu_torch.data.teacher",
+            "distributed_vgg_f_tpu_torch.train.distill"]
     for name in port:
         importlib.import_module(name)
     bad = sorted(m for m in sys.modules
@@ -4733,6 +5547,9 @@ def main() -> int:
                         for a in layer.values())))
     phase_model(tree)
     serve_launches = phase_serve(tree)
+    serve_tiers_launches = phase_serve_tiers(tree)
+    serve_cli_launches = phase_serve_cli()
+    distill_launches = phase_distill()
     phase_train_parity(tree)
     train_launches, train_ref = phase_train()
     zero2_launches = phase_train_zero2(tree, train_ref)
@@ -4768,6 +5585,7 @@ def main() -> int:
     def lrn_sites(recs, key, value):
         # the main path's two sites at one batch, in bf16
         main = [r for r in recs if r[key] == value
+                and r["site"] in ("conv1", "conv2")
                 and r["dtype"] == "bfloat16"]
         check(len(main) == 2 and all(r["variant"] == "vector"
                                      for r in main),
@@ -4786,6 +5604,7 @@ def main() -> int:
                 by_path, work):
         # two sites per pass: the line sums both sites' bf16 records
         main = [r for r in recs if r[key] == value
+                and r["site"] in ("conv1", "conv2")
                 and r["dtype"] == "bfloat16"]
         return {
             "name": name, "route": "cuda", "source": source,
@@ -4884,10 +5703,14 @@ def main() -> int:
     lrn_fwd_row = summary(
         "lrn_fwd", "distributed_vgg_f_tpu_torch/csrc/lrn_fwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records, "bucket", 32,
-        serve_launches + train_launches["fwd"] + zero2_launches["fwd"]
+        serve_launches + serve_tiers_launches + serve_cli_launches
+        + distill_launches["fwd"] + train_launches["fwd"]
+        + zero2_launches["fwd"]
         + feed_launches["fwd"] + ckpt_launches["fwd"] + e2e_launches["fwd"]
         + autotune_launches["fwd"] + snapshot_launches["fwd"],
-        {"serve": serve_launches, "train": train_launches["fwd"],
+        {"serve": serve_launches, "serve_tiers": serve_tiers_launches,
+         "serve_cli": serve_cli_launches,
+         "distill": distill_launches["fwd"], "train": train_launches["fwd"],
          "train_zero2": zero2_launches["fwd"],
          "train_feed": feed_launches["fwd"],
          "train_ckpt": ckpt_launches["fwd"],
@@ -4903,10 +5726,13 @@ def main() -> int:
     lrn_bwd_row = summary(
         "lrn_bwd", "distributed_vgg_f_tpu_torch/csrc/lrn_bwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:74", bwd_records, "batch",
-        1024, train_launches["bwd"] + zero2_launches["bwd"]
+        1024, distill_launches["bwd"] + train_launches["bwd"]
+        + zero2_launches["bwd"]
         + feed_launches["bwd"] + ckpt_launches["bwd"] + e2e_launches["bwd"]
         + autotune_launches["bwd"] + snapshot_launches["bwd"],
-        {"serve": 0, "train": train_launches["bwd"],
+        {"serve": 0, "serve_tiers": 0, "serve_cli": 0,
+         "distill": distill_launches["bwd"],
+         "train": train_launches["bwd"],
          "train_zero2": zero2_launches["bwd"],
          "train_feed": feed_launches["bwd"],
          "train_ckpt": ckpt_launches["bwd"],

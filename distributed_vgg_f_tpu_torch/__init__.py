@@ -6,9 +6,12 @@ numpy only: nothing of JAX, Flax, or the JAX package (tests/
 test_torch_isolation.py pins that in a subprocess).
 
 It serves VGG-F: u8 payloads over HTTP (serving/server.py) through the
-dynamic batcher (serving/batcher.py) into a bucketed engine
+dynamic batcher (serving/batcher.py), its window steered by the
+admission controller (serving/controller.py), into a bucketed engine
 (serving/engine.py) that runs the device finish, the model and an fp32
-softmax (train/predict.py). It trains VGG-F: the core loop
+softmax (train/predict.py), one engine a tier of the ladder
+(serving/tiers.py: bf16, int8 heads, the student that train/distill.py
+distils on the teacher task, data/teacher.py). It trains VGG-F: the core loop
 (train/trainer.py) feeds the train step (train/step.py) from the
 flagship's ImageNet TFRecords through the native decoder (data/
 native_tfrecord.py, data/native_jpeg.py, built by data/native_build.py)
@@ -25,7 +28,7 @@ csrc/lrn_bwd.cu) when the tensor lies on a CUDA device and the plain
 PyTorch versions when it lies on the CPU.
 
 Entry points (`build_engine`, `serve_from_params`, `Trainer`,
-`build_train_step`, ...) default to ``device="cuda"`` and refuse to run
+`build_train_step`, `train_distilled`, ...) default to ``device="cuda"`` and refuse to run
 without a CUDA device; the CPU runs only when a caller passes
 ``device="cpu"`` (device.py).
 """

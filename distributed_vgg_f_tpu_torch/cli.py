@@ -8,6 +8,8 @@ JAX package's `cli.py`, with its modes and `--set` keys:
         --set data.data_dir=/data/imagenet --set train.checkpoint_dir=/ckpt
     python -m distributed_vgg_f_tpu_torch.cli --mode predict \\
         --set train.checkpoint_dir=/ckpt --images a.jpg photos/
+    python -m distributed_vgg_f_tpu_torch.cli --mode serve \\
+        --set train.checkpoint_dir=/ckpt --set serving.enabled=true
     torchrun --nproc_per_node 4 -m distributed_vgg_f_tpu_torch.cli ...
 
 `--config` defaults to the flagship, `vggf_imagenet_dp` (config.py
@@ -16,8 +18,12 @@ scratch) with the validation split as the eval cadence's dataset
 (`eval_dataset_unavailable` logged when there is none), stops cleanly
 on SIGTERM with a forced save, and resumes on the next start; `--mode
 eval` runs one exact pass over the validation split, `--mode predict`
-classifies `--images`; both need a checkpoint. `--mode serve` is not
-ported yet (ROADMAP A11).
+classifies `--images`; both need a checkpoint. `--mode serve` starts the
+predict server over the checkpoint (serving/server.py
+`serve_from_trainer`, with the tier ladder under
+`serving.tiers.enabled=true`), prints ``serving on HOST:PORT`` (port 0
+binds a free one) and serves until SIGINT, then drains and exits 0. It
+needs the double opt-in: the mode and `serving.enabled=true`.
 
 Under `torchrun` (WORLD_SIZE > 1 with MASTER_ADDR, MASTER_PORT and RANK
 set) the process group starts through parallel/distributed.py
@@ -71,10 +77,13 @@ def main(argv: Optional[Sequence[str]] = None, *, device=None) -> None:
 
     cfg, args = parse_cli(argv, with_mode=True)
     mode = args.mode
-    if mode == "serve":
-        raise SystemExit("serve mode is not ported yet: the always-on "
-                         "server from a checkpoint (serve_from_trainer) "
-                         "waits for ROADMAP A11")
+    if mode == "serve" and not cfg.serving.enabled:
+        # the mode names the intent, the config flag arms the server: a
+        # mistyped --mode never starts listening
+        raise SystemExit(
+            "serve mode: serving is disabled — pass "
+            "--set serving.enabled=true (the server is off by "
+            "default; see README 'Serving')")
     started = _start_group(device)
     try:
         jsonl = (os.path.join(cfg.train.checkpoint_dir, "metrics.jsonl")
@@ -95,6 +104,20 @@ def main(argv: Optional[Sequence[str]] = None, *, device=None) -> None:
                         "train.checkpoint_dir to a directory holding "
                         "checkpoints)")
 
+            if mode == "serve":
+                from distributed_vgg_f_tpu_torch.serving.server import \
+                    serve_from_trainer
+                require_checkpoint()
+                server = serve_from_trainer(trainer)
+                # launchers read the bound port from this line
+                print(f"serving on {server.endpoint}", flush=True)
+                try:
+                    server.wait()
+                except KeyboardInterrupt:
+                    pass
+                finally:
+                    server.close()
+                return
             if mode == "predict":
                 from distributed_vgg_f_tpu_torch.train.predict import \
                     run_predict

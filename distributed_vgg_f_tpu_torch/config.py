@@ -6,8 +6,9 @@ Own copies of the parts of the JAX package's `config.py` the port reads:
 the trainer's feed and eval use,
 `MeshConfig` (the gradient exchange: ZeRO-1/2, buckets, the wire),
 `TrainConfig` limited to the fields the step, the core loop, its feed,
-checkpoints, eval cadence, best slot and preemption read, a
-`ServingConfig` limited to the fields the port honours,
+checkpoints, eval cadence, best slot and preemption read,
+`ServingConfig` with its admission controller and `ServingTiersConfig`
+(the tier ladder, `SERVING_TIERS`),
 `resolve_serving_buckets`, the derived `scaled_lr` / `steps_per_epoch` /
 `total_steps`, `supports_space_to_depth` and `zoo_data` (each zoo
 preset's data through its model's ingest descriptor), the
@@ -20,10 +21,10 @@ package's dotted `--set KEY=VALUE` keys and refusals).
 `AutotuneConfig` switches the ingest autotuner on or off;
 `SnapshotCacheConfig` (JAX `config.py:43–75`) the decoded-crop snapshot
 cache behind the train stream (data/snapshot_cache.py).
-Fields of later slices (telemetry, the admission controller, serving
-tiers, elastic resize, ...) are absent until their slice ports
-them: a field the port would accept and ignore is left out instead, and
-a `--set` of one raises, naming its ROADMAP item (`UNPORTED_KEYS`).
+Fields of later slices (telemetry, elastic resize, ...) are absent
+until their slice ports them: a field the port would accept and ignore
+is left out instead, and a `--set` of one raises, naming its ROADMAP
+item (`UNPORTED_KEYS`).
 """
 
 from __future__ import annotations
@@ -337,12 +338,52 @@ def resolve_serving_buckets(buckets: Sequence[int],
     return tuple(sorted(set(out)))
 
 
+#: The serving tier ladder, in descending-fidelity order: the router's
+#: `?tier=` vocabulary (serving/tiers.py `TIERS`).
+SERVING_TIERS = ("fp32", "bf16", "int8", "student")
+
+
+@dataclass(frozen=True)
+class ServingTiersConfig:
+    """Latency-tiered serving (serving/tiers.py): per-tier engines behind
+    the one router — `bf16` (params cast once at build, bf16 activations,
+    fp32 logits), `int8` (per-out-channel symmetric int8 weights of the FC
+    heads, per-tensor activation scales from a calibration pass over the
+    u8 wire; channels below half an activation LSB are elided) and
+    `student` (the half-width `vggf_student` distilled by
+    train/distill.py). `enabled=false` is the kill switch: the router
+    never parses `?tier=`, /v1/models carries no ladder, and the server
+    holds fp32 engines only. JAX's per-tier accuracy contract
+    (`max_top1_delta_*`) is refused (`UNPORTED_KEYS`): nothing reads it
+    until the accuracy receipt (ROADMAP A16)."""
+    # Kill switch: off = fp32-only server.
+    enabled: bool = False
+    # Batches of u8 wire images the int8 calibration pass runs.
+    calibration_batches: int = 4
+    # Images per calibration batch.
+    calibration_batch_size: int = 8
+    # Seed of the calibration stream: part of the calibration receipt, so
+    # a re-run reproduces the ranges.
+    calibration_seed: int = 0
+
+    def __post_init__(self):
+        if self.calibration_batches < 1 or self.calibration_batch_size < 1:
+            raise ValueError(
+                "serving.tiers calibration needs >= 1 batches of >= 1 "
+                f"images, got {self.calibration_batches}/"
+                f"{self.calibration_batch_size}")
+
+
 @dataclass(frozen=True)
 class ServingConfig:
     """The dynamic-batching predict server: a stdlib-HTTP front end fed raw
     u8 payloads, a bounded admission queue with max-latency and max-batch
-    flush, one warm engine geometry per batch bucket, and typed overload
-    behaviour (503 shed, never unbounded latency)."""
+    flush, one warm engine geometry per batch bucket, typed overload
+    behaviour (503 shed, never unbounded latency), an admission controller
+    over the batch window and the tier ladder. Off by default: `--mode
+    serve` refuses to start without `enabled=true`."""
+    # Kill switch of `--mode serve`: off = the CLI starts no server.
+    enabled: bool = False
     # Bind address. Loopback by default: the endpoint is unauthenticated.
     host: str = "127.0.0.1"
     # 0 = OS-assigned free port (start() returns the bound one).
@@ -353,7 +394,8 @@ class ServingConfig:
     # power-of-two ladder 1,2,4,...,max_batch.
     buckets: Sequence[int] = ()
     # Admission window: max milliseconds the OLDEST queued request waits
-    # for company before a partial batch flushes.
+    # for company before a partial batch flushes. The controller's knob
+    # baseline.
     max_latency_ms: float = 10.0
     # Bounded admission queue: arrivals past this depth shed with a 503.
     queue_limit: int = 128
@@ -364,8 +406,35 @@ class ServingConfig:
     # Run every bucket once at add_engine time, so the first request of
     # any shape pays no first-use cost (kernel build, cuDNN planning).
     warmup: bool = True
+    # Admission controller (serving/controller.py: the ingest autotuner
+    # over the batch-window knob, steered by queue-pressure verdicts).
+    controller: bool = True
+    # Hard rails of the controller's admission-window knob (ms).
+    window_min_ms: float = 1.0
+    window_max_ms: float = 100.0   # see window_min_ms
+    # Seconds between controller windows (verdicts and gauges).
+    controller_interval_s: float = 2.0
+    # Consecutive pressure windows before the controller widens the window.
+    controller_k_windows: int = 3
+    # Quiet windows after an actuation before the next may fire.
+    controller_cooldown_windows: int = 2
+    # Sustained steady windows before a controller-raised window steps
+    # back down toward max_latency_ms (0 disables relaxation).
+    controller_relax_after_windows: int = 4
+    # Queue peak (as a fraction of queue_limit) that reads as pressure
+    # even before anything sheds.
+    queue_pressure_fraction: float = 0.5
+    # Tier a request lands on when it carries no `?tier=`. Ignored (fp32)
+    # while serving.tiers.enabled is false.
+    tier_default: str = "fp32"
+    # The latency tier ladder: see ServingTiersConfig.
+    tiers: ServingTiersConfig = field(default_factory=ServingTiersConfig)
 
     def __post_init__(self):
+        if self.tier_default not in SERVING_TIERS:
+            raise ValueError(
+                f"serving.tier_default {self.tier_default!r} not one of "
+                f"{SERVING_TIERS}")
         if self.max_batch < 1:
             raise ValueError(
                 f"serving.max_batch must be >= 1, got {self.max_batch}")
@@ -377,6 +446,35 @@ class ServingConfig:
             raise ValueError(
                 "serving.max_latency_ms and request_timeout_s must be > 0, "
                 f"got {self.max_latency_ms}/{self.request_timeout_s}")
+        if not 0 < self.window_min_ms <= self.window_max_ms:
+            raise ValueError(
+                f"serving window rails need 0 < window_min_ms <= "
+                f"window_max_ms, got {self.window_min_ms}/"
+                f"{self.window_max_ms}")
+        if not self.window_min_ms <= self.max_latency_ms \
+                <= self.window_max_ms:
+            raise ValueError(
+                f"serving.max_latency_ms {self.max_latency_ms} outside the "
+                f"controller rails [{self.window_min_ms}, "
+                f"{self.window_max_ms}] — the knob baseline must be "
+                "reachable")
+        if self.controller_interval_s <= 0:
+            raise ValueError(
+                f"serving.controller_interval_s must be > 0, got "
+                f"{self.controller_interval_s}")
+        if self.controller_k_windows < 1 \
+                or self.controller_cooldown_windows < 0 \
+                or self.controller_relax_after_windows < 0:
+            raise ValueError(
+                "serving controller needs k_windows >= 1 and non-negative "
+                "cooldown/relax windows, got "
+                f"{self.controller_k_windows}/"
+                f"{self.controller_cooldown_windows}/"
+                f"{self.controller_relax_after_windows}")
+        if not 0 < self.queue_pressure_fraction <= 1:
+            raise ValueError(
+                f"serving.queue_pressure_fraction must be in (0, 1], got "
+                f"{self.queue_pressure_fraction}")
         if self.shed_retry_after_ms < 0:
             raise ValueError(
                 f"serving.shed_retry_after_ms must be >= 0, got "
@@ -477,8 +575,9 @@ def _vggf_teacher() -> ExperimentConfig:
     """The JAX package's offline generalization preset, at 32 px and 10
     classes: fp32 compute, dropout 0.2, warmup, clipping. The port's CPU
     trajectory tests train it on seeded batches they pass to `fit`: the
-    teacher-label data set itself is not ported, so `fit` without a
-    dataset raises."""
+    teacher task's train stream is data/teacher.py, but its
+    `build_dataset` entry (`build_teacher`, with the eval split) waits
+    for ROADMAP A17, so `fit` without a dataset raises."""
     return ExperimentConfig(
         name="vggf_teacher",
         model=ModelConfig(name="vggf", num_classes=10,
@@ -596,7 +695,6 @@ UNPORTED_KEYS = (
     ("data.val_labels_file", "the imagefolder layout waits for ROADMAP "
                              "A17"),
     ("mesh.elastic.", "elastic resize waits for ROADMAP A13"),
-    ("serving.", "this serving field waits for ROADMAP A11"),
     ("mesh.num_data", "JAX-specific: the port's shard count is the "
                       "process group's size"),
     ("mesh.data_axis", "JAX-specific: the port's data axis is the process "
@@ -623,6 +721,9 @@ UNPORTED_KEYS = (
     ("train.dropout_rng_impl", "JAX-specific (the PRNG implementation); "
                                "the port's dropout draws from torch "
                                "generators"),
+    ("serving.tiers.max_top1_delta", "the per-tier accuracy contract is "
+                                     "read by the accuracy receipt, which "
+                                     "waits for ROADMAP A16"),
 )
 
 _BOOL_WORDS = {"true": True, "1": True, "yes": True, "on": True,
@@ -763,7 +864,8 @@ def parse_cli(argv: Optional[Sequence[str]] = None, *,
                         help="train (default), eval: one exact pass over "
                              "the validation split from the latest "
                              "checkpoint, predict: classify --images with "
-                             "it; serve is not ported yet (ROADMAP A11)")
+                             "it, serve: the always-on predict server over "
+                             "it (needs serving.enabled=true)")
     parser.add_argument("--images", nargs="*", default=[], metavar="PATH",
                         help="predict mode: JPEG files and/or directories "
                              "(searched for *.jpg/*.jpeg/*.JPEG), or .npy "

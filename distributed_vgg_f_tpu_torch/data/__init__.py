@@ -4,8 +4,9 @@ native decoder, data/imagenet.py), the cursor-counting ingest
 (data/iterator_state.py), the host and device read-ahead stages
 (data/prefetch.py) and the ingest autotuner that steers them
 (data/autotune.py), the device finish of the u8 wire
-(data/device_ingest.py) and the train step's on-device augmentation
-(data/augment.py)."""
+(data/device_ingest.py), the train step's on-device augmentation
+(data/augment.py) and the procedural teacher task (data/teacher.py) the
+distillation tool trains on."""
 
 
 def build_dataset(data_cfg, split: str = "train", *, seed: int = 0,

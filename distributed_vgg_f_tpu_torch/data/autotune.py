@@ -38,8 +38,11 @@ ROADMAP A14c; a caller may pass an object with `record_actuation(act)` as
 `flight`.
 
 Settings: the module constants below, JAX's `AutotuneConfig` defaults;
-no deployment has needed another value yet, so none is a config field
-(ROADMAP A14b). Kill switch: `data.autotune.enabled` is off by default
+no ingest deployment has needed another value yet, so none is a config
+field (ROADMAP A14b). A caller may pass `settings` to override some of
+them for its own controller: serving's admission controller
+(serving/controller.py) runs with `serving.controller_*`. Kill switch:
+`data.autotune.enabled` is off by default
 (the flagship preset turns it on), and `DVGGF_AUTOTUNE=0` turns it off
 whatever the config says: the trainer then builds no host stage, binds
 no knob and moves no counter. Stdlib only at import; the native decoder is reached
@@ -175,16 +178,26 @@ def device_ring_knob(dp, *, min_value: int = 1,
 class IngestAutotuner:
     """The per-process feedback controller. `observe(stall_record)` once
     per log window; everything else is receipts. The settings are the
-    module's constants as they stand when the controller is made."""
+    module's constants as they stand when the controller is made, each
+    replaced by its entry in `settings` where that has one (keys:
+    k_windows, cooldown_windows, settled_after_windows,
+    relax_after_windows, freeze_after_flips)."""
 
     def __init__(self, knobs: Sequence[Optional[Knob]], *,
                  registry=None, flight=None,
-                 clock: Callable[[], float] = time.time):
+                 clock: Callable[[], float] = time.time,
+                 settings: Optional[Dict[str, int]] = None):
         self._settings = {
             "k_windows": K_WINDOWS, "cooldown_windows": COOLDOWN_WINDOWS,
             "settled_after_windows": SETTLED_AFTER_WINDOWS,
             "relax_after_windows": RELAX_AFTER_WINDOWS,
             "freeze_after_flips": FREEZE_AFTER_FLIPS}
+        unknown = sorted(set(settings or {}) - set(self._settings))
+        if unknown:
+            raise KeyError(f"unknown autotuner settings {unknown}; known: "
+                           f"{sorted(self._settings)}")
+        self._settings.update({k: int(v)
+                               for k, v in (settings or {}).items()})
         self._reg = registry if registry is not None \
             else telemetry.get_registry()
         #: an optional `record_actuation(act)` sink (the flight recorder

@@ -130,16 +130,11 @@ class VGGF(nn.Module):
         keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
         return x * keep.div_(1.0 - p)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False,
-                generator: torch.Generator = None) -> torch.Tensor:
-        """NHWC images (finished, not raw u8) -> fp32 logits. `train=True`
-        turns dropout on, drawing its bits from `generator` (on the
-        input's device), which is then required."""
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv trunk alone: NHWC images (finished) -> pool5 flattened
+        in NHWC order, in the compute dtype — fc6's input. The int8 tier
+        (serving/tiers.py) runs it without the heads."""
         reject_raw_uint8(x, "VGGF")
-        dropout = train and self.dropout_rate > 0.0
-        if dropout and generator is None:
-            raise ValueError("VGGF(train=True) draws its dropout bits from "
-                             "an explicit torch.Generator; pass generator=")
         x = x.to(self.compute_dtype)
         if x.shape[-1] == 48:  # 4x4-packed stem input
             x = depth_to_space(x)
@@ -153,8 +148,18 @@ class VGGF(nn.Module):
         x = F.relu(self._conv(self.conv4, x, 1, 1))
         x = F.relu(self._conv(self.conv5, x, 1, 1))
         x = maxpool_3x3s2_ceil_nchw(x)
-        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        x = F.relu(self._dense(self.fc6, x))
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator = None) -> torch.Tensor:
+        """NHWC images (finished, not raw u8) -> fp32 logits. `train=True`
+        turns dropout on, drawing its bits from `generator` (on the
+        input's device), which is then required."""
+        dropout = train and self.dropout_rate > 0.0
+        if dropout and generator is None:
+            raise ValueError("VGGF(train=True) draws its dropout bits from "
+                             "an explicit torch.Generator; pass generator=")
+        x = F.relu(self._dense(self.fc6, self.trunk(x)))
         if dropout:
             x = self._dropout(x, generator)
         x = F.relu(self._dense(self.fc7, x))

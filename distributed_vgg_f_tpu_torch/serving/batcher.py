@@ -15,6 +15,11 @@ of run.
 Shutdown drains: `close()` stops admission (new arrivals shed with
 ``kind="draining"``) while the flush loop keeps flushing until the queue is
 empty, so every in-flight request is answered.
+
+The admission window is the controller's knob (`window_ms` /
+`set_window_ms`, the get/apply pair data/autotune.py `Knob` binds);
+`window_stats()` hands the controller its evidence since the last poll
+(sheds, admitted, completed, the queue's peak, completed latencies).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import numpy as np
 
 from distributed_vgg_f_tpu_torch import telemetry
 
-#: Latencies retained between housekeeping polls.
+#: Latencies retained between controller polls.
 _LATENCY_RING = 8192
 
 
@@ -76,7 +81,7 @@ class DynamicBatcher:
         # None = never reap (direct-submit callers own waiting)
         self.reap_after_s = None if reap_after_s is None \
             else float(reap_after_s)
-        self.window_ms = max(1, int(round(window_ms)))
+        self._window_ms = max(1, int(round(window_ms)))
         self._reg = registry if registry is not None \
             else telemetry.get_registry()
         self._cond = threading.Condition()
@@ -87,14 +92,31 @@ class DynamicBatcher:
         self._admitted_total = 0
         self._completed_total = 0
         self._reaped_total = 0
-        self._queue_peak_life = 0
+        self._queue_peak = 0        # since the last window_stats poll
+        self._queue_peak_life = 0   # lifetime: the bounded-queue receipt
         self._latencies: deque = deque(maxlen=_LATENCY_RING)
         self._bucket_counts: Dict[int, int] = {}
-        self._prev = {"shed": 0, "admitted": 0}
+        self._prev = {"shed": 0, "admitted": 0, "completed": 0}
+        # one batcher per (model, tier): the thread name says which
+        tier = str(getattr(engine, "tier", "fp32"))
         self._thread = threading.Thread(
             target=self._loop, daemon=True,
-            name=f"serving-batcher-{engine.model_name}")
+            name=f"serving-batcher-{engine.model_name}-{tier}")
         self._thread.start()
+
+    # ------------------------------------------------------------ knob surface
+    @property
+    def window_ms(self) -> int:
+        return self._window_ms
+
+    def set_window_ms(self, ms: int) -> Optional[int]:
+        """The admission window's setter, the controller's apply() hook:
+        returns the value now in force. The batch forming now waits on
+        the new window (the flush loop is woken to recompute it)."""
+        with self._cond:
+            self._window_ms = max(1, int(ms))
+            self._cond.notify_all()
+            return self._window_ms
 
     # --------------------------------------------------------------- admission
     def submit(self, image: np.ndarray) -> _Pending:
@@ -114,7 +136,9 @@ class DynamicBatcher:
             self._q.append(pending)
             self._admitted_total += 1
             self._reg.inc("serving/admitted")
-            self._queue_peak_life = max(self._queue_peak_life, len(self._q))
+            depth = len(self._q)
+            self._queue_peak = max(self._queue_peak, depth)
+            self._queue_peak_life = max(self._queue_peak_life, depth)
             self._cond.notify_all()
         return pending
 
@@ -132,11 +156,13 @@ class DynamicBatcher:
                     continue
                 if not self._closed:
                     # flush when the batch fills OR the oldest request's
-                    # wait reaches the window; draining skips the wait
+                    # wait reaches the window; draining skips the wait. The
+                    # deadline is recomputed at each wakeup, so a
+                    # set_window_ms lands on the batch forming now
                     head = self._q[0].t_submit
                     while len(self._q) < self.max_batch \
                             and not self._closed:
-                        remaining = head + self.window_ms / 1e3 \
+                        remaining = head + self._window_ms / 1e3 \
                             - time.monotonic()
                         if remaining <= 0:
                             break
@@ -194,28 +220,35 @@ class DynamicBatcher:
             p.t_done = t_done
             p.event.set()
 
-    # ------------------------------------------------------------ housekeeping
+    # -------------------------------------------------------------- controller
     def window_stats(self) -> dict:
-        """Evidence since the previous poll: shed/admitted deltas, the
-        queue depth, and the completed latencies drained from the ring."""
+        """Evidence since the previous poll: shed/admitted/completed
+        deltas, the queue's peak since then (reset to the depth now), the
+        depth, and the completed latencies drained from the ring — the
+        controller's verdict inputs."""
         with self._cond:
             shed = self._shed_total - self._prev["shed"]
             admitted = self._admitted_total - self._prev["admitted"]
+            completed = self._completed_total - self._prev["completed"]
             self._prev = {"shed": self._shed_total,
-                          "admitted": self._admitted_total}
+                          "admitted": self._admitted_total,
+                          "completed": self._completed_total}
+            depth = len(self._q)
+            peak, self._queue_peak = self._queue_peak, depth
             lat = list(self._latencies)
             self._latencies.clear()
-            depth = len(self._q)
-        return {"shed": shed, "admitted": admitted, "queue_depth": depth,
+        return {"shed": shed, "admitted": admitted, "completed": completed,
+                "queue_peak": peak, "queue_depth": depth,
                 "latencies_ms": lat}
 
     def describe(self) -> dict:
         """Live admission state + lifetime totals."""
         with self._cond:
-            return {"queue_depth": len(self._q),
+            return {"tier": str(getattr(self.engine, "tier", "fp32")),
+                    "queue_depth": len(self._q),
                     "queue_peak": self._queue_peak_life,
                     "queue_limit": self.queue_limit,
-                    "window_ms": self.window_ms,
+                    "window_ms": self._window_ms,
                     "max_batch": self.max_batch,
                     "admitted_total": self._admitted_total,
                     "shed_total": self._shed_total,

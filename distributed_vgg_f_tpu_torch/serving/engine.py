@@ -11,18 +11,25 @@ admissible shape is seen at `warmup` (kernel build, cuDNN planning) and
 steady traffic meets no first-use cost. `compile_log` keeps each bucket's
 first-run seconds. Equal inputs through equal buckets give equal bits;
 across bucket geometries agreement is only a tolerance claim.
+
+An engine serves one (model, tier) pair: the tier ladder
+(serving/tiers.py) builds bf16, int8 and student engines over a base
+one, each with its own buckets, so a tier's served answers are its own
+`run`'s bits. A tier builder may hand its own `forward` (the int8
+tier's quantized heads) and the device bytes it holds beside the
+model's (`extra_param_bytes`).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from distributed_vgg_f_tpu_torch.config import ModelConfig
+from distributed_vgg_f_tpu_torch.config import SERVING_TIERS, ModelConfig
 from distributed_vgg_f_tpu_torch.config import \
     resolve_serving_buckets as resolve_buckets
 from distributed_vgg_f_tpu_torch.data.device_ingest import make_device_finish
@@ -34,7 +41,8 @@ from distributed_vgg_f_tpu_torch.train.predict import build_forward
 
 
 class PredictEngine:
-    """One model's bucket ladder + routing metadata, on one device."""
+    """One (model, tier) pair's bucket ladder + routing metadata, on one
+    device."""
 
     def __init__(self, *, model_name: str, model: torch.nn.Module,
                  image_size: int, num_classes: int,
@@ -42,9 +50,18 @@ class PredictEngine:
                  image_dtype: str = "float32",
                  mean_rgb: Optional[Sequence[float]] = None,
                  stddev_rgb: Optional[Sequence[float]] = None,
-                 device="cuda"):
+                 device="cuda", tier: str = "fp32",
+                 served_by: Optional[str] = None,
+                 forward: Optional[Callable] = None,
+                 extra_param_bytes: int = 0):
+        if tier not in SERVING_TIERS:
+            raise ValueError(f"tier {tier!r} not one of {SERVING_TIERS}")
         self.device = resolve_device(device)
         self.model_name = str(model_name)
+        self.tier = str(tier)
+        # the architecture answering (the student tier serves the
+        # flagship's route with vggf_student weights)
+        self.served_by = str(served_by) if served_by else self.model_name
         self.descriptor: IngestDescriptor = ingest_descriptor(model_name)
         self.image_size = int(image_size)
         self.num_classes = int(num_classes)
@@ -56,25 +73,30 @@ class PredictEngine:
         std = tuple(stddev_rgb if stddev_rgb is not None
                     else self.descriptor.stddev_rgb)
         self._model = model.to(self.device).eval()
+        # kept so serving/tiers.py derives its variants from a base engine
+        self._image_dtype, self._mean, self._std = image_dtype, mean, std
         # predict convention: batches stay (S, S, 3); the stem takes the
         # plain layout, so the serving wire never ships packed pixels
         finish = make_device_finish(mean, std, image_dtype=image_dtype)
-        self._forward = build_forward(self._model, finish)
+        self._forward = forward if forward is not None \
+            else build_forward(self._model, finish)
         self._first_run_lock = threading.Lock()
         #: bucket -> seconds of its first run (warmup or first request)
         self.compile_log: Dict[int, float] = {}
         # the BatchNorm statistics live on the device beside the params
-        # (JAX `serving/engine.py:120`)
+        # (JAX `serving/engine.py:120`), at their storage dtypes
         self._params_bytes = sum(
             t.numel() * t.element_size()
             for t in [*self._model.parameters(),
-                      *batch_stats_of(self._model).values()])
+                      *batch_stats_of(self._model).values()]) \
+            + int(extra_param_bytes)
 
     @property
     def hbm_estimate_bytes(self) -> int:
         """Analytic device-residency lower bound: parameters and BatchNorm
-        statistics at their storage dtypes plus the top bucket's
-        wire-in/probs-out buffers."""
+        statistics at their storage dtypes, the tier's own tensors
+        (`extra_param_bytes`) and the top bucket's wire-in/probs-out
+        buffers."""
         top = self.buckets[-1]
         io = top * (self.image_size * self.image_size * 3 * 4  # f32 finish
                     + self.image_size * self.image_size * 3    # u8 wire
@@ -128,6 +150,8 @@ class PredictEngine:
     def describe(self) -> dict:
         """Routing-table row for GET /v1/models."""
         return {"model": self.model_name,
+                "tier": self.tier,
+                "served_by": self.served_by,
                 "device": str(self.device),
                 "image_size": self.image_size,
                 "num_classes": self.num_classes,
@@ -138,6 +162,29 @@ class PredictEngine:
                              for b, s in sorted(self.compile_log.items())},
                 "hbm_estimate_bytes": self.hbm_estimate_bytes,
                 "ingest": self.descriptor.describe()}
+
+    @classmethod
+    def from_trainer(cls, trainer, *, buckets: Sequence[int] = (),
+                     max_batch: Optional[int] = None) -> "PredictEngine":
+        """Engine over the trainer's checkpoint, through the restore
+        `run_predict` uses (train/predict.py `restore_predict_params`:
+        the EMA weights and statistics where the run tracks them), so the
+        server and offline predict answer from the same weights."""
+        from distributed_vgg_f_tpu_torch.train.predict import \
+            restore_predict_params
+        cfg = trainer.cfg
+        model = restore_predict_params(trainer)
+        if max_batch is None:
+            max_batch = cfg.serving.max_batch
+        if not buckets:
+            buckets = cfg.serving.buckets
+        return cls(model_name=cfg.model.name, model=model,
+                   image_size=cfg.data.image_size,
+                   num_classes=cfg.model.num_classes,
+                   buckets=buckets, max_batch=max_batch,
+                   image_dtype=cfg.data.image_dtype,
+                   mean_rgb=cfg.data.mean_rgb,
+                   stddev_rgb=cfg.data.stddev_rgb, device=trainer.device)
 
 
 def build_engine(model_name: str, image_size: int, num_classes: int,

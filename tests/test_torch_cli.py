@@ -155,14 +155,17 @@ def test_both_refuse_an_unknown_key_or_a_bad_value(item):
 @pytest.mark.parametrize("key,item", [
     ("train.tensorboard_dir=/tb", "A14"), ("telemetry.enabled=false", "A14"),
     ("data.wire=host_f32", "A17"),
-    ("mesh.elastic.min_survivors=3", "A13"), ("serving.enabled=true", "A11"),
+    ("mesh.elastic.min_survivors=3", "A13"),
     ("data.augment.rand_magnitude=0.3", "A4"),
     ("train.checkpoint_save_retries=5", "A14"),
     ("train.resume_data_fast_forward=false", "A14"),
     ("data.iterator_state.enabled=false", "A14"),
     ("data.autotune.k_windows=5", "A14b"), ("data.prefetch=4", "A14b"),
     ("data.autotune.max_restart_fanout=4", "A14b"),
-    ("data.snapshot_cache.validate=false", "A14b")])
+    ("data.snapshot_cache.validate=false", "A14b"),
+    ("serving.tiers.max_top1_delta_bf16=0.01", "A16"),
+    ("serving.tiers.max_top1_delta_int8=0.1", "A16"),
+    ("serving.tiers.max_top1_delta_student=0.2", "A16")])
 def test_keys_the_port_has_not_raise_naming_their_item(key, item):
     jcfg.parse_cli(["--config", "vggf_imagenet_dp", "--set", key])
     with pytest.raises(KeyError, match=f"ROADMAP {item}"):
@@ -192,6 +195,62 @@ def test_snapshot_cache_keys_behave_as_jax(items, error, capsys):
         with pytest.raises(SystemExit):
             parse(argv)
         assert error in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("items", [
+    ["serving.enabled=true", "serving.port=8431", "serving.host=0.0.0.0"],
+    ["serving.max_batch=16", "serving.buckets=1,4,16",
+     "serving.max_latency_ms=5", "serving.queue_limit=64",
+     "serving.request_timeout_s=2.5", "serving.shed_retry_after_ms=20",
+     "serving.warmup=false"],
+    ["serving.controller=false", "serving.window_min_ms=2",
+     "serving.window_max_ms=50", "serving.controller_interval_s=0.5",
+     "serving.controller_k_windows=2",
+     "serving.controller_cooldown_windows=1",
+     "serving.controller_relax_after_windows=0",
+     "serving.queue_pressure_fraction=0.75"],
+    ["serving.tier_default=int8", "serving.tiers.enabled=on",
+     "serving.tiers.calibration_batches=2",
+     "serving.tiers.calibration_batch_size=4",
+     "serving.tiers.calibration_seed=9"]])
+def test_serving_keys_parse_as_jax(items):
+    argv = ["--config", "vggf_imagenet_dp", "--mode", "serve"]
+    for item in items:
+        argv += ["--set", item]
+    ours, args = tcfg.parse_cli(argv, with_mode=True)
+    ref, _ = jcfg.parse_cli(argv, with_mode=True)
+    assert args.mode == "serve"
+    a, b = _fields(ours.serving), _fields(ref.serving)
+    # JAX's accuracy contract is refused in the port (ROADMAP A16)
+    refused = {k for k in b if k.startswith("tiers.max_top1_delta_")}
+    assert len(refused) == 3
+    assert set(a) == set(b) - refused
+    assert a == {k: v for k, v in b.items() if k not in refused}
+
+
+@pytest.mark.parametrize("item,error", [
+    ("serving.tier_default=fp16", "serving.tier_default 'fp16' not one of"),
+    ("serving.window_min_ms=0", "serving window rails need 0 <"),
+    ("serving.max_latency_ms=500", "outside the controller rails"),
+    ("serving.controller_interval_s=0",
+     "serving.controller_interval_s must be > 0"),
+    ("serving.controller_k_windows=0", "serving controller needs"),
+    ("serving.queue_pressure_fraction=2",
+     "serving.queue_pressure_fraction must be in (0, 1]"),
+    ("serving.tiers.calibration_batches=0",
+     "serving.tiers calibration needs >= 1 batches"),
+    ("serving.shed_retry_after_ms=-1",
+     "serving.shed_retry_after_ms must be >= 0")])
+def test_serving_validation_errors_match_jax(item, error, capsys):
+    argv = ["--config", "vggf_imagenet_dp", "--set", item]
+    errs = []
+    for parse in (tcfg.parse_cli, jcfg.parse_cli):
+        with pytest.raises(SystemExit):
+            parse(argv)
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert error in errs[0]
+    assert errs[0].split(": error: ", 1)[1] == errs[1].split(": error: ",
+                                                            1)[1]
 
 
 def test_new_train_fields_validate():
@@ -386,8 +445,13 @@ def test_cli_refusals(data_dir, tmp_path):
     for mode in ("eval", "predict"):
         with pytest.raises(SystemExit, match="no checkpoint"):
             _main(_argv(data_dir, empty, "--mode", mode))
-    with pytest.raises(SystemExit, match="ROADMAP A11"):
+    # serve needs the double opt-in: JAX's refusal without serving.enabled
+    with pytest.raises(SystemExit, match="serve mode: serving is disabled "
+                       "— pass --set serving.enabled=true"):
         _main(_argv(data_dir, empty, "--mode", "serve"))
+    with pytest.raises(SystemExit, match="serve mode: no checkpoint"):
+        _main(_argv(data_dir, empty, "--mode", "serve", "--set",
+                    "serving.enabled=true"))
     # no validation split: logged, and training goes on without evals
     train_only = str(tmp_path / "train_only")
     os.makedirs(train_only)
@@ -469,3 +533,89 @@ def test_run_predict_arrays_go_through_the_serving_engine(cli_run, tmp_path):
     with pytest.raises(ValueError, match="cannot mix"):
         run_predict(tr, files + [os.path.join(FIXTURE, "img_00.jpg")],
                     stream=io.StringIO())
+
+
+def test_cli_serve_answers_as_predict_then_stops_on_sigint(cli_run,
+                                                           tmp_path):
+    """`--mode serve` in a subprocess (tests/_torch_cli_run.py, the CPU)
+    over a copy of the run's checkpoint with the tier ladder on: it prints
+    `serving on HOST:PORT`, a POSTed image's top-5 is `--mode predict`'s
+    for the same .npy (same weights, same bucket: probabilities within
+    1e-6), the bf16 and int8 tiers answer, /v1/models lists the ladder,
+    SIGINT ends it with 0, and its serving_start record carries the
+    ladder's receipt."""
+    import queue
+    import shutil
+    import signal
+    import subprocess
+    import threading
+    import urllib.request
+    src, argv, _, _, _ = cli_run
+    ck = str(tmp_path / "ck")
+    shutil.copytree(src, ck)
+    argv = [f"train.checkpoint_dir={ck}"
+            if a.startswith("train.checkpoint_dir=") else a for a in argv]
+    img = np.random.default_rng(3).integers(0, 256, (32, 32, 3), np.uint8)
+    npy = str(tmp_path / "img.npy")
+    np.save(npy, img)
+    predicted = [json.loads(line) for line in _main(
+        argv + ["--mode", "predict", "--images", npy]).splitlines()
+        if line.startswith("{")]
+    assert len(predicted) == 1
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "tests", "_torch_cli_run.py"),
+         *argv, "--mode", "serve", "--set", "serving.enabled=true",
+         "--set", "serving.tiers.enabled=true", "--set",
+         "serving.max_batch=4"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    try:
+        line = ""
+        while not line.startswith("serving on "):
+            try:
+                line = lines.get(timeout=180)
+            except queue.Empty:
+                pytest.fail("no 'serving on' line: "
+                            + (proc.stderr.read() if proc.poll() is not None
+                               else "still starting"))
+        endpoint = line.split()[-1]
+
+        def post(query):
+            req = urllib.request.Request(
+                f"http://{endpoint}/v1/predict/vggf{query}",
+                data=img.tobytes(), method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+
+        status, body = post("?k=5")
+        assert status == 200 and body["tier"] == "fp32"
+        want = predicted[0]["top_k"]
+        assert [r["class"] for r in body["top_k"]] \
+            == [r["class"] for r in want]
+        np.testing.assert_allclose([r["prob"] for r in body["top_k"]],
+                                   [r["prob"] for r in want], rtol=0,
+                                   atol=1e-6)
+        for tier in ("bf16", "int8"):
+            status, body = post(f"?tier={tier}&k=5")
+            assert status == 200 and body["tier"] == tier
+        with urllib.request.urlopen(f"http://{endpoint}/v1/models",
+                                    timeout=60) as r:
+            row = json.loads(r.read())["models"]["vggf"]
+        assert sorted(row["tiers"]) == ["bf16", "fp32", "int8"]
+        proc.send_signal(signal.SIGINT)
+        assert proc.wait(timeout=120) == 0, proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    start = [r for r in _records(os.path.join(ck, "metrics.jsonl"))
+             if r["event"] == "serving_start"]
+    assert len(start) == 1 and start[0]["tiers_enabled"] is True
+    ladder = start[0]["ladder"]["vggf"]
+    assert sorted(ladder) == ["bf16", "fp32", "int8"]
+    assert ladder["int8"]["hbm_estimate_bytes"] \
+        < ladder["fp32"]["hbm_estimate_bytes"]
+    assert tschema.validate_metrics_jsonl(
+        os.path.join(ck, "metrics.jsonl")) == []

@@ -1,6 +1,8 @@
 """The port (distributed_vgg_f_tpu_torch) stands alone: importing every
 module of it (the stall attribution, the ingest autotuner, the
-snapshot cache and the zoo's VGG-16, ResNet and BatchNorm included)
+snapshot cache, the zoo's VGG-16, ResNet and BatchNorm, the serving
+tiers and admission controller, the teacher task and the distillation
+tool included)
 pulls in no jax, no flax and nothing of the JAX
 package (distributed_vgg_f_tpu), no source file imports them, the scripts that
 run on the card import none of them either, and the entry points refuse
@@ -70,7 +72,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
             f"{PORT}.train.predict", f"{PORT}.telemetry.stall",
             f"{PORT}.data.autotune",
             f"{PORT}.data.snapshot_cache", f"{PORT}.models.vgg16",
-            f"{PORT}.models.resnet", f"{PORT}.ops.batch_norm"} <= set(mods)
+            f"{PORT}.models.resnet", f"{PORT}.ops.batch_norm",
+            f"{PORT}.serving.tiers", f"{PORT}.serving.controller",
+            f"{PORT}.data.teacher", f"{PORT}.train.distill"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -199,6 +203,15 @@ def test_cli_refuses_without_cuda(no_cuda):
     from distributed_vgg_f_tpu_torch import cli
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--config", "vggf_teacher", "--set", "train.steps=1"])
+
+
+def test_distillation_tool_refuses_without_cuda(no_cuda):
+    from distributed_vgg_f_tpu_torch.train import distill
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distill.train_distilled("vggf_student", steps=1, batch_size=2,
+                                num_examples=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distill.main(["--steps", "1", "--out", "unused.npz"])
 
 
 def test_initialize_distributed_refuses_nccl_without_cuda(no_cuda):

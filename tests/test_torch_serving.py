@@ -7,6 +7,7 @@ bucket, typed 400/503, drain on close — at 32 px on the CPU
 Tolerance port vs JAX engine: probabilities within 1e-5 in fp32 (logits
 agree to ~1e-6 at 32 px; the softmax of 10 classes keeps that scale)."""
 
+import dataclasses
 import json
 import threading
 import time
@@ -129,7 +130,14 @@ def test_config_matches_jax_defaults():
     from distributed_vgg_f_tpu import config as jcfg
     jax_serving = jcfg.ServingConfig()
     for name in ServingConfig.__dataclass_fields__:
-        assert getattr(ServingConfig(), name) == getattr(jax_serving, name)
+        ours, theirs = getattr(ServingConfig(), name), \
+            getattr(jax_serving, name)
+        if dataclasses.is_dataclass(ours):  # the tiers section, field-wise
+            # less JAX's accuracy contract, refused in the port (A16)
+            ours, theirs = dataclasses.asdict(ours), {
+                k: v for k, v in dataclasses.asdict(theirs).items()
+                if not k.startswith("max_top1_delta_")}
+        assert ours == theirs, name
     jax_data = jcfg.get_config("vggf_imagenet_dp").data
     ours = get_config("vggf_imagenet_dp").data
     assert tuple(ours.mean_rgb) == tuple(jax_data.mean_rgb)
