@@ -99,7 +99,22 @@ Phases, one JSON line each:
             vector variant), the bucket count and wire bytes of
             `comm_meta`, and a torch.profiler breakdown of 3 more steps
             with the device µs of the NCCL kernels and of the copy
-            kernels (phase train's copy µs beside them)
+            kernels (phase train's copy µs beside them), and the memory
+            the state holds between steps
+  train_zero3 the flagship's ZeRO-3 (mesh.shard_params) in the same
+            one-rank NCCL group: (a) build_train_step with ZeRO-3 over
+            the preset's 4 MB buckets against ZeRO-2, both with the EMA
+            (0.99), full width in fp32, TF32 off, cuDNN's deterministic
+            algorithms, batch 2, 3 steps: losses, the gathered params,
+            the (T,) momentum and the gathered EMA bit-equal; between
+            steps every nn.Parameter holds no storage and
+            torch.cuda.memory_allocated() is below ZeRO-2's by the
+            parameters' fp32 bytes (a state that keeps only the shards);
+            comm_meta's gathers equal its buckets; 6 + 6 LRN launches;
+            (b) the same path in bf16 at batch 1024 with dropout, flip and
+            mixup for 20 steps: step ms beside train_zero2 (b)'s, peak
+            memory and the memory held between steps beside ZeRO-2's,
+            40 + 40 LRN launches, and a profile of 3 more steps
   train_feed the flagship's host-to-card feed: the 16 fixture JPEGs
             (tests/data/jpeg_fixture, 500x375) packed by
             tools/tfrecord_write.py into 4 TFRecord shards of 1024
@@ -1984,15 +1999,19 @@ def cudnn_deterministic():
         torch.backends.cudnn.deterministic = was
 
 
-def zero2_runs(tree, paths, *, steps=3):
-    """Phase `train_zero2` (a)'s runs: the flagship at full width in fp32
-    without dropout, from `tree`, `steps` steps on seeded u8 batches of 2,
-    one run per name in `paths`, each from a fresh model: a name that
-    starts with "zero2" takes the ZeRO-2 step over the preset's 4 MB
-    buckets in the one-rank group that is up, any other the replicated
-    step. Returns name -> the losses, the last grad norm, the params, the
-    momentum, ZeRO's flat momentum and layout, the LRN launches and the
-    step's comm_meta."""
+def zero2_runs(tree, paths, *, steps=3, ema=0.0):
+    """Phase `train_zero2` (a)'s runs (and `train_zero3` (a)'s): the
+    flagship at full width in fp32 without dropout, from `tree`, `steps`
+    steps on seeded u8 batches of 2, one run per name in `paths`, each
+    from a fresh model: a name that starts with "zero2" takes the ZeRO-2
+    step over the preset's 4 MB buckets in the one-rank group that is up,
+    "zero3" the ZeRO-3 step over them, any other the replicated step;
+    `ema` the EMA decay. Returns name -> the losses, the last grad norm,
+    the params (gathered under ZeRO-3), the momentum, ZeRO's flat momentum
+    and layout, the EMA, the LRN launches, the step's comm_meta, and after
+    each step the memory allocated on the card since just before the run
+    built its model (what the run holds between steps) and the bytes the
+    model's parameters hold."""
     from distributed_vgg_f_tpu_torch.config import ModelConfig, get_config
     from distributed_vgg_f_tpu_torch.data.device_ingest import \
         make_device_finish
@@ -2017,38 +2036,53 @@ def zero2_runs(tree, paths, *, steps=3):
     finish = make_device_finish(cfg.data.mean_rgb, cfg.data.stddev_rgb)
     runs = {}
     for path in paths:
-        zero2 = path.startswith("zero2")
+        zero3 = path.startswith("zero3")
+        zero2 = zero3 or path.startswith("zero2")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         model = load_params(build_model(model_cfg, image_size=size),
                             tree).to("cuda")
         layout = None
         if zero2:
             layout = zero_layout(model, 1, mesh.comm_bucket_mb)
             state = TrainState.create_sharded(
-                model, lambda ps: build_optimizer(cfg, ps)[0], layout)
+                model, lambda ps: build_optimizer(cfg, ps)[0], layout,
+                ema=ema > 0, shard_params=zero3)
             schedule = build_schedule(cfg)
         else:
             opt, schedule = build_optimizer(cfg, model.parameters())
-            state = TrainState.create(model, opt)
+            state = TrainState.create(model, opt, ema=ema > 0)
         step = build_train_step(
             schedule, cfg.optim.weight_decay, skip_nonfinite=True,
-            device_finish=finish, device="cuda",
-            **(zero_kw if zero2 else {}))
+            device_finish=finish, device="cuda", ema_decay=ema,
+            shard_params=zero3, **(zero_kw if zero2 else {}))
         lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
-        losses = []
+        losses, allocated, param_bytes = [], [], []
         for b in batches:
             state, metrics = step(state, b, 0)
             losses.append(float(metrics["loss"]))
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            allocated.append(torch.cuda.memory_allocated() - base)
+            param_bytes.append(sum(p.untyped_storage().nbytes()
+                                   for p in model.parameters()))
+        launches = (lrn_cuda.LAUNCHES, lrn_cuda.BWD_LAUNCHES)
         runs[path] = {
             "losses": losses, "grad_norm": float(metrics["grad_norm"]),
-            "params": {k: p.detach().clone()
-                       for k, p in model.named_parameters()},
+            "params": {k: v.detach().clone()
+                       for k, v in state.params_tree().items()},
             "momentum": state.momentum(),
             "flat": state.momentum_global() if zero2 else None,
-            "layout": layout,
-            "launches": (lrn_cuda.LAUNCHES, lrn_cuda.BWD_LAUNCHES),
+            "ema": (None if state.ema_params is None else
+                    {k: v.clone() for k, v in
+                     state.params_tree(ema=True).items()}),
+            "layout": layout, "launches": launches,
+            "allocated": allocated, "param_bytes": param_bytes,
+            "shard_numel": (0 if state.param_shard is None
+                            else state.param_shard.numel()),
             "comm_meta": dict(step.comm_meta)}
         del model, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
     return runs
 
 
@@ -2058,27 +2092,19 @@ def phase_train_zero2(tree, train_ref):
     replicated step, full width in fp32, on cuDNN's deterministic
     algorithms (`zero2_runs`); (b) in bf16 at batch 1024 with
     dropout, flip and mixup for 20 steps, timed beside phase train
-    (`train_ref`). Returns (b)'s LRN launches."""
+    (`train_ref`). Returns (b)'s LRN launches and its step median, peak
+    memory and the memory held after its steps, for `train_zero3`."""
     import dataclasses
 
     import torch.distributed as dist
 
     from distributed_vgg_f_tpu_torch.config import get_config
-    from distributed_vgg_f_tpu_torch.data.synthetic import SyntheticU8
-    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
     from distributed_vgg_f_tpu_torch.parallel.distributed import \
         initialize_distributed
-    from distributed_vgg_f_tpu_torch.parallel.zero import zero_layout
-    from distributed_vgg_f_tpu_torch.train.schedule import build_optimizer
-    from distributed_vgg_f_tpu_torch.train.state import TrainState
-    from distributed_vgg_f_tpu_torch.train.step import build_train_step
-    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
     cfg = get_config("vggf_imagenet_dp")
     mesh, size = cfg.mesh, cfg.data.image_size
     check(mesh.sharding_label == "zero2" and mesh.comm_bucket_mb == 4.0,
           f"the flagship's mesh is {mesh}")
-    zero_kw = dict(zero1=True, shard_gradients=True,
-                   comm_bucket_mb=mesh.comm_bucket_mb)
     t0 = time.perf_counter()
     up = initialize_distributed(f"localhost:{_free_port()}", 1, 0,
                                 device="cuda")
@@ -2142,7 +2168,67 @@ def phase_train_zero2(tree, train_ref):
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, log_every=1, seed=0))
     b = cfg.data.global_batch_size
+    run = _zero_trainer_run(cfg, steps, False)
+    launches, vec_launches = run["launches"], run["vec_launches"]
+    losses, median_ms, meta = (run["losses"], run["step_ms_median"],
+                               run["comm_meta"])
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    profile = run["profile"]
+    emit("train_zero2", part="b", config=cfg.name, image_size=size, batch=b,
+         compute_dtype=cfg.model.compute_dtype,
+         dropout_rate=cfg.model.dropout_rate,
+         augment={"hflip": cfg.data.augment.hflip,
+                  "mixup_alpha": cfg.data.augment.mixup_alpha},
+         steps=steps, wall_s=run["wall_s"], first_step_ms=run["step_ms"][0],
+         step_ms_median=median_ms, step_ms=run["step_ms"],
+         images_per_s=b / (median_ms / 1e3),
+         train_step_ms_median=train_ref["step_ms_median"],
+         vs_train=median_ms / train_ref["step_ms_median"] - 1.0,
+         peak_memory_bytes=run["peak_memory_bytes"],
+         resident_bytes=run["resident_bytes"], losses=losses,
+         loss_first5_mean=first, loss_last5_mean=last,
+         lrn_launches=launches, lrn_vec_launches=vec_launches,
+         buckets=meta["buckets"], wire_bytes=meta["wire_bytes"],
+         comm_meta=meta, train_copy_us_per_step=train_ref["copy_us_per_step"],
+         profile=profile)
+    check(run["steps_taken"] == steps + profile["steps"]
+          and len(losses) == steps,
+          f"{run['steps_taken']} steps, {len(losses)} records")
+    check(launches == {"fwd": 2 * steps, "bwd": 2 * steps}
+          and vec_launches == launches,
+          f"LRN launches {launches} (vector {vec_launches}) over {steps} "
+          "steps, expected 2 forward and 2 backward a step, all vector")
+    check(meta["sharding"] == "zero2" and meta["bucketed"],
+          f"comm_meta {meta}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(run["bad_steps"] == 0, "a step was skipped")
+    check(last < first, f"loss did not fall on a fixed batch: mean of the "
+          f"first 5 steps {first}, of the last 5 {last}")
+    return launches, run
+
+
+def _zero_trainer_run(cfg, steps, shard_params):
+    """Phases `train_zero2` (b)'s and `train_zero3` (b)'s run: the
+    flagship preset (bf16, dropout, flip, mixup) through `Trainer.fit` on
+    its seeded u8 batch with the ZeRO-2 step over its 4 MB buckets built
+    here (the trainer downgrades ZeRO at one rank), ZeRO-3 with
+    `shard_params`. Returns the wall and step ms, the losses, the LRN
+    launches (counted over the fit only), the peak memory, the memory held
+    after the fit since just before the Trainer was built (the state's,
+    `resident_bytes`) and the bytes the parameters hold then, comm_meta
+    and a profile of 3 more steps."""
+    from distributed_vgg_f_tpu_torch.data.synthetic import SyntheticU8
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.parallel.zero import zero_layout
+    from distributed_vgg_f_tpu_torch.train.schedule import build_optimizer
+    from distributed_vgg_f_tpu_torch.train.state import TrainState
+    from distributed_vgg_f_tpu_torch.train.step import build_train_step
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    mesh, size = cfg.mesh, cfg.data.image_size
+    b = cfg.data.global_batch_size
     data = SyntheticU8(b, size, cfg.model.num_classes, seed=0, pin=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     stamps = []
     trainer = Trainer(cfg, log=lambda event, rec: stamps.append(
         time.perf_counter()))
@@ -2152,11 +2238,14 @@ def phase_train_zero2(tree, train_ref):
         ema_decay=cfg.train.ema_decay,
         skip_nonfinite=cfg.train.skip_nonfinite,
         device_finish=trainer.device_finish,
-        device_augment=trainer.device_augment, device="cuda", **zero_kw)
+        device_augment=trainer.device_augment, device="cuda", zero1=True,
+        shard_gradients=True, shard_params=shard_params,
+        comm_bucket_mb=mesh.comm_bucket_mb)
     model = trainer.init_state(0).model
     state = TrainState.create_sharded(
         model, lambda ps: build_optimizer(cfg, ps)[0],
-        zero_layout(model, 1, mesh.comm_bucket_mb))
+        zero_layout(model, 1, mesh.comm_bucket_mb),
+        ema=cfg.train.ema_decay > 0, shard_params=shard_params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
@@ -2166,47 +2255,142 @@ def phase_train_zero2(tree, train_ref):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {"fwd": lrn_cuda.LAUNCHES, "bwd": lrn_cuda.BWD_LAUNCHES}
-    vec_launches = {"fwd": lrn_cuda.VEC_LAUNCHES,
-                    "bwd": lrn_cuda.VEC_BWD_LAUNCHES}
+    vec = {"fwd": lrn_cuda.VEC_LAUNCHES, "bwd": lrn_cuda.VEC_BWD_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated() - base
+    param_bytes = sum(p.untyped_storage().nbytes()
+                      for p in model.parameters())
     recs = [r for r in trainer.records if r["event"] == "train"]
-    losses = [r["loss"] for r in recs]
     stamps.insert(0, t0)
     step_ms = [(t1 - t0_) * 1e3 for t0_, t1 in zip(stamps, stamps[1:])]
-    median_ms = statistics.median(step_ms[4:])
+    out = {"wall_s": wall_s, "step_ms": step_ms,
+           "step_ms_median": statistics.median(step_ms[4:]),
+           "losses": [r["loss"] for r in recs],
+           "bad_steps": sum(r["bad_step"] for r in recs),
+           "launches": launches, "vec_launches": vec,
+           "peak_memory_bytes": peak, "resident_bytes": resident,
+           "param_storage_bytes": param_bytes,
+           "comm_meta": dict(trainer.train_step.comm_meta)}
+    out["profile"] = _profile_train(trainer, state, next(iter(data)))
+    out["steps_taken"] = state.step
+    del trainer, state, data, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_zero3(tree, zero2_ref):
+    """The flagship's ZeRO-3 (`mesh.shard_params`) over the preset's 4 MB
+    buckets on the card, in the one-rank NCCL group phase `train_zero2`
+    started: (a) against ZeRO-2 in fp32 at batch 2 with the EMA, on
+    cuDNN's deterministic algorithms (`zero2_runs`); (b) in bf16 at batch
+    1024 with dropout, flip and mixup for 20 steps, beside
+    `train_zero2` (b) (`zero2_ref`). Returns (b)'s LRN launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from distributed_vgg_f_tpu_torch.config import (apply_overrides,
+                                                     get_config)
+    cfg = apply_overrides(get_config("vggf_imagenet_dp"),
+                          {"mesh.shard_params": "true"})
+    check(cfg.mesh.sharding_label == "zero3",
+          f"--set mesh.shard_params=true gives {cfg.mesh}")
+    check(dist.is_initialized() and dist.get_world_size() == 1,
+          "train_zero3 runs in train_zero2's one-rank group")
+
+    # (a) ZeRO-3 against ZeRO-2, fp32, both keeping the EMA
+    ema = 0.99
+    with cudnn_deterministic():
+        runs = zero2_runs(tree, ("zero2", "zero3"), ema=ema)
+    z2, z3 = runs["zero2"], runs["zero3"]
+    layout = z3["layout"]
+    bits = {"losses": z2["losses"] == z3["losses"],
+            "grad_norm": z2["grad_norm"] == z3["grad_norm"],
+            "params": all(torch.equal(z3["params"][k], v)
+                          for k, v in z2["params"].items()),
+            "flat_momentum": bool(torch.equal(z3["flat"], z2["flat"])),
+            "ema": all(torch.equal(z3["ema"][k], v)
+                       for k, v in z2["ema"].items())}
+    param_fp32_bytes = 4 * sum(v.numel() for v in z2["params"].values())
+    saved = [a - b for a, b in zip(z2["allocated"], z3["allocated"])]
+    meta = z3["comm_meta"]
+    emit("train_zero3", part="a", batch=2, image_size=cfg.data.image_size,
+         dtype="float32", tf32=False, cudnn_deterministic=True,
+         steps=len(z3["losses"]), backend="nccl", world=1, ema_decay=ema,
+         comm_meta=meta, buckets=layout.num_buckets,
+         losses_zero3=z3["losses"], losses_zero2=z2["losses"],
+         bit_equal=bits, param_storage_bytes_between_steps=z3["param_bytes"],
+         shard_numel=z3["shard_numel"],
+         allocated_zero2=z2["allocated"], allocated_zero3=z3["allocated"],
+         allocated_saved=saved, param_fp32_bytes=param_fp32_bytes,
+         lrn_launches={"zero2": z2["launches"], "zero3": z3["launches"]})
+    check(all(bits.values()), f"ZeRO-3 off ZeRO-2's bits: {bits}")
+    check(z3["param_bytes"] == [0] * len(z3["losses"]),
+          f"parameters hold storage between steps: {z3['param_bytes']}")
+    check(z3["shard_numel"] == layout.total_padded,
+          f"a shard of {z3['shard_numel']} elements at one rank")
+    # the allocator may keep up to 1 MiB of a block it does not split, so
+    # ZeRO-3 saves the parameters' bytes to within that a tensor
+    slack = (2 * len(layout.keys) + 4) << 20
+    check(all(abs(d - param_fp32_bytes) <= slack for d in saved),
+          f"ZeRO-3 holds {saved} bytes less than ZeRO-2 between steps; "
+          f"the parameters are {param_fp32_bytes}")
+    check(meta["sharding"] == "zero3" and meta["bucketed"]
+          and meta["gathers"] == meta["buckets"] == layout.num_buckets > 2,
+          f"comm_meta {meta}")
+    check(z3["launches"] == (6, 6), f"ZeRO-3 LRN launches {z3['launches']}")
+    del runs, z2, z3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the flagship in bf16 at batch 1024 on the ZeRO-3 path
+    steps = 20
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, log_every=1, seed=0))
+    run = _zero_trainer_run(cfg, steps, True)
+    launches, recs_meta = run["launches"], run["comm_meta"]
+    losses = run["losses"]
     first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
-    meta = dict(trainer.train_step.comm_meta)
-    profile = _profile_train(trainer, state, next(iter(data)))
-    emit("train_zero2", part="b", config=cfg.name, image_size=size, batch=b,
+    b = cfg.data.global_batch_size
+    emit("train_zero3", part="b", config=cfg.name, batch=b,
+         image_size=cfg.data.image_size,
          compute_dtype=cfg.model.compute_dtype,
-         dropout_rate=cfg.model.dropout_rate,
+         dropout_rate=cfg.model.dropout_rate, ema_decay=cfg.train.ema_decay,
          augment={"hflip": cfg.data.augment.hflip,
                   "mixup_alpha": cfg.data.augment.mixup_alpha},
-         steps=steps, wall_s=wall_s, first_step_ms=step_ms[0],
-         step_ms_median=median_ms, step_ms=step_ms,
-         images_per_s=b / (median_ms / 1e3),
-         train_step_ms_median=train_ref["step_ms_median"],
-         vs_train=median_ms / train_ref["step_ms_median"] - 1.0,
-         peak_memory_bytes=peak, losses=losses,
-         loss_first5_mean=first, loss_last5_mean=last,
-         lrn_launches=launches, lrn_vec_launches=vec_launches,
-         buckets=meta["buckets"], wire_bytes=meta["wire_bytes"],
-         comm_meta=meta, train_copy_us_per_step=train_ref["copy_us_per_step"],
-         profile=profile)
-    check(state.step == steps + profile["steps"] and len(recs) == steps,
-          f"{state.step} steps, {len(recs)} records")
+         steps=steps, first_step_ms=run["step_ms"][0],
+         step_ms_median=run["step_ms_median"], step_ms=run["step_ms"],
+         images_per_s=b / (run["step_ms_median"] / 1e3),
+         zero2_step_ms_median=zero2_ref["step_ms_median"],
+         vs_zero2=run["step_ms_median"] / zero2_ref["step_ms_median"] - 1.0,
+         peak_memory_bytes=run["peak_memory_bytes"],
+         zero2_peak_memory_bytes=zero2_ref["peak_memory_bytes"],
+         resident_bytes=run["resident_bytes"],
+         zero2_resident_bytes=zero2_ref["resident_bytes"],
+         param_storage_bytes=run["param_storage_bytes"],
+         losses=losses, loss_first5_mean=first, loss_last5_mean=last,
+         lrn_launches=launches, lrn_vec_launches=run["vec_launches"],
+         comm_meta=recs_meta, profile=run["profile"])
+    check(run["steps_taken"] == steps + run["profile"]["steps"]
+          and len(losses) == steps, f"{run['steps_taken']} steps, "
+          f"{len(losses)} records")
     check(launches == {"fwd": 2 * steps, "bwd": 2 * steps}
-          and vec_launches == launches,
-          f"LRN launches {launches} (vector {vec_launches}) over {steps} "
-          "steps, expected 2 forward and 2 backward a step, all vector")
-    check(meta["sharding"] == "zero2" and meta["bucketed"],
-          f"comm_meta {meta}")
+          and run["vec_launches"] == launches,
+          f"LRN launches {launches} (vector {run['vec_launches']}) over "
+          f"{steps} steps, expected 2 forward and 2 backward a step")
+    check(recs_meta["sharding"] == "zero3"
+          and recs_meta["gathers"] == recs_meta["buckets"] > 2,
+          f"comm_meta {recs_meta}")
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    check(all(r["bad_step"] == 0.0 for r in recs), "a step was skipped")
+    check(run["bad_steps"] == 0, "a step was skipped")
     check(last < first, f"loss did not fall on a fixed batch: mean of the "
           f"first 5 steps {first}, of the last 5 {last}")
-    del trainer, state, data, model
-    torch.cuda.empty_cache()
+    check(run["param_storage_bytes"] == 0,
+          "parameters hold storage after the fit")
+    check(run["resident_bytes"] < zero2_ref["resident_bytes"],
+          f"ZeRO-3 holds {run['resident_bytes']} bytes after its fit, "
+          f"ZeRO-2 {zero2_ref['resident_bytes']}")
     return launches
 
 
@@ -5552,7 +5736,8 @@ def main() -> int:
     distill_launches = phase_distill()
     phase_train_parity(tree)
     train_launches, train_ref = phase_train()
-    zero2_launches = phase_train_zero2(tree, train_ref)
+    zero2_launches, zero2_ref = phase_train_zero2(tree, train_ref)
+    zero3_launches = phase_train_zero3(tree, zero2_ref)
     feed_dir = tempfile.mkdtemp(prefix="train_feed_")
     try:
         feed_launches, feed_ms = phase_train_feed(train_ref, feed_dir)
@@ -5705,13 +5890,14 @@ def main() -> int:
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records, "bucket", 32,
         serve_launches + serve_tiers_launches + serve_cli_launches
         + distill_launches["fwd"] + train_launches["fwd"]
-        + zero2_launches["fwd"]
+        + zero2_launches["fwd"] + zero3_launches["fwd"]
         + feed_launches["fwd"] + ckpt_launches["fwd"] + e2e_launches["fwd"]
         + autotune_launches["fwd"] + snapshot_launches["fwd"],
         {"serve": serve_launches, "serve_tiers": serve_tiers_launches,
          "serve_cli": serve_cli_launches,
          "distill": distill_launches["fwd"], "train": train_launches["fwd"],
          "train_zero2": zero2_launches["fwd"],
+         "train_zero3": zero3_launches["fwd"],
          "train_feed": feed_launches["fwd"],
          "train_ckpt": ckpt_launches["fwd"],
          "train_e2e": e2e_launches["fwd"],
@@ -5727,13 +5913,14 @@ def main() -> int:
         "lrn_bwd", "distributed_vgg_f_tpu_torch/csrc/lrn_bwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:74", bwd_records, "batch",
         1024, distill_launches["bwd"] + train_launches["bwd"]
-        + zero2_launches["bwd"]
+        + zero2_launches["bwd"] + zero3_launches["bwd"]
         + feed_launches["bwd"] + ckpt_launches["bwd"] + e2e_launches["bwd"]
         + autotune_launches["bwd"] + snapshot_launches["bwd"],
         {"serve": 0, "serve_tiers": 0, "serve_cli": 0,
          "distill": distill_launches["bwd"],
          "train": train_launches["bwd"],
          "train_zero2": zero2_launches["bwd"],
+         "train_zero3": zero3_launches["bwd"],
          "train_feed": feed_launches["bwd"],
          "train_ckpt": ckpt_launches["bwd"],
          "train_e2e": e2e_launches["bwd"],

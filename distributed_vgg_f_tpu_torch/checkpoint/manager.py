@@ -7,11 +7,13 @@ layouts (train/state.py `TrainState.checkpoint_tree`), plus the host
 state as JSON:
 
     <root>/<step>/state/step.npy                  int32 scalar
-    <root>/<step>/state/params/conv1/kernel.npy   HWIO, fp32
+    <root>/<step>/state/params/conv1/kernel.npy   HWIO, fp32, or
+    <root>/<step>/state/params.npy                ZeRO-3's (T,) vector
     <root>/<step>/state/opt/trace.npy             the ZeRO (T,) vector, or
     <root>/<step>/state/opt/trace/<layer>/<leaf>.npy  per parameter
     <root>/<step>/state/opt/count.npy             optax's count, int32
     <root>/<step>/state/ema_params/...            when the run keeps one
+                                                  (ZeRO-3: ema_params.npy)
     <root>/<step>/state/batch_stats/<layer>/{mean,var}.npy  BatchNorm's
     <root>/<step>/state/ema_batch_stats/...       their EMA
     <root>/<step>/extra.json                      receipts and the blob
@@ -24,7 +26,8 @@ and `data_state/` are non-numeric siblings the step scan ignores.
 
 A save is two halves. On the training thread, `save` decides (the save
 interval, the collision rules), builds the state's arrays (under ZeRO an
-all-gather of the momentum, which is why every rank calls it) and copies
+all-gather of the momentum, under ZeRO-3 of the params and their EMA
+too, which is why every rank calls it) and copies
 them into host buffers, pinned when they lie on the card: the copy is
 enqueued on the current CUDA stream, so it is ordered before the next
 step's in-place update of params and momentum, and the training thread

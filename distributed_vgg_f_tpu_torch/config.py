@@ -187,7 +187,7 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class ElasticConfig:
-    """Live elastic resize on preemption: not ported (ROADMAP A13); the
+    """Live elastic resize on preemption: not ported (ROADMAP A13b); the
     trainer refuses `enabled=True`."""
     enabled: bool = False
 
@@ -205,8 +205,8 @@ class MeshConfig:
     # under grad accumulation the accumulator is the 1/N shard. Without
     # shard_opt_state there is no shard to hold it, and it downgrades
     shard_gradients: bool = False
-    # ZeRO-3 (params held as 1/N shards): not ported (ROADMAP A13); the
-    # trainer and the step refuse it
+    # ZeRO-3: the params (and their EMA) held only as 1/N flat shards,
+    # gathered just in time by the step, one all-gather a bucket
     shard_params: bool = False
     # bucketed exchange: buckets of ~this many MB in reverse-backward
     # order, each issued as its gradients exist; 0 = one exchange per leaf
@@ -214,7 +214,8 @@ class MeshConfig:
     comm_bucket_mb: float = 0.0
     # gradient wire dtype ("float32" | "bfloat16"): the cast happens after
     # the local backward and before the cross-replica mean; momentum,
-    # params and the ZeRO param all-gather stay fp32
+    # params and ZeRO-1/2's param all-gather stay fp32, and ZeRO-3's
+    # just-in-time gather (a transient of one step) rides this wire too
     reduce_dtype: str = "float32"
     elastic: ElasticConfig = field(default_factory=ElasticConfig)
 
@@ -694,7 +695,7 @@ UNPORTED_KEYS = (
                              "A17"),
     ("data.val_labels_file", "the imagefolder layout waits for ROADMAP "
                              "A17"),
-    ("mesh.elastic.", "elastic resize waits for ROADMAP A13"),
+    ("mesh.elastic.", "elastic resize waits for ROADMAP A13b"),
     ("mesh.num_data", "JAX-specific: the port's shard count is the "
                       "process group's size"),
     ("mesh.data_axis", "JAX-specific: the port's data axis is the process "

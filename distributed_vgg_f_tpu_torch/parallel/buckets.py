@@ -27,7 +27,11 @@ replica-interleaved,
 
 with S = sum(s_b) the per-replica shard length and off_b the running
 shard offset of bucket b. `to_global` / `from_global` are the exact
-permutations between that layout and the parameters.
+permutations between that layout and the parameters. Under ZeRO-3 the
+(S,) shard is the parameters' only copy: `gather_param_tree` gathers
+each bucket's pieces back (one all-gather a bucket) into the parameters
+for a step (train/state.py `TrainState.release_params` empties them
+after it).
 """
 
 from __future__ import annotations
@@ -229,6 +233,50 @@ class GradBucketLayout:
             for b in range(self.num_buckets):
                 self.unpack(b, self._bucket_columns(mat, b), params)
 
+    def gather_param_tree(self, param_shard: torch.Tensor,
+                          params: Sequence[torch.Tensor], group=None,
+                          wire_dtype=None,
+                          events: Optional[list] = None) -> None:
+        """ZeRO-3's just-in-time gather (JAX `buckets.py:225`): one
+        all-gather PER BUCKET of this rank's piece of the (S,) shard,
+        issued async in the order the forward consumes the buckets (the
+        last bucket, which holds the first layers, first) on the
+        `mesh.reduce_dtype` wire through `cast_to_wire` (the gathered
+        replica is a transient of one step; the fp32 truth stays in the
+        shard). Once every gather has landed, each bucket's leaves are
+        unpacked into one fp32 buffer of their own and the parameters
+        (canonical order) become views
+        of it (a parameter's shape between steps lives in `port_shapes`).
+        `events`, when a list, gets ("gather", bucket) as each gather is
+        issued."""
+        wire = wire_dtype_of(wire_dtype)
+        pending = []
+        for b in reversed(range(self.num_buckets)):
+            off = self._shard_offsets[b]
+            piece = cast_to_wire(
+                param_shard[off:off + self.shard_sizes()[b]], wire)
+            full = torch.empty(self.padded_sizes()[b], dtype=piece.dtype,
+                               device=piece.device)
+            pending.append((b, all_gather_flat(full, piece, group,
+                                               async_op=True), full))
+            if events is not None:
+                events.append(("gather", b))
+        for b, work, full in pending:
+            if work is not None:
+                work.wait()
+            sizes = [self._leaf_size(i) for i in self.buckets[b]]
+            buf = torch.empty(sum(sizes), dtype=torch.float32,
+                              device=full.device)
+            out: List[Optional[torch.Tensor]] = [None] * len(self.keys)
+            off = 0
+            for i, n in zip(self.buckets[b], sizes):
+                out[i] = buf[off:off + n].view(self.port_shapes[i])
+                off += n
+            with torch.no_grad():
+                self.unpack(b, cast_from_wire(full, torch.float32), out)
+                for i in self.buckets[b]:
+                    params[i].data = out[i]
+
     # --------------------------------------- global flat layout (opt state)
     def to_global(self, leaves: Sequence[torch.Tensor]) -> torch.Tensor:
         """Leaves (canonical order) -> the (T,) bucket-major
@@ -254,13 +302,14 @@ class GradBucketLayout:
         return dict(zip(self.keys, out))
 
     # ------------------------------------------------------------- receipts
-    def wire_bytes_per_step(self, *, zero: bool,
-                            wire_dtype=None) -> Dict[str, int]:
+    def wire_bytes_per_step(self, *, zero: bool, wire_dtype=None,
+                            shard_params: bool = False) -> Dict[str, int]:
         """Logical collective payload bytes per step per replica (the one
         accounting, `exchange_wire_bytes`)."""
         return exchange_wire_bytes(sum(self.bucket_sizes()),
                                    self.total_padded, zero=zero,
-                                   wire_dtype=wire_dtype)
+                                   wire_dtype=wire_dtype,
+                                   shard_params=shard_params)
 
 
 class BucketExchange:

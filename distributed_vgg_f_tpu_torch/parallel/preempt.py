@@ -22,7 +22,7 @@ for the step just enqueued:
   waited on LAG steps later.
 
 JAX's `flagged_ranks` (which ranks flagged: the gather that feeds
-elastic resize) waits for ROADMAP A13 with elastic resize.
+elastic resize) waits for ROADMAP A13b with elastic resize.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""ZeRO-1/2 optimizer-state sharding over the data-parallel group — the
-counterpart of the JAX package's parallel/zero.py (:45–147).
+"""ZeRO-1/2/3 sharding over the data-parallel group — the counterpart of
+the JAX package's parallel/zero.py (:45–189).
 
     gradients (per replica)
       └─ flatten to one vector in the Flax leaf order, pad to a multiple of N
@@ -23,6 +23,12 @@ N, or the bucket-major flat vector of a `GradBucketLayout`.
 `convert_opt_state` (JAX `zero.py:189`) converts between any two, at
 any shard counts, by copies on the tensors' own device
 (checkpoint/retopology.py).
+
+Under ZeRO-3 (`mesh.shard_params`) the parameters and their EMA persist
+as the same (S,) shard of the same flat layout, gathered just in time
+by the step (parallel/buckets.py `gather_param_tree`); a checkpoint then
+holds them as the (T,) vector, and `convert_params` (JAX `zero.py:150`)
+converts them as `convert_opt_state` converts the momentum.
 """
 
 from __future__ import annotations
@@ -116,44 +122,31 @@ def unflatten(vec: torch.Tensor, like: Params, *,
     return layout.from_global(vec[:layout.total_padded])
 
 
-def convert_opt_state(trace: Union[Mapping[str, torch.Tensor],
-                                   torch.Tensor],
-                      params: Params, target_padded: Optional[int], *,
-                      src_bucket_layout: Optional[GradBucketLayout] = None,
-                      target_bucket_layout: Optional[GradBucketLayout] = None
-                      ) -> Union[Mapping[str, torch.Tensor], torch.Tensor]:
-    """Convert a momentum between its layouts (JAX `zero.py:189`): the
-    per-parameter tree (the port's name -> tensor in the port's layout,
-    as `TrainState.momentum()` gives it) <-> the canonical flat vector
-    padded to any multiple <-> the bucket-major flat vector of a
-    `GradBucketLayout`, at any shard count. `params` (the model or its
-    name -> tensor) gives the names and shapes.
-
-    `target_padded`: the target flat length (a bucket layout's
-    `total_padded` when `target_bucket_layout` is given; they must
-    agree), or None for the tree. `src_bucket_layout`: how to read a flat
-    source — None means the canonical order (the absent receipt).
-    Padding is zeros, which is what the momentum holds there (padding's
-    gradients are zero), so growing, shrinking or re-bucketing the pad
-    loses nothing. Every element is copied, never computed, so the
-    conversion is bit-exact."""
+def _convert(value: Union[Mapping[str, torch.Tensor], torch.Tensor],
+             params: Params, target_padded: Optional[int], what: str, *,
+             src_bucket_layout: Optional[GradBucketLayout],
+             target_bucket_layout: Optional[GradBucketLayout]
+             ) -> Union[Mapping[str, torch.Tensor], torch.Tensor]:
+    """The one conversion behind `convert_params` and `convert_opt_state`:
+    a tree or a flat vector in, the tree (`target_padded` None) or a flat
+    vector out, every element copied."""
     canonical = flat_layout(params, 1)   # the module names its heads
     total = canonical.total_padded
-    layout, padded_src = params_layout(trace, total)
+    layout, padded_src = params_layout(value, total)
     if layout == "flat":
-        vec = trace if isinstance(trace, torch.Tensor) else \
-            next(iter(trace.values()))
+        vec = value if isinstance(value, torch.Tensor) else \
+            next(iter(value.values()))
         if src_bucket_layout is not None:
             if padded_src != src_bucket_layout.total_padded:
                 raise ValueError(
                     f"src bucket layout total_padded="
                     f"{src_bucket_layout.total_padded} does not match the "
-                    f"saved flat vector length {padded_src}")
+                    f"saved flat {what} length {padded_src}")
             tree = src_bucket_layout.from_global(vec)
         else:
             tree = canonical.from_global(vec[:total])
     else:
-        tree = dict(trace)
+        tree = dict(value)
     if target_padded is None:
         return tree
     if target_bucket_layout is not None:
@@ -170,3 +163,49 @@ def convert_opt_state(trace: Union[Mapping[str, torch.Tensor],
     return torch.nn.functional.pad(
         canonical.to_global(canonical.leaves(tree)),
         (0, target_padded - total))
+
+
+def convert_params(params: Union[Mapping[str, torch.Tensor], torch.Tensor],
+                   params_struct: Params, target_padded: Optional[int], *,
+                   src_bucket_layout: Optional[GradBucketLayout] = None,
+                   target_bucket_layout: Optional[GradBucketLayout] = None
+                   ) -> Union[Mapping[str, torch.Tensor], torch.Tensor]:
+    """Convert a params (or EMA params) value between its layouts (JAX
+    `zero.py:150`): the replicated tree (the port's name -> tensor in the
+    port's layout) <-> the ZeRO-3 canonical flat vector padded to any
+    multiple <-> the bucket-major flat vector of a `GradBucketLayout`, at
+    any shard count. `params_struct` (a module, its meta twin, or a name
+    -> tensor mapping) gives the names and shapes. `target_padded` None
+    means the tree; `src_bucket_layout` says how to read a flat source
+    (None: the canonical order, the absent receipt). Pure copies, so the
+    conversion is bit-exact, on the tensors' own device; a length that
+    disagrees with a layout raises ValueError."""
+    return _convert(params, params_struct, target_padded, "params",
+                    src_bucket_layout=src_bucket_layout,
+                    target_bucket_layout=target_bucket_layout)
+
+
+def convert_opt_state(trace: Union[Mapping[str, torch.Tensor],
+                                   torch.Tensor],
+                      params: Params, target_padded: Optional[int], *,
+                      src_bucket_layout: Optional[GradBucketLayout] = None,
+                      target_bucket_layout: Optional[GradBucketLayout] = None
+                      ) -> Union[Mapping[str, torch.Tensor], torch.Tensor]:
+    """Convert a momentum between its layouts (JAX `zero.py:189`): the
+    per-parameter tree (the port's name -> tensor in the port's layout,
+    as `TrainState.momentum()` gives it) <-> the canonical flat vector
+    padded to any multiple <-> the bucket-major flat vector of a
+    `GradBucketLayout`, at any shard count. `params` (the model, its meta
+    twin or its name -> tensor) gives the names and shapes.
+
+    `target_padded`: the target flat length (a bucket layout's
+    `total_padded` when `target_bucket_layout` is given; they must
+    agree), or None for the tree. `src_bucket_layout`: how to read a flat
+    source — None means the canonical order (the absent receipt).
+    Padding is zeros, which is what the momentum holds there (padding's
+    gradients are zero), so growing, shrinking or re-bucketing the pad
+    loses nothing. Every element is copied, never computed, so the
+    conversion is bit-exact."""
+    return _convert(trace, params, target_padded, "vector",
+                    src_bucket_layout=src_bucket_layout,
+                    target_bucket_layout=target_bucket_layout)

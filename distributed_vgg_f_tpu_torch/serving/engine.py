@@ -168,8 +168,9 @@ class PredictEngine:
                      max_batch: Optional[int] = None) -> "PredictEngine":
         """Engine over the trainer's checkpoint, through the restore
         `run_predict` uses (train/predict.py `restore_predict_params`:
-        the EMA weights and statistics where the run tracks them), so the
-        server and offline predict answer from the same weights."""
+        the EMA weights and statistics where the run tracks them; a
+        ZeRO-3 checkpoint's flat params too), so the server and offline
+        predict answer from the same weights."""
         from distributed_vgg_f_tpu_torch.train.predict import \
             restore_predict_params
         cfg = trainer.cfg

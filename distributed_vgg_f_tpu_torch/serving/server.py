@@ -551,7 +551,8 @@ def serve_from_params(cfg, params, *, batch_stats=None, device="cuda",
 
 def serve_from_trainer(trainer, *, start: bool = True) -> PredictServer:
     """The `--mode serve` entry: one engine over the trainer's checkpoint
-    (run_predict's restore), routed under the configured model's name.
+    (run_predict's restore, which reads a ZeRO-3 checkpoint's flat params
+    as any other), routed under the configured model's name.
     With `serving.tiers.enabled` the tiers derivable from it are built
     over that base engine: bf16, and int8 for the vggf family; the
     student tier needs its own distilled weights (train/distill.py) and

@@ -7,8 +7,9 @@
 - **gauges** — last-write-wins instantaneous values (`set_gauge`).
 
 Names follow `<subsystem>/<metric>` (e.g. `serving/requests`). The
-checkpoint layer's and the snapshot cache's counters keep the JAX
-package's names (`CHECKPOINT_COUNTERS`, checkpoint/manager.py;
+checkpoint layer's, the exchange's and the snapshot cache's counters
+keep the JAX package's names (`CHECKPOINT_COUNTERS`,
+checkpoint/manager.py; `COMM_COUNTERS`, train/step.py;
 `SNAPSHOT_COUNTERS`, data/snapshot_cache.py). Stdlib only.
 """
 
@@ -27,6 +28,15 @@ CHECKPOINT_COUNTERS = ("checkpoint/saves", "checkpoint/save_retries",
                        "checkpoint/integrity_fallbacks",
                        "checkpoint/restores", "checkpoint/restore_ns",
                        "checkpoint/wait_ns")
+
+#: The exchange's counters (JAX `train/step.py:623–635`), added by every
+#: train step (train/step.py) from its `comm_meta`: steps through the
+#: exchange, their logical payload bytes, the param all-gathers (one a
+#: step for ZeRO-1/2's trailing re-sync, one a bucket a step for ZeRO-3's
+#: just-in-time gather, none under dp) and the gather leg's bytes; the
+#: gauges `comm/buckets_per_step` and `comm/bucket_mb` beside them.
+COMM_COUNTERS = ("comm/exchanges", "comm/wire_bytes", "comm/gathers",
+                 "comm/gather_wire_bytes")
 
 #: The snapshot cache's counters (JAX `data/snapshot_cache.py:671–674`):
 #: warm items served from the store, items that missed it (repaired or

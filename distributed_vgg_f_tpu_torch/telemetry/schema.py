@@ -8,7 +8,7 @@ non-finite value anywhere, the train record's `stall`, `augment`,
 block and `autotune_armed` receipt: JAX's `validate_autotune_actuation`,
 `_block` and `_receipt`), and the checkpoint's iterator-state blob
 (`validate_iterator_state_blob`). The port's records never carry the
-elastic and critical-path blocks (ROADMAP A13, A14c), so this validator
+elastic and critical-path blocks (ROADMAP A13b, A14c), so this validator
 does not check them. Each `validate_*` appends error strings
 (empty = valid). Stdlib only."""
 
@@ -188,7 +188,8 @@ def validate_comm_block(block: Any, where: str,
     """The train record's `comm` block (train/step.py `comm_meta`): the
     sharding basis, whether the exchange is bucketed, the bucket count
     and size, the collective payload bytes a step, the micro-batch count
-    and the param all-gathers a step."""
+    and the param all-gathers a step (0 under dp, ZeRO-1/2's one trailing
+    re-sync, one a bucket under ZeRO-3's just-in-time gather)."""
     if not isinstance(block, dict):
         errors.append(f"{where}: 'comm' not an object")
         return

@@ -80,8 +80,11 @@ def restore_predict_params(trainer) -> torch.nn.Module:
     latest, or the best slot with `train.restore_from_best`), holding the
     EMA weights and the EMA of the BatchNorm statistics when the run
     tracks them (JAX `train/predict.py:76–77`: the statistics swap with
-    the weights), in eval mode. Raises without a checkpoint: predict
-    never classifies with random weights."""
+    the weights), in eval mode. The weights come through
+    `trainer.params_tree` (under ZeRO-3, ranks restoring together, a
+    collective gather of the shards; a ZeRO-3 checkpoint restored by one
+    process is the tree already, checkpoint/retopology.py). Raises
+    without a checkpoint: predict never classifies with random weights."""
     if trainer.checkpoints is None \
             or trainer.checkpoints.latest_step() is None:
         raise RuntimeError(
@@ -90,10 +93,12 @@ def restore_predict_params(trainer) -> torch.nn.Module:
             "(set train.checkpoint_dir)")
     state = trainer.restore_or_init()
     model = state.model
-    if state.ema_params is not None:
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.copy_(state.ema_params[name])
+    ema = state.ema_params is not None
+    tree = trainer.params_tree(state, ema=ema)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.data = tree[name]
+        if ema:
             stats = state.batch_stats
             for name, v in (state.ema_batch_stats or {}).items():
                 stats[name].copy_(v)

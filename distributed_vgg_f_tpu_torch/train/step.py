@@ -26,6 +26,17 @@ The exchange follows JAX `train/step.py:360–531`:
   the shard is clipped and updated by the optimizer over the state's
   parameter shard, then all-gathered in fp32 (never narrowed) back into
   the model's parameters.
+- ZeRO-3 (`shard_params`, JAX `train/step.py:147–160, 380–405, 481–504`):
+  the state's (S,) shard is the parameters' one copy. The step gathers
+  them once, up front and outside the micro-batch loop: one all-gather
+  per bucket (one of the canonical vector unbucketed), issued async in
+  the order the forward consumes the buckets and all waited on before
+  the forward (parallel/buckets.py `gather_param_tree`), on the
+  `mesh.reduce_dtype` wire. The gradient side is ZeRO-2's; the gathered
+  buffers are released once the scatter is done, the optimizer steps the
+  resident shard and no trailing gather follows. The EMA is an (S,)
+  shard updated from the new shard. At an fp32 wire the step is ZeRO-2's
+  arithmetic on the same values, so the two agree bit for bit.
 
 Each bucket's collective is issued, async, from the parameters'
 post-accumulate-grad hooks as soon as its last gradient lands; bucket 0
@@ -33,7 +44,7 @@ post-accumulate-grad hooks as soon as its last gradient lands; bucket 0
 handle is waited on before the norm. Under ZeRO-2 a leaf's `.grad` is
 released once its bucket holds it: no full gradient tree outlives the
 backward. `mesh.reduce_dtype="bfloat16"` narrows every exchange leg
-(parallel/collectives.py `cast_to_wire`) but the param gather.
+(parallel/collectives.py `cast_to_wire`) but ZeRO-1/2's param gather.
 
 Grad accumulation (`grad_accum_steps=k`) splits the local batch into k
 micro-batches after the finish and the augment (mixup pairs over the
@@ -71,6 +82,7 @@ from typing import Callable, Mapping, Optional
 
 import torch
 
+from distributed_vgg_f_tpu_torch import telemetry
 from distributed_vgg_f_tpu_torch.data.augment import AUGMENT_RNG_FOLD
 from distributed_vgg_f_tpu_torch.device import resolve_device
 from distributed_vgg_f_tpu_torch.ops.losses import (l2_regularization,
@@ -166,11 +178,17 @@ def build_train_step(schedule: Callable[[int], float],
     bucket) as each collective is issued. Metric values are tensors on
     the device (the guard and the log read them) except `lr` and
     `bad_step`, which are Python floats. The step's static exchange
-    receipt is `train_step.comm_meta` (filled at the first call)."""
-    if shard_params:
-        raise NotImplementedError(
-            "mesh.shard_params (ZeRO-3): parameter sharding is not ported "
-            "yet (ROADMAP A13)")
+    receipt is `train_step.comm_meta` (filled at the first call); each
+    call adds it to the `comm/*` counters (telemetry/registry.py
+    `COMM_COUNTERS`). Under `shard_params` the state comes from
+    `create_sharded(..., shard_params=True)` and `event_log` also gets
+    ("gather", bucket) as each gather is issued."""
+    if shard_params and not (zero1 and shard_gradients):
+        raise ValueError(
+            "shard_params (ZeRO-3) requires shard_gradients (ZeRO-2) — the "
+            "sharding ladder is cumulative; params sharded without a "
+            "sharded gradient frame would re-materialize O(params) "
+            "gradient state every step")
     if grad_accum_steps < 1:
         raise ValueError(f"grad_accum_steps must be >= 1, got "
                          f"{grad_accum_steps}")
@@ -202,6 +220,8 @@ def build_train_step(schedule: Callable[[int], float],
     layouts: dict = {}
 
     def layout_for(model):
+        # `model` gives the shapes: the state's model, or under ZeRO-3 its
+        # meta twin (the model's parameters are zero-size between steps)
         sig = tuple((name, tuple(p.shape))
                     for name, p in model.named_parameters())
         lay = layouts.get(sig)
@@ -217,16 +237,20 @@ def build_train_step(schedule: Callable[[int], float],
             comm_meta.update({
                 # the EFFECTIVE basis (the caller passes post-downgrade
                 # flags)
-                "sharding": sharding_basis(zero1, zero1 and shard_gradients),
+                "sharding": sharding_basis(zero1, zero1 and shard_gradients,
+                                           shard_params),
                 "bucketed": bucket_bytes > 0,
                 "buckets": (lay.num_buckets if bucket_bytes > 0
                             else (1 if zero1 else len(lay.keys))),
                 "bucket_mb": float(comm_bucket_mb or 0.0),
                 "reduce_dtype": reduce_dtype or "float32",
                 "grad_accum_steps": k,
-                # the one trailing (S,) re-sync gather under ZeRO-1/2
-                "gathers": 1 if zero1 else 0,
-                **lay.wire_bytes_per_step(zero=zero1, wire_dtype=wire)})
+                # ZeRO-3's just-in-time gather, one a bucket; the one
+                # trailing (S,) re-sync gather under ZeRO-1/2
+                "gathers": (lay.num_buckets if shard_params
+                            else 1 if zero1 else 0),
+                **lay.wire_bytes_per_step(zero=zero1, wire_dtype=wire,
+                                          shard_params=shard_params)})
             if grad_accum_shard:   # k micro-scatters a step
                 comm_meta["scatter_bytes"] *= k
                 comm_meta["wire_bytes"] = (comm_meta["scatter_bytes"]
@@ -245,7 +269,7 @@ def build_train_step(schedule: Callable[[int], float],
             images, mix_labels, mix_lam = device_augment(
                 (rseed, step, AUGMENT_RNG_FOLD), images, labels)
         model, opt = state.model, state.optimizer
-        lay = layout_for(model)
+        lay = layout_for(state.shapes)
         if zero1 and (state.param_shard is None or state.layout != lay):
             raise ValueError(
                 "a ZeRO step needs a state from TrainState.create_sharded "
@@ -254,12 +278,22 @@ def build_train_step(schedule: Callable[[int], float],
         if not zero1 and state.param_shard is not None:
             raise ValueError("a sharded (ZeRO) state given to a replicated "
                              "step")
+        if state.shard_params != shard_params:
+            raise ValueError(
+                f"a state with shard_params={state.shard_params} given to a "
+                f"step with shard_params={shard_params}: ZeRO-3 needs "
+                "TrainState.create_sharded(..., shard_params=True) and the "
+                "step's shard_params both")
         b = images.shape[0]
         if b % k:
             raise ValueError(f"per-rank batch {b} not divisible by "
                              f"grad_accum_steps={k}")
         micro = b // k
         leaves = lay.leaves(model)
+        if shard_params:
+            # once a step, outside the micro-batch loop: the params cannot
+            # change within it
+            state.gather_params(wire_dtype=reduce_dtype, events=event_log)
         if zero1:
             for p in leaves:
                 p.grad = None
@@ -312,6 +346,8 @@ def build_train_step(schedule: Callable[[int], float],
             {"loss": loss, "l2_loss": l2_loss, "top1": top1}, group)
         if zero1:
             grad_shard = acc.div_(k) if grad_accum_shard else ex.finish()
+            if shard_params:
+                state.release_params()
             sq = torch.sum(grad_shard * grad_shard)
             all_reduce_sum(sq, group)
             grad_norm = torch.sqrt(sq)
@@ -342,15 +378,20 @@ def build_train_step(schedule: Callable[[int], float],
                 state.param_shard.grad = grad_shard
                 opt.step()
                 state.param_shard.grad = None
-                lay.gather_params(state.param_shard, leaves, group)
+                if not shard_params:
+                    lay.gather_params(state.param_shard, leaves, group)
             else:
                 opt.step()
             state.opt_count += 1
             if ema_decay > 0.0 and state.ema_params is not None:
                 with torch.no_grad():
-                    for name, p in model.named_parameters():
-                        state.ema_params[name].mul_(ema_decay).add_(
-                            p, alpha=1.0 - ema_decay)
+                    if shard_params:   # the (S,) EMA from the new shard
+                        state.ema_params.mul_(ema_decay).add_(
+                            state.param_shard, alpha=1.0 - ema_decay)
+                    else:
+                        for name, p in model.named_parameters():
+                            state.ema_params[name].mul_(ema_decay).add_(
+                                p, alpha=1.0 - ema_decay)
                     # the statistics' EMA, with the same decay (JAX
                     # `train/step.py:546–551`)
                     for name, v in stats.items():
@@ -361,6 +402,14 @@ def build_train_step(schedule: Callable[[int], float],
                 for name, v in stats.items():
                     v.copy_(stats_before[name])
         state.step += 1
+        telemetry.inc("comm/exchanges")
+        telemetry.inc("comm/wire_bytes", comm_meta["wire_bytes"])
+        if comm_meta["gathers"]:
+            telemetry.inc("comm/gathers", comm_meta["gathers"])
+            telemetry.inc("comm/gather_wire_bytes", comm_meta["gather_bytes"])
+        reg = telemetry.get_registry()
+        reg.set_gauge("comm/buckets_per_step", comm_meta["buckets"])
+        reg.set_gauge("comm/bucket_mb", comm_meta["bucket_mb"])
         return state, metrics
 
     train_step.comm_meta = comm_meta
@@ -374,10 +423,21 @@ def build_eval_step(device_finish: Optional[Callable] = None, *,
     eval forward, with `batch['valid']` (optional) masking padding rows.
     `use_ema` scores the EMA weights, with the EMA of the BatchNorm
     statistics, instead of the raw ones; BatchNorm reads its running
-    statistics either way."""
+    statistics either way. Under ZeRO-3 it gathers the exact fp32
+    weights (or the EMA) and releases them afterwards, as JAX's
+    `_param_gather` does (`trainer.py:363–380`), unless the caller holds
+    them gathered (`TrainState.gathered`, once an eval pass): a gather is
+    collective."""
     dev = resolve_device("cuda" if device is None else device)
 
     def eval_step(state: TrainState, batch: Batch, use_ema: bool = False):
+        if use_ema and state.ema_params is None:
+            raise ValueError("use_ema=True but the state has no EMA "
+                             "(train.ema_decay is 0)")
+        with state.gathered(ema=use_ema):
+            return _eval(state, batch, use_ema)
+
+    def _eval(state: TrainState, batch: Batch, use_ema: bool):
         with torch.inference_mode():
             images = _to_device(batch["image"], dev)
             labels = _to_device(batch["label"], dev).long()
@@ -386,13 +446,12 @@ def build_eval_step(device_finish: Optional[Callable] = None, *,
             valid = batch.get("valid")
             valid = None if valid is None else _to_device(valid, dev).bool()
             if use_ema:
-                if state.ema_params is None:
-                    raise ValueError("use_ema=True but the state has no EMA "
-                                     "(train.ema_decay is 0)")
                 # the averaged weights with the averaged statistics (JAX
-                # `train/trainer.py:1766`)
+                # `train/trainer.py:1766`); under ZeRO-3 the model holds
+                # the gathered EMA weights
                 logits = torch.func.functional_call(
-                    state.model, {**state.ema_params,
+                    state.model, {**({} if state.shard_params
+                                     else state.ema_params),
                                   **(state.ema_batch_stats or {})},
                     (images,))
             else:

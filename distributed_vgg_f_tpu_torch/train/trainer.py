@@ -8,10 +8,16 @@ device (CUDA unless `device="cpu"`). With a process group up
 process, or gloo on the CPU) each process is one replica of N: its
 dataset yields its local `global_batch_size / N` rows (the JAX
 multi-host convention), the step exchanges gradients over the group with
-the config's mesh (ZeRO-1/2, buckets, the wire; train/step.py), and the
-meter counts the global batch. On one process ZeRO downgrades to
+the config's mesh (ZeRO-1/2/3, buckets, the wire; train/step.py), and
+the meter counts the global batch. On one process ZeRO downgrades to
 replicated SGD, as the JAX trainer does on a one-shard mesh:
-`zero1 = shard_opt_state and N > 1`. `init_state(seed)` builds a model
+`zero1 = shard_opt_state and N > 1`, and the ladder with it (`zero3 =
+zero2 and shard_params`). Under ZeRO-3 the state keeps the parameters
+and their EMA as this rank's (S,) shards only (train/state.py), every
+checkpoint carries the `param_layout` receipt, an eval pass gathers the
+exact weights once and releases them, and `params_tree(state)` gives the
+whole tree for the offline surfaces (predict, serving).
+`init_state(seed)` builds a model
 with seeded params (weights.init_params) on that device, its optimizer
 (over this rank's flat shard under ZeRO) and the optional EMA;
 `restore_or_init()` restores the newest intact checkpoint of
@@ -92,9 +98,10 @@ Checkpoints (JAX `trainer.py:254–259, 418–576, 637–664, 1404–1456,
 (checkpoint/manager.py) is offered the state after every step and keeps
 those at `checkpoint_every_steps`, and the end of a run that was not
 preempted forces a save and `wait()`s for it. Each save's `extra` holds
-`examples_seen`, the ZeRO-2 bucket receipt `opt_layout` and, on the
-trainer-owned feed, the iterator blob. Under a process group every rank calls `save` and the restore,
-which are collective; rank 0 writes.
+`examples_seen`, the ZeRO-2 bucket receipt `opt_layout`, ZeRO-3's
+`param_layout` and, on the trainer-owned feed, the iterator blob. Under
+a process group every rank calls `save` and the restore, which are
+collective; rank 0 writes.
 
 `evaluate(state, dataset, num_batches=None, use_ema=None, step=None)`
 (JAX `trainer.py:1734–1815`) scores a finite dataset exactly, to its
@@ -104,7 +111,7 @@ averaged weights and the averaged statistics together.
 
 Records go to `self.records` (as ``{"event": ..., **payload}``) and to
 the optional `log(event, payload)` callable on rank 0 only, as the JAX
-package logs on process 0. Elastic resize and ZeRO-3 (ROADMAP A13), the
+package logs on process 0. Elastic resize (ROADMAP A13b), the
 collector, the flight recorder and `/autotunez` (A14c) are not ported
 yet.
 """
@@ -194,10 +201,10 @@ class Trainer:
                 f"(got model={cfg.model.name!r}, "
                 f"image_size={cfg.data.image_size}, "
                 f"dataset={cfg.data.name!r})")
-        if mesh.shard_params or mesh.elastic.enabled:
+        if mesh.elastic.enabled:
             raise NotImplementedError(
-                "mesh.shard_params (ZeRO-3) and mesh.elastic are not ported "
-                "yet (ROADMAP A13)")
+                "mesh.elastic (live elastic resize) is not ported yet "
+                "(ROADMAP A13b)")
         if cfg.train.grad_accum_shard and not (mesh.shard_opt_state
                                                and k > 1):
             raise ValueError(
@@ -212,6 +219,9 @@ class Trainer:
         # one shard: ZeRO has nothing to shard and runs as replicated SGD
         self.zero1 = mesh.shard_opt_state and self.num_shards > 1
         self.zero2 = self.zero1 and mesh.shard_gradients
+        # ZeRO-3: params and EMA persist as 1/N shards, gathered just in
+        # time; downgrades with the ladder
+        self.zero3 = self.zero2 and mesh.shard_params
         self.schedule = build_schedule(cfg)
         self.device_finish = make_device_finish(
             cfg.data.mean_rgb, cfg.data.stddev_rgb,
@@ -226,6 +236,7 @@ class Trainer:
             device_finish=self.device_finish,
             device_augment=self.device_augment,
             zero1=self.zero1, shard_gradients=self.zero2,
+            shard_params=self.zero3,
             comm_bucket_mb=mesh.comm_bucket_mb, grad_accum_steps=k,
             grad_accum_shard=cfg.train.grad_accum_shard and self.zero1,
             reduce_dtype=mesh.reduce_dtype, device=self.device)
@@ -275,7 +286,7 @@ class Trainer:
             return TrainState.create_sharded(
                 model, lambda params: build_optimizer(cfg, params)[0],
                 zero_layout(model, self.num_shards, cfg.mesh.comm_bucket_mb),
-                ema=ema)
+                ema=ema, shard_params=self.zero3)
         opt, _ = build_optimizer(cfg, model.parameters())
         return TrainState.create(model, opt, ema=ema)
 
@@ -339,13 +350,33 @@ class Trainer:
         return state
 
     def _opt_layout_extra(self, state: TrainState) -> dict:
-        """The ZeRO-2 bucket receipt: a bucket-major flat momentum cannot
-        be told from the canonical one by its shape, so every checkpoint of
-        the bucketed ZeRO exchange carries its geometry (absent = the
-        canonical layout)."""
+        """The layout receipts (JAX `trainer.py:560–585`): a bucket-major
+        flat momentum cannot be told from the canonical one by its shape,
+        so every checkpoint of the bucketed ZeRO exchange carries its
+        geometry, `opt_layout` (absent = the canonical layout); under
+        ZeRO-3 the saved params are the flat vector too, and
+        `param_layout` names its kind (`bucketed_flat`, whose geometry is
+        `opt_layout`'s, or `canonical_flat`), the shard count and its
+        length (absent = params saved as the tree)."""
+        extra = {}
         if state.layout is not None and state.layout.bucket_bytes > 0:
-            return {"opt_layout": state.layout.describe()}
-        return {}
+            extra["opt_layout"] = state.layout.describe()
+        if state.shard_params:
+            extra["param_layout"] = {
+                "kind": ("bucketed_flat" if state.layout.bucket_bytes > 0
+                         else "canonical_flat"),
+                "num_shards": state.layout.num_shards,
+                "total_padded": state.layout.total_padded}
+        return extra
+
+    def params_tree(self, state: TrainState, *,
+                    ema: bool = False) -> dict:
+        """The parameters (or with `ema` the EMA) as the whole tree, the
+        port's name -> tensor, for the offline surfaces (predict,
+        serving) that run outside the step: under ZeRO-3 read out of the
+        gathered (T,) vector through the layout (collective: every rank
+        calls it), otherwise the model's own (JAX `trainer.py:385`)."""
+        return state.params_tree(ema=ema)
 
     def _save_extra(self, state: TrainState, next_step: int,
                     ingest: Optional[ResumableIngest]) -> dict:
@@ -765,16 +796,19 @@ class Trainer:
             totals.add_(torch.stack([counts[k].to(self.device)
                                      for k in ("top1", "top5", "count")]))
 
-        if num_batches is None and getattr(dataset, "is_finite", False):
-            for batch in dataset:
-                accumulate(batch)
-        else:
-            if num_batches is None:
-                num_batches = max(1, cfg.data.num_eval_examples
-                                  // cfg.data.global_batch_size)
-            it = iter(dataset)
-            for _ in range(int(num_batches)):
-                accumulate(next(it))
+        # ZeRO-3: one gather for the pass, on every rank, however many
+        # batches each rank's shard of the split holds
+        with state.gathered(ema=use_ema):
+            if num_batches is None and getattr(dataset, "is_finite", False):
+                for batch in dataset:
+                    accumulate(batch)
+            else:
+                if num_batches is None:
+                    num_batches = max(1, cfg.data.num_eval_examples
+                                      // cfg.data.global_batch_size)
+                it = iter(dataset)
+                for _ in range(int(num_batches)):
+                    accumulate(next(it))
         fn = getattr(dataset, "decode_errors", None)
         top1, top5, count, de = self._group_sum(
             totals.tolist() + [fn() if callable(fn) else 0])

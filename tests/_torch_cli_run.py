@@ -8,10 +8,16 @@ Run as a script it is one CPU rank of the command line:
     python tests/_torch_cli_run.py ARGS...     # cli.main(ARGS, device="cpu")
 
 with DVGGF_SIGTERM_AT="RANK:STEP" in its environment, rank RANK sends
-itself SIGTERM after step STEP.
+itself SIGTERM after step STEP; with DVGGF_CLI_DEVICE=cuda it runs on
+the card (cuDNN's deterministic algorithms with
+DVGGF_CUDNN_DETERMINISTIC=1); with DVGGF_CLI_STATS=DIR each rank writes
+DIR/rank<r>.json at exit: after each train step the memory allocated on
+the card, the bytes the model's parameters hold and the bytes of the
+parameter shard and its EMA (tests/test_torch_cuda.py's ZeRO-3 case).
 
-`cli_scenario(tmp_path, device, ...)` packs TFRecords of the JPEG fixture
-(4 train shards and 4 validation shards), then:
+`cli_scenario(tmp_path, device, ..., sets=())` packs TFRecords of the
+JPEG fixture (4 train shards and 4 validation shards), then, with the
+`--set` items of `sets` added to every command:
 
 (a) trains 40 steps under torchrun (4 ranks) with an eval every 10, a
     record every step and a checkpoint every 10, and SIGTERMs rank 2
@@ -96,7 +102,8 @@ def _pack(data, shards):
                  prefix="validation")
 
 
-def cli_scenario(tmp_path, device="cpu", shards=(12, 5), timeout=900):
+def cli_scenario(tmp_path, device="cpu", shards=(12, 5), timeout=900,
+                 sets=()):
     from distributed_vgg_f_tpu_torch.checkpoint.manager import \
         CheckpointManager
     from distributed_vgg_f_tpu_torch.telemetry.schema import \
@@ -118,6 +125,7 @@ def cli_scenario(tmp_path, device="cpu", shards=(12, 5), timeout=900):
         if shards[0] * 4 != 48:
             raise ValueError("the CPU narrowing reads 48 train records")
         narrow = NARROW
+    narrow = [*narrow, *sets]
 
     def argv(ck, *extra, log_every=5):
         return ["--config", "vggf_imagenet_dp",
@@ -256,9 +264,64 @@ def _sigterm_after(rank, step):
     mod.Trainer = Signalling
 
 
+def _record_stats(out_dir):
+    """Make this process's Trainers record, after each train step, the
+    memory the card holds and what the state's parameters hold; written to
+    `out_dir`/rank<r>.json at exit."""
+    import atexit
+
+    import torch
+
+    from distributed_vgg_f_tpu_torch.train import trainer as mod
+    base = mod.Trainer
+    rows = []
+
+    def shard_bytes(t):
+        return 0 if not isinstance(t, torch.Tensor) else 4 * t.numel()
+
+    class Recording(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            inner = self.train_step
+
+            def train_step(state, batch, seed):
+                state, metrics = inner(state, batch, seed)
+                torch.cuda.synchronize()
+                rows.append({
+                    "rank": self.rank, "step": state.step,
+                    "allocated": torch.cuda.memory_allocated(),
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "param_storage": sum(p.untyped_storage().nbytes()
+                                         for p in state.model.parameters()),
+                    "param_numel": sum(p.numel() for p in
+                                       state.shapes.parameters()),
+                    "shard": shard_bytes(state.param_shard),
+                    "ema_shard": shard_bytes(state.ema_params),
+                    "sharding": inner.comm_meta.get("sharding")})
+                return state, metrics
+
+            train_step.comm_meta = inner.comm_meta
+            self.train_step = train_step
+
+    def dump():
+        if rows:
+            with open(os.path.join(out_dir, f"rank{rows[0]['rank']}.json"),
+                      "w") as f:
+                json.dump(rows, f)
+
+    atexit.register(dump)
+    mod.Trainer = Recording
+
+
 if __name__ == "__main__":
     sys.path.insert(0, REPO)
     from distributed_vgg_f_tpu_torch import cli
     if os.environ.get("DVGGF_SIGTERM_AT"):
         _sigterm_after(*map(int, os.environ["DVGGF_SIGTERM_AT"].split(":")))
-    cli.main(sys.argv[1:], device="cpu")
+    if os.environ.get("DVGGF_CLI_STATS"):
+        _record_stats(os.environ["DVGGF_CLI_STATS"])
+    device = os.environ.get("DVGGF_CLI_DEVICE", "cpu")
+    if device == "cuda" and os.environ.get("DVGGF_CUDNN_DETERMINISTIC"):
+        import torch
+        torch.backends.cudnn.deterministic = True
+    cli.main(sys.argv[1:], device=device)

@@ -12,18 +12,21 @@ name `init_seed` (weights.init_params) and `u8_seed` (seeded u8 batches
 made here, through the device finish) instead, `compute_dtype`, and
 `rank0_params` (only rank 0 writes its params and no momentum; every
 rank writes their float64 sum). On the card TF32 is off. Each case names its exchange
-(`zero1`, `zero2`, `bucket_mb`, `accum`, `accum_shard`, `reduce_dtype`),
-its `steps`, and optionally `dropout`, `skip_nonfinite`, a `nan` [rank,
+(`zero1`, `zero2`, `zero3`, `bucket_mb`, `accum`, `accum_shard`,
+`reduce_dtype`), its `steps`, and optionally `ema` (the decay),
+`dropout`, `skip_nonfinite`, a `nan` [rank,
 step] whose local batch gets a NaN, `events` (record the step's hook
 events on the first step), `masks` (record the dropout keep-masks), a
 `resume` prefix (params ``<resume>/params/...``, the JAX ZeRO momentum
 trace ``<resume>/trace``, `resume_step`) and `seed`. A case with
-`trainer` instead runs Trainer.fit on the flagship preset with its own
-mesh for `steps` steps on this rank's share of a seeded u8 batch, and
+`trainer` instead runs Trainer.fit on that preset (with its dotted
+`overrides`) and its own mesh for `steps` steps on this rank's share of
+a seeded u8 batch, and
 writes the step times, losses, peak memory, LRN launches and the step's
 `comm_meta`. A case with `checkpoint` (a directory) runs
-`Trainer.fit()` with no state on `checkpoint_config(spec, case)` (ZeRO-2
-over `bucket_mb` buckets at the group's size, checkpoints in that
+`Trainer.fit()` with no state on `checkpoint_config(spec, case)` (ZeRO-2,
+or with `zero3` ZeRO-3, or with `zero1_only` ZeRO-1, over `bucket_mb`
+buckets at the group's size, `ema` the EMA decay, checkpoints in that
 directory every `every` steps): it restores the directory's newest
 intact step or starts fresh, and trains to `steps` on global batches
 `first_batch` onwards (with `restore_only` it only restores); with
@@ -34,7 +37,11 @@ batch.
 For each case every rank writes, to OUT_DIR/rank<r>.npz: `<case>/loss`,
 `<case>/grad_norm`, `<case>/bad_step` (one value a step, the metrics the
 step returns), `<case>/params/<name>` (the port's state_dict after the
-last step), `<case>/momentum` ((T,) flat under ZeRO, gathered; the
+last step; under ZeRO-3 gathered), `<case>/ema/<name>` with an EMA,
+`<case>/resident` (under ZeRO-3: the bytes the model's parameters held
+after each step, then the shard's and the EMA shard's elements),
+`<case>/comm` (the `comm/*` counters' moves over the case),
+`<case>/momentum` ((T,) flat under ZeRO, gathered; the
 per-leaf buffers as `<case>/momentum/<name>` otherwise), `<case>/snap<i>`
 (params and momentum flattened after step i, with `nan`), and the events
 and masks when asked; a checkpoint case also `<case>/shard` (this rank's
@@ -143,16 +150,26 @@ def checkpoint_config(spec: dict, case: dict):
         data=tcfg.DataConfig(name="synthetic", image_size=spec["size"],
                              global_batch_size=spec["batch"],
                              num_train_examples=4 * spec["batch"]),
-        mesh=tcfg.MeshConfig(shard_opt_state=True, shard_gradients=True,
-                             comm_bucket_mb=case.get("bucket_mb", 0.0)),
-        train=tcfg.TrainConfig(**train))
+        mesh=tcfg.MeshConfig(
+            shard_opt_state=True,
+            shard_gradients=not case.get("zero1_only", False),
+            shard_params=case.get("zero3", False),
+            comm_bucket_mb=case.get("bucket_mb", 0.0)),
+        train=tcfg.TrainConfig(ema_decay=case.get("ema", 0.0), **train))
+
+
+def state_values(state) -> dict:
+    """The model's state_dict; a ZeRO-3 state's parameters gathered into
+    it (collective)."""
+    tree = state.params_tree() if state.shard_params else {}
+    return {k: tree.get(k, v) for k, v in state.model.state_dict().items()}
 
 
 def state_digests(state, num_shards: int, comm_bucket_mb: float) -> dict:
     """SHA-256 of the params (state_dict order) and of the (T,) momentum
     in the `num_shards`-rank layout: one card's restore is held to a
     group's with them."""
-    out = {"params_sha": _sha(state.model.state_dict().values())}
+    out = {"params_sha": _sha(state_values(state).values())}
     if state.param_shard is not None:
         out["momentum_sha"] = _sha([state.momentum_global()])
     else:
@@ -184,8 +201,12 @@ def _state_out(prefix: str, trainer, state, digest: bool = False) -> dict:
             out[f"{prefix}/{k}"] = np.array(v)
         out[f"{prefix}/shard_sha"] = np.array(_sha([state.momentum_shard()]))
         return out
-    for k, v in state.model.state_dict().items():
+    for k, v in state_values(state).items():
         out[f"{prefix}/params/{k}"] = v.cpu().numpy()
+    if state.ema_params is not None:
+        for k, v in state.params_tree(ema=True).items():
+            out[f"{prefix}/ema/{k}"] = v.cpu().numpy()
+    out[f"{prefix}/shard_params"] = np.array(state.shard_params)
     if state.param_shard is not None:
         out[f"{prefix}/shard"] = state.momentum_shard().cpu().numpy()
         out[f"{prefix}/momentum"] = state.momentum_global().cpu().numpy()
@@ -267,8 +288,7 @@ def run_fit(case: dict, rank: int, dev: torch.device) -> dict:
             [r for r in trainer.records if r["event"] != "train"])),
         f"{name}/images": np.stack([i for i, _ in seen]),
         f"{name}/labels": np.stack([la for _, la in seen]),
-        f"{name}/params_sha": np.array(_sha(
-            state.model.state_dict().values()))}
+        f"{name}/params_sha": np.array(_sha(state_values(state).values()))}
 
 
 def run_eval(case: dict, dev: torch.device) -> dict:
@@ -392,14 +412,17 @@ def run_case(case: dict, spec: dict, data, rank: int, world: int,
             else initial_tree(spec, data))
     model = make_model(spec, tree, dropout).to(dev)
     zero1 = case.get("zero1", False)
+    zero3 = case.get("zero3", False)
+    ema = case.get("ema", 0.0)
     bucket_mb = case.get("bucket_mb", 0.0)
     if zero1:
         state = TrainState.create_sharded(
             model, lambda ps: build_optimizer(cfg, ps)[0],
-            zero_layout(model, world, bucket_mb))
+            zero_layout(model, world, bucket_mb), ema=ema > 0,
+            shard_params=zero3)
     else:
         state = TrainState.create(
-            model, build_optimizer(cfg, model.parameters())[0])
+            model, build_optimizer(cfg, model.parameters())[0], ema=ema > 0)
     schedule = lambda s: float(spec["lr"])  # noqa: E731
     if resume:
         trace = types.SimpleNamespace(trace=data[f"{resume}/trace"])
@@ -411,7 +434,8 @@ def run_case(case: dict, spec: dict, data, rank: int, world: int,
         schedule, cfg.optim.weight_decay,
         grad_clip_norm=cfg.optim.grad_clip_norm,
         skip_nonfinite=case.get("skip_nonfinite", False), zero1=zero1,
-        shard_gradients=case.get("zero2", False), comm_bucket_mb=bucket_mb,
+        shard_gradients=case.get("zero2", False) or zero3,
+        shard_params=zero3, ema_decay=ema, comm_bucket_mb=bucket_mb,
         grad_accum_steps=case.get("accum", 1),
         grad_accum_shard=case.get("accum_shard", False),
         reduce_dtype=case.get("reduce_dtype", "float32"), event_log=events,
@@ -426,6 +450,8 @@ def run_case(case: dict, spec: dict, data, rank: int, world: int,
             return y
         model._dropout = recorded
     out = {}
+    comm0 = _comm_counts()
+    resident = []
     losses, norms, bad = [], [], []
     local = spec["batch"] // world
     nan = case.get("nan")
@@ -444,21 +470,36 @@ def run_case(case: dict, spec: dict, data, rank: int, world: int,
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         bad.append(float(m.get("bad_step", 0.0)))
+        if zero3:
+            resident.append(sum(p.untyped_storage().nbytes()
+                                for p in model.parameters()))
         if nan is not None:
             mom = (state.momentum_shard() if zero1
                    else torch.cat([v.reshape(-1) for v in
                                    state.momentum().values()]))
+            held = ([state.param_shard] + ([state.ema_params] if ema else [])
+                    if zero3 else list(model.parameters()))
             out[f"{name}/snap{i}"] = np.concatenate(
-                [_flat(model.parameters()), _flat([mom]),
-                 [state.opt_count]])
+                [_flat(held), _flat([mom]), [state.opt_count]])
     out[f"{name}/loss"] = np.array(losses)
     out[f"{name}/grad_norm"] = np.array(norms)
     out[f"{name}/bad_step"] = np.array(bad)
+    out[f"{name}/comm"] = np.array(json.dumps(
+        {k: v - comm0[k] for k, v in _comm_counts().items()}))
+    if zero3:
+        out[f"{name}/resident"] = np.array(resident + [
+            state.param_shard.numel(),
+            state.ema_params.numel() if ema else 0])
+    values = state_values(state)
     out[f"{name}/param_sum"] = np.array(sum(
-        float(p.double().sum()) for p in model.parameters()))
-    for k, v in model.state_dict().items():
+        float(values[k].double().sum()) for k, _ in
+        state.shapes.named_parameters()))
+    for k, v in values.items():
         if rank == 0 or not spec.get("rank0_params"):
             out[f"{name}/params/{k}"] = v.cpu().numpy()
+    if ema:
+        for k, v in state.params_tree(ema=True).items():
+            out[f"{name}/ema/{k}"] = v.cpu().numpy()
     if spec.get("rank0_params"):
         pass
     elif zero1:
@@ -472,6 +513,12 @@ def run_case(case: dict, spec: dict, data, rank: int, world: int,
     return out
 
 
+def _comm_counts() -> dict:
+    from distributed_vgg_f_tpu_torch.telemetry import get_registry
+    from distributed_vgg_f_tpu_torch.telemetry.registry import COMM_COUNTERS
+    return {k: get_registry().counter_value(k, 0) for k in COMM_COUNTERS}
+
+
 def run_trainer(case: dict, spec: dict, rank: int, world: int,
                 dev: torch.device) -> dict:
     """Trainer.fit on the preset, its own mesh, over the group."""
@@ -480,7 +527,8 @@ def run_trainer(case: dict, spec: dict, rank: int, world: int,
     from distributed_vgg_f_tpu_torch.data.synthetic import SyntheticU8
     from distributed_vgg_f_tpu_torch.ops import lrn_cuda
     from distributed_vgg_f_tpu_torch.train.trainer import Trainer
-    cfg = tcfg.get_config(case["trainer"])
+    cfg = tcfg.apply_overrides(tcfg.get_config(case["trainer"]),
+                               case.get("overrides", {}))
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, log_every=1))
     stamps = []

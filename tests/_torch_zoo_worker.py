@@ -24,8 +24,9 @@ rank when the last argument is "cuda" (TF32 off there).
   `steps` steps from `first_batch`, from `restore_or_init()` (a
   checkpoint directory in the overrides resumes); writes `loss`,
   `bad_step`, `restored_step` (-1 for a fresh start), `step`,
-  `params/<name>` and `stats/<name>` (the state_dict's parameters and
-  BatchNorm buffers), `ema_stats/<name>` with an EMA, `comm_meta`, and
+  `params/<name>` and `stats/<name>` (the state_dict's parameters,
+  gathered under ZeRO-3, and BatchNorm buffers), `ema/<name>` and
+  `ema_stats/<name>` with an EMA, `comm_meta`, and
   the SHA-256 of the statistics' bytes (`stats_sha`).
 - `timed`: `Trainer.fit` on `preset` at its own config (overrides
   allowed) for `steps` steps on this rank's share of a seeded u8 batch;
@@ -135,8 +136,11 @@ def run_fit(case, data, rank, world, dev):
         f"{name}/comm_meta": np.array(json.dumps(
             trainer.train_step.comm_meta)),
     }
-    for k, p in state.model.named_parameters():
+    for k, p in state.params_tree().items():
         out[f"{name}/params/{k}"] = p.detach().cpu().numpy()
+    if state.ema_params is not None:
+        for k, p in state.params_tree(ema=True).items():
+            out[f"{name}/ema/{k}"] = p.detach().cpu().numpy()
     for k, v in stats.items():
         out[f"{name}/stats/{k}"] = v.detach().cpu().numpy()
     for k, v in (state.ema_batch_stats or {}).items():

@@ -1064,6 +1064,113 @@ def test_zero2_flagship_checkpoint_across_four_cards(cuda_device, tmp_path):
 
 
 
+@pytest.mark.cuda
+def test_zero3_flagship_cli_across_four_cards(cuda_device, tmp_path):
+    """The flagship command line under torchrun on 4 NCCL ranks, one card
+    each (tests/_torch_cli_run.py on the card, cuDNN's deterministic
+    algorithms), over TFRecords of the JPEG fixture: the preset as it is
+    (bf16, dropout, flip, mixup, ZeRO-2 over 4 MB buckets, the fp32 wire)
+    at base_lr 0.001, 12 steps, a save and an eval at step 12; then the
+    same with `--set mesh.shard_params=true`. ZeRO-3's losses equal
+    ZeRO-2's bit for bit; after every step each rank's parameters hold no
+    storage and its resident parameter bytes (the (S,) shard) are a
+    quarter of the replicated parameters' fp32 bytes, to the padding;
+    the ms a step of both are printed. Then the ZeRO-3 step is restored
+    on 2 ranks (ZeRO-3 at N = 2) and on 1 (replicated SGD) by `--mode
+    eval`: each restores step 12 and its counts equal the 4-rank eval.
+    Prints one `{"zero3_four_cards": ...}` line with `-s`. Needs 4
+    cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices, one a rank of the NCCL group")
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from _torch_cli_run import REPO, _pack, records, window_ms
+    data = str(tmp_path / "data")
+    _pack(data, (12, 5))
+    runner = os.path.join(REPO, "tests", "_torch_cli_run.py")
+    env = dict(os.environ, DVGGF_CLI_DEVICE="cuda",
+               DVGGF_CUDNN_DETERMINISTIC="1", OMP_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+
+    def argv(ck, *extra):
+        return ["--config", "vggf_imagenet_dp", "--set",
+                f"data.data_dir={data}", "--set",
+                f"train.checkpoint_dir={ck}", "--set", "train.seed=0",
+                "--set", "optim.base_lr=0.001", "--set", "train.steps=12",
+                "--set", "train.log_every=1", "--set",
+                "train.checkpoint_every_steps=12", "--set",
+                "train.eval_every_steps=12", *extra]
+
+    def run(args, nproc, stats=None):
+        cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                f"--nproc_per_node={nproc}", runner, *args] if nproc > 1
+               else [sys.executable, runner, *args])
+        extra = {"DVGGF_CLI_STATS": stats} if stats else {}
+        if nproc == 1:
+            extra["CUDA_VISIBLE_DEVICES"] = "0"
+        proc = subprocess.run(cmd, env=dict(env, **extra), text=True,
+                              capture_output=True, timeout=1200)
+        assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+
+    out = {}
+    for basis, extra in (("zero2", ()),
+                         ("zero3", ("--set", "mesh.shard_params=true"))):
+        ck, stats = str(tmp_path / basis), str(tmp_path / f"{basis}_stats")
+        os.makedirs(stats)
+        run(argv(ck, *extra), 4, stats)
+        recs = records(os.path.join(ck, "metrics.jsonl"))
+        train = [r for r in recs if r["event"] == "train"]
+        rows = [json.load(open(os.path.join(stats, f"rank{r}.json")))
+                for r in range(4)]
+        out[basis] = {
+            "losses": [r["loss"] for r in train],
+            "comm": train[-1]["comm"],
+            "window_ms": window_ms(recs),
+            "eval": [r for r in recs if r["event"] == "eval"][-1],
+            "param_storage": [[x["param_storage"] for x in rr]
+                              for rr in rows],
+            "shard_bytes": [rr[-1]["shard"] for rr in rows],
+            "param_fp32_bytes": 4 * rows[0][-1]["param_numel"],
+            "allocated_last": [rr[-1]["allocated"] for rr in rows],
+            "peak": [rr[-1]["peak"] for rr in rows]}
+        out[basis]["step_ms_median"] = float(np.median(
+            out[basis]["window_ms"]))
+    z2, z3 = out["zero2"], out["zero3"]
+    keys = ("eval_top1", "eval_top5", "eval_examples")
+    ck3 = str(tmp_path / "zero3")
+    restores = {}
+    for nproc in (2, 1):
+        run(argv(ck3, "--set", "mesh.shard_params=true", "--mode", "eval"),
+            nproc)
+        recs = records(os.path.join(ck3, "metrics.jsonl"))
+        restores[nproc] = {"restore": [r for r in recs
+                                       if r["event"] == "restore"][-1],
+                           "eval": recs[-1]}
+    print(json.dumps({"zero3_four_cards": {
+        "device": torch.cuda.get_device_name(0), **out,
+        "restores": restores}}), flush=True)
+    assert z3["comm"]["sharding"] == "zero3"
+    assert z3["comm"]["gathers"] == z3["comm"]["buckets"] > 2
+    assert z2["comm"]["sharding"] == "zero2"
+    assert len(z3["losses"]) == 12 and np.isfinite(z3["losses"]).all()
+    assert z3["losses"] == z2["losses"]
+    for r in range(4):
+        assert z3["param_storage"][r] == [0] * 12, r
+        assert z2["param_storage"][r][-1] == z2["param_fp32_bytes"]
+        quarter = z3["shard_bytes"][r] / z2["param_fp32_bytes"]
+        assert abs(quarter - 0.25) < 1e-3, (r, quarter)
+        assert z3["allocated_last"][r] < z2["allocated_last"][r]
+    for nproc, got in restores.items():
+        assert got["restore"]["step"] == 12, nproc
+        assert got["eval"]["event"] == "eval" and got["eval"]["step"] == 12
+        assert [got["eval"][k] for k in keys] == [z3["eval"][k]
+                                                  for k in keys], nproc
+
+
 # ------------------------------------------------------------------ the feed
 def _fixture_tfrecords(out_dir, shards=2, per_shard=24):
     """The fixture JPEGs (tests/data/jpeg_fixture) packed into TFRecord

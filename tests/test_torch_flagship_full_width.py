@@ -28,10 +28,12 @@ import json
 
 import jax
 import numpy as np
+import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from distributed_vgg_f_tpu import config as jcfg
+from distributed_vgg_f_tpu import telemetry as jtelemetry
 from distributed_vgg_f_tpu.parallel.mesh import MeshSpec, build_mesh
 from distributed_vgg_f_tpu.train.trainer import Trainer as JaxTrainer
 from distributed_vgg_f_tpu.utils.logging import MetricLogger as JaxLogger
@@ -40,6 +42,32 @@ from distributed_vgg_f_tpu_torch.train.trainer import Trainer
 from distributed_vgg_f_tpu_torch.weights import init_params
 
 BATCH, STEPS = 4, 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_telemetry_found():
+    """JAX's process-wide telemetry switches (the registry's and the
+    recorder's `enabled`) as this module found them, given back at its
+    end. A JAX `Trainer` built with `telemetry.enabled=false` switches
+    both off for the whole process and nothing switches them back, so a
+    later test in the same worker would read JAX's counters as zeros."""
+    found = (jtelemetry.get_registry().enabled,
+             jtelemetry.get_recorder().enabled)
+    yield found
+    _give_back_jax_telemetry(found)
+
+
+@pytest.fixture(autouse=True)
+def _jax_telemetry_given_back(_jax_telemetry_found):
+    """The same switches given back after every test (a module-scoped
+    fixture may have built a JAX `Trainer` before the first one)."""
+    yield
+    _give_back_jax_telemetry(_jax_telemetry_found)
+
+
+def _give_back_jax_telemetry(found):
+    jtelemetry.configure(enabled=found[0])
+    jtelemetry.get_recorder().enabled = found[1]
 
 #: The cuts both packages take: fp32, no dropout, no flip or mixup, the
 #: global batch; everything else is the preset's

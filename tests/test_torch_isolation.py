@@ -1,8 +1,8 @@
 """The port (distributed_vgg_f_tpu_torch) stands alone: importing every
 module of it (the stall attribution, the ingest autotuner, the
 snapshot cache, the zoo's VGG-16, ResNet and BatchNorm, the serving
-tiers and admission controller, the teacher task and the distillation
-tool included)
+tiers and admission controller, the teacher task, the distillation
+tool, and ZeRO-3's state, step, layouts and retopology included)
 pulls in no jax, no flax and nothing of the JAX
 package (distributed_vgg_f_tpu), no source file imports them, the scripts that
 run on the card import none of them either, and the entry points refuse
@@ -74,7 +74,11 @@ def test_importing_every_port_module_pulls_in_no_jax():
             f"{PORT}.data.snapshot_cache", f"{PORT}.models.vgg16",
             f"{PORT}.models.resnet", f"{PORT}.ops.batch_norm",
             f"{PORT}.serving.tiers", f"{PORT}.serving.controller",
-            f"{PORT}.data.teacher", f"{PORT}.train.distill"} <= set(mods)
+            f"{PORT}.data.teacher", f"{PORT}.train.distill",
+            f"{PORT}.parallel.zero", f"{PORT}.parallel.buckets",
+            f"{PORT}.train.state", f"{PORT}.checkpoint.retopology",
+            f"{PORT}.checkpoint.manager", f"{PORT}.serving.engine",
+            f"{PORT}.telemetry.registry", f"{PORT}.config"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -185,6 +189,20 @@ def test_trainer_and_train_step_refuse_without_cuda(no_cuda):
         == "cpu"
 
 
+def test_zero3_trainer_and_step_refuse_without_cuda(no_cuda):
+    from distributed_vgg_f_tpu_torch.config import (apply_overrides,
+                                                     get_config)
+    from distributed_vgg_f_tpu_torch.train.step import build_train_step
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    cfg = apply_overrides(get_config("vggf_imagenet_dp"),
+                          {"mesh.shard_params": "true"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train_step(lambda step: 0.1, 0.0, zero1=True,
+                         shard_gradients=True, shard_params=True)
+
+
 def test_host_stage_refuses_the_card_without_cuda(no_cuda):
     """The host read-ahead stage pins its buffers only for a card; asked
     for one without CUDA it raises instead of pinning nothing."""
@@ -260,6 +278,21 @@ def test_the_zoo_worker_imports_no_jax():
     assert [n for n in names if forbidden(n)] == []
 
 
+@pytest.mark.parametrize("worker", ["_torch_dp_worker.py",
+                                    "_torch_cli_run.py"])
+def test_the_card_workers_import_no_jax(worker):
+    """The dp worker and the command-line runner run the four-card cases
+    (ZeRO-3's among them) on the card's machine."""
+    path = os.path.join(REPO, "tests", worker)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert names and [n for n in names if forbidden(n)] == []
+
+
 def test_unknown_device_is_refused():
     from distributed_vgg_f_tpu_torch.device import resolve_device
     with pytest.raises(ValueError, match="unsupported device"):
@@ -284,7 +317,8 @@ def test_flagship_probe_imports_no_jax_and_refuses_without_cuda():
     assert out.returncode == 1 and out.stdout == "", out.stderr
 
 
-@pytest.mark.parametrize("tool", ["torch_zoo_probe", "torch_zero2_repeat"])
+@pytest.mark.parametrize("tool", ["torch_zoo_probe", "torch_zero2_repeat",
+                                  "torch_zero3_probe"])
 def test_card_tools_import_no_jax_and_refuse_without_cuda(tool):
     """The card's tools run on its machine, where JAX is not installed:
     they import nothing of it, and without a CUDA device they exit 1

@@ -163,6 +163,20 @@ def _jax_counts():
     return [snap.get(n, 0) for n in COUNTERS]
 
 
+@pytest.fixture
+def jax_registry_on():
+    """JAX's process-wide registry switched on for a case that compares
+    its counters, then given back as it was: a JAX `Trainer` built with
+    `telemetry.enabled=false` earlier in the same process switches it off
+    and leaves it so."""
+    found = (jtelemetry.get_registry().enabled,
+             jtelemetry.get_recorder().enabled)
+    jtelemetry.configure(enabled=True)
+    yield
+    jtelemetry.configure(enabled=found[0])
+    jtelemetry.get_recorder().enabled = found[1]
+
+
 def _position(g):
     return int(psc.shuffle_indices(N, SEED, g // N)[g % N])
 
@@ -218,7 +232,8 @@ def test_params_key_equals_jax(shards, hflip, dtype, seed, size):
 # ------------------------------------------------------ cold, then warm
 @pytest.mark.parametrize("hflip", [False, True])
 @pytest.mark.parametrize("api", ["next", "next_into"])
-def test_cold_then_warm_is_byte_equal_to_jax(shards, tmp_path, hflip, api):
+def test_cold_then_warm_is_byte_equal_to_jax(shards, tmp_path, hflip, api,
+                                            jax_registry_on):
     root, files, labels, ranges = shards
     port = _port(files, labels, ranges, tmp_path / "port", hflip=hflip)
     ref = _jax(files, labels, ranges, tmp_path / "jax", hflip=hflip)
@@ -370,7 +385,7 @@ def test_a_store_jax_wrote_serves_the_port_warm(shards, tmp_path):
 
 # ------------------------------------------------------ the degradations
 def test_a_corrupt_payload_is_one_miss_repaired_to_its_cold_crop(
-        shards, tmp_path):
+        shards, tmp_path, jax_registry_on):
     _, files, labels, ranges = shards
     port = _port(files, labels, ranges, tmp_path)
     cold = [_draw(port)[0] for _ in range(COLD)]

@@ -331,14 +331,15 @@ def test_eval_step_counts_and_valid_mask():
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    ({"zero1": True, "shard_gradients": True, "shard_params": True},
-     NotImplementedError, "ROADMAP A13"),
+    ({"zero1": True, "shard_params": True}, ValueError,
+     "shard_params \\(ZeRO-3\\) requires shard_gradients"),
     ({"grad_accum_steps": 2, "grad_accum_shard": True}, ValueError,
      "grad_accum_shard requires zero1"),
     ({"zero1": True, "grad_accum_shard": True}, ValueError,
      "grad_accum_steps > 1")])
 def test_unported_options_are_refused(kw, error, match):
-    """ZeRO-3 is not ported; a sharded accumulator needs ZeRO and k > 1."""
+    """ZeRO-3 needs ZeRO-2's sharded gradients (JAX `step.py:209`); a
+    sharded accumulator needs ZeRO and k > 1."""
     with pytest.raises(error, match=match):
         build_train_step(lambda s: 0.1, 0.0, device="cpu", **kw)
 

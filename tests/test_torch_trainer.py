@@ -92,16 +92,17 @@ def test_nonfinite_batches_are_counted_then_abort_the_run():
 
 
 @pytest.mark.parametrize("preset,section,field,value,error,match", [
-    ("vggf_imagenet_dp", "mesh", "shard_params", True, NotImplementedError,
-     "ROADMAP A13"),
+    ("vggf_imagenet_dp", "mesh", "elastic", ElasticConfig(enabled=True),
+     NotImplementedError, "ROADMAP A13b"),
     ("vggf_teacher", "mesh", "elastic", ElasticConfig(enabled=True),
      NotImplementedError, "ROADMAP A13"),
     ("vggf_imagenet_dp", "train", "grad_accum_shard", True, ValueError,
      "grad_accum_steps > 1")])
 def test_unported_options_are_refused(preset, section, field, value, error,
                                       match):
-    """ZeRO-3 and elastic resize are not ported; a sharded accumulator
-    needs ZeRO and k > 1."""
+    """Elastic resize is not ported (ZeRO-3, its neighbour in A13, is:
+    tests/test_torch_zero3.py); a sharded accumulator needs ZeRO and
+    k > 1."""
     cfg = _small(preset)
     cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
         getattr(cfg, section), **{field: value})})

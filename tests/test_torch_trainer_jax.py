@@ -37,6 +37,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from _torch_dp_worker import run_group
 from distributed_vgg_f_tpu import config as jcfg
+from distributed_vgg_f_tpu import telemetry as jtelemetry
 from distributed_vgg_f_tpu.data import imagenet as jimagenet
 from distributed_vgg_f_tpu.data import native_jpeg as jjpeg
 from distributed_vgg_f_tpu.parallel.mesh import MeshSpec, build_mesh
@@ -52,6 +53,32 @@ from tools.tfrecord_write import write_shards  # noqa: E402
 
 FIXTURE = os.path.join(REPO, "tests", "data", "jpeg_fixture")
 BATCH, STEPS, STOP = 16, 10, 5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_telemetry_found():
+    """JAX's process-wide telemetry switches (the registry's and the
+    recorder's `enabled`) as this module found them, given back at its
+    end. A JAX `Trainer` built with `telemetry.enabled=false` switches
+    both off for the whole process and nothing switches them back, so a
+    later test in the same worker would read JAX's counters as zeros."""
+    found = (jtelemetry.get_registry().enabled,
+             jtelemetry.get_recorder().enabled)
+    yield found
+    _give_back_jax_telemetry(found)
+
+
+@pytest.fixture(autouse=True)
+def _jax_telemetry_given_back(_jax_telemetry_found):
+    """The same switches given back after every test (a module-scoped
+    fixture may have built a JAX `Trainer` before the first one)."""
+    yield
+    _give_back_jax_telemetry(_jax_telemetry_found)
+
+
+def _give_back_jax_telemetry(found):
+    jtelemetry.configure(enabled=found[0])
+    jtelemetry.get_recorder().enabled = found[1]
 
 #: The narrowing, as dotted keys both packages take (config.apply_overrides)
 NARROW = {"model.num_classes": "10", "model.compute_dtype": "float32",

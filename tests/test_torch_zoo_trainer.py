@@ -59,6 +59,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from _torch_zoo_worker import run_group
 from distributed_vgg_f_tpu import config as jcfg
+from distributed_vgg_f_tpu import telemetry as jtelemetry
 from distributed_vgg_f_tpu.data.eval_pad import FiniteEvalIterable
 from distributed_vgg_f_tpu.parallel.mesh import MeshSpec, build_mesh
 from distributed_vgg_f_tpu.train.trainer import Trainer as JaxTrainer
@@ -89,6 +90,32 @@ NARROW = {"model.num_classes": "10", "model.compute_dtype": "float32",
           "train.ema_decay": "0.9"}
 #: JAX-only switches the port has not (its planes, the mesh's axis size)
 JAX_ONLY = {"telemetry.enabled": "false", "mesh.num_data": "0"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_telemetry_found():
+    """JAX's process-wide telemetry switches (the registry's and the
+    recorder's `enabled`) as this module found them, given back at its
+    end. A JAX `Trainer` built with `telemetry.enabled=false` switches
+    both off for the whole process and nothing switches them back, so a
+    later test in the same worker would read JAX's counters as zeros."""
+    found = (jtelemetry.get_registry().enabled,
+             jtelemetry.get_recorder().enabled)
+    yield found
+    _give_back_jax_telemetry(found)
+
+
+@pytest.fixture(autouse=True)
+def _jax_telemetry_given_back(_jax_telemetry_found):
+    """The same switches given back after every test (a module-scoped
+    fixture may have built a JAX `Trainer` before the first one)."""
+    yield
+    _give_back_jax_telemetry(_jax_telemetry_found)
+
+
+def _give_back_jax_telemetry(found):
+    jtelemetry.configure(enabled=found[0])
+    jtelemetry.get_recorder().enabled = found[1]
 
 
 def _with_extra(cfg, extra):

@@ -10,21 +10,24 @@ best/latest step; an explicitly named corrupt step is refused). Its
 arrays are written, in the Flax names and layouts, through the port's
 `CheckpointManager` into DST_DIR with a manifest:
 
-    params/<layer>/<leaf>      the Flax params, as they are
+    params/<layer>/<leaf>      the Flax params, as they are, or
+    params                     ZeRO-3's flat (T,) vector
     opt/trace                  optax's momentum trace: the ZeRO (T,) vector,
     opt/trace/<layer>/<leaf>   or one array per parameter
     opt/count                  optax's count (the LR schedule's position)
     step, ema_params/...       the step and the EMA when the run kept one
+                               (under ZeRO-3 the (T,) `ema_params`)
     batch_stats/<layer>/<leaf> the BatchNorm statistics (ResNet), and
     ema_batch_stats/...        their EMA
 
-and the step's `extra` (`examples_seen`, the `opt_layout` receipt, the
-iterator blob) is carried over as it is. A JAX ZeRO-2 state written on
-any number of devices then lands on the port's N ranks through the
-port's layout migration (checkpoint/retopology.py).
+and the step's `extra` (`examples_seen`, the `opt_layout` and
+`param_layout` receipts, the iterator blob) is carried over as it is. A
+JAX ZeRO-2 or ZeRO-3 state (bucketed or canonical flat) written on any
+number of devices then lands on the port's N ranks, in any of the port's
+layouts, through its layout migration (checkpoint/retopology.py).
 
 It imports JAX and both packages, so it runs where JAX is installed, not
-on the card's host. ZeRO-3 checkpoints (flat params) are refused.
+on the card's host.
 """
 
 from __future__ import annotations
@@ -57,16 +60,21 @@ def _walk(tree: Any, path: tuple = ()):
 def port_arrays(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """A restored JAX TrainState tree (numpy leaves) -> the port's array
     names. Exactly one momentum `trace` and one `count` in the optax
-    state; the BatchNorm statistics and their EMA as they are."""
+    state; the params and EMA params as a tree or, from a ZeRO-3 run, as
+    one flat vector each; the BatchNorm statistics and their EMA as they
+    are."""
     out: Dict[str, np.ndarray] = {
         "step": np.asarray(state["step"], np.int32)}
     for prefix in ("params", "ema_params", "batch_stats", "ema_batch_stats"):
         for path, leaf in _walk(state.get(prefix)):
             out["/".join((prefix,) + path)] = np.asarray(leaf)
-    if any(k in out for k in ("params", "ema_params", "batch_stats",
-                               "ema_batch_stats")):
-        raise ValueError("the checkpoint's params are not a tree (ZeRO-3 "
-                         "flat params are not ported)")
+    for prefix in ("params", "ema_params"):
+        if prefix in out and out[prefix].ndim != 1:
+            raise ValueError(f"the checkpoint's {prefix} are neither a tree "
+                             f"nor a flat vector: shape {out[prefix].shape}")
+    if any(k in out for k in ("batch_stats", "ema_batch_stats")):
+        raise ValueError("the checkpoint's BatchNorm statistics are not a "
+                         "tree")
     traces = [(p, leaf) for p, leaf in _walk(state["opt_state"])
               if "trace" in p]
     counts = [leaf for p, leaf in _walk(state["opt_state"])
