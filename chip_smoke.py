@@ -74,6 +74,14 @@ Phases, one JSON line each:
             dropout and augment off, batch 2) on the card and on the CPU
             from the same weights and batch: every parameter's gradient,
             conv1's included, and the updated parameters agree
+  stem      VGG-F's packed stem (the 3x3x48 stride-1 conv over the 4x4-
+            packed batch) against the plain 11x11/4 conv at batch 1024,
+            224 px, with the seeded conv1 weights, in bf16 and fp32 (TF32
+            off): outputs and conv1's weight gradient within 1e-2 / 1e-4
+            relative L2, the packed batch reaching cuDNN as a view,
+            forward and weight-gradient device ms of each path, the
+            pack's ms, the kernels each runs (the packed path runs no
+            NHWC padding kernel)
   train     the training path: Trainer.fit on vggf_imagenet_dp at full
             width and batch 1024 (bf16, dropout, flip, mixup, the
             non-finite skip) for 20 steps on one fixed seeded u8 batch;
@@ -81,7 +89,20 @@ Phases, one JSON line each:
             2 backward LRN launches a step, all of the vector variant),
             every loss finite and the
             loss falling; then step ms, images/s, peak device memory and
-            a torch.profiler breakdown of 3 more steps
+            a torch.profiler breakdown of 3 more steps (cuDNN's padding
+            and convolution kernels listed apart)
+  train_augment every op of the augment stage on the flagship (batch
+            1024, 224 px, bf16 compute): the preset's flip and mixup 0.2
+            with crop jitter 8, cutmix 1.0 and two rounds of
+            RandAugment-lite at magnitude 0.5. (a) one step's draws
+            applied op by op on the card and on the CPU: flip, jitter and
+            cutmix bit-equal, mixup within 1e-6, RandAugment within 2e-6
+            but for posterize flips (counted, under 30% of the
+            posterized images' elements); the stage as the step calls
+            it equal to its ops; its device µs a batch (profiler). (b)
+            Trainer.fit for 20 steps on phase train's seeded u8 batch:
+            finite losses, step ms beside phase train's, 40 + 40 LRN
+            launches (all vector), the record's augment block
   train_zero2 the flagship's gradient exchange on the card, through a
             one-rank NCCL group that the script keeps to its end: (a)
             build_train_step with the preset's ZeRO-2 over 4 MB buckets
@@ -659,6 +680,13 @@ def _trace_breakdown(prof, count, top):
                                 rf"namespace\)::{n}(_wgmma)?_kernel", k))
                          / count
                          for n in ("flash_fwd", "flash_dq", "flash_dkv")},
+            # cuDNN's layout passes (nhwcAddPaddingKernel pads a
+            # 3-channel NHWC input) and its convolution kernels
+            "padding_us": {k[:80]: v / count for k, v in by_name.items()
+                           if "padding" in k.lower()},
+            "conv_us": [[k[:80], v / count] for k, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])
+                if re.search(r"fprop|dgrad|wgrad|conv", k, re.I)][:8],
             "top_us": [[k[:80], v / count] for k, v in ranked]}
 
 
@@ -1903,6 +1931,8 @@ def _profile_train(trainer, state, batch, steps=3):
             "flash_us_per_step": t["flash_us"],
             "nccl_us_per_step": t["nccl_us"],
             "copy_us_per_step": t["copy_us"],
+            "padding_us_per_step": t["padding_us"],
+            "conv_us_per_step": t["conv_us"],
             "top_device_us_per_step": t["top_us"]}
 
 
@@ -1982,6 +2012,274 @@ def phase_train():
     torch.cuda.empty_cache()
     return launches, {"step_ms_median": median_ms,
                       "copy_us_per_step": profile["copy_us_per_step"]}
+
+
+#: The packed stem against the plain conv, relative L2 of the outputs and
+#: of conv1's weight gradient: bf16 rounds every output once (2^-8
+#: relative at most an element, so one rounding apart is under 3.9e-3);
+#: fp32 is PERF.md §2's gradient gate
+_STEM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def phase_stem(tree):
+    """VGG-F's packed stem (models/vggf.py `VGGF.stem`: the 3x3x48
+    stride-1 conv over the 4x4-packed batch) against the plain 11x11/4
+    conv it replaces, on the card at the training batch (1024, 224 px)
+    with the seeded conv1 weights: the outputs and conv1's weight
+    gradient under one upstream gradient, in bf16 (the flagship's) and
+    fp32 (TF32 off); each path's forward and weight-gradient device ms;
+    the kernels each runs, where the packed path must run no NHWC
+    padding kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_vgg_f_tpu_torch.config import get_config
+    from distributed_vgg_f_tpu_torch.data.device_ingest import (
+        make_device_finish, space_to_depth_batch)
+    from distributed_vgg_f_tpu_torch.models.vggf import (VGGF, _nchw,
+                                                         takes_packed_stem)
+    cfg = get_config("vggf_imagenet_dp")
+    b, size = cfg.data.global_batch_size, cfg.data.image_size
+    check(takes_packed_stem(size, size, 3), f"{size} px takes the plain stem")
+    rng = np.random.default_rng(6)
+    u8 = torch.from_numpy(rng.integers(0, 256, (b, size, size, 3),
+                                       dtype=np.uint8)).cuda()
+    finish = make_device_finish(cfg.data.mean_rgb, cfg.data.stddev_rgb)
+    kernel = torch.from_numpy(np.ascontiguousarray(
+        tree["conv1"]["kernel"].transpose(3, 2, 0, 1)))
+    bias = torch.from_numpy(np.array(tree["conv1"]["bias"]))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = VGGF(cfg.model.num_classes, compute_dtype=dtype,
+                     image_size=size)
+        conv1 = model.conv1.cuda()
+        with torch.no_grad():
+            conv1.weight.copy_(kernel)
+            conv1.bias.copy_(bias)
+        x = finish(u8).to(dtype)
+        xp = space_to_depth_batch(x)   # the augment stage packs the batch
+        view = _nchw(xp)
+        paths = {"packed": (model.stem, xp),
+                 "plain": (lambda t: model._conv(conv1, _nchw(t), 4, 0), x)}
+        ys = {k: fn(inp) for k, (fn, inp) in paths.items()}
+        g = torch.randn(ys["plain"].shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(7)) \
+            .to(dtype).contiguous(memory_format=torch.channels_last)
+        grads = {k: torch.autograd.grad(y, conv1.weight, g,
+                                        retain_graph=True)[0]
+                 for k, y in ys.items()}
+        rec = {"dtype": str(dtype).replace("torch.", ""), "batch": b,
+               "image_size": size,
+               "packed_input": list(xp.shape),
+               "packed_input_is_a_view": view.data_ptr() == xp.data_ptr()
+               and view.is_contiguous(memory_format=torch.channels_last),
+               "out_shape": list(ys["packed"].shape),
+               "fwd_rel_l2": _rel_l2(ys["packed"].detach().float(),
+                                     ys["plain"].detach().float()),
+               "wgrad_rel_l2": _rel_l2(grads["packed"], grads["plain"]),
+               "tolerance_rel_l2": _STEM_TOL[dtype],
+               "fwd_ms": {k: device_ms(fn, [inp])
+                          for k, (fn, inp) in paths.items()},
+               "pack_ms": device_ms(space_to_depth_batch, [x]),
+               "wgrad_ms": {k: device_ms(
+                   lambda _, y=y: torch.autograd.grad(
+                       y, conv1.weight, g, retain_graph=True), [None])
+                   for k, y in ys.items()},
+               "kernels_us": {}}
+        rec["padding_kernels_us"] = {}
+        for k, (fn, inp) in paths.items():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.autograd.grad(fn(inp), conv1.weight, g)
+                torch.cuda.synchronize()
+            t = _trace_breakdown(prof, 1, top=8)
+            rec["kernels_us"][k] = t["top_us"]
+            rec["padding_kernels_us"][k] = t["padding_us"]
+        emit("stem", **rec)
+        out[rec["dtype"]] = rec
+        del model, conv1, x, xp, view, ys, g, grads
+        torch.cuda.empty_cache()
+    for rec in out.values():
+        check(rec["packed_input_is_a_view"],
+              "the packed batch is copied on its way to cuDNN")
+        check(rec["out_shape"] == [b, 64, 54, 54], f"stem {rec['out_shape']}")
+        check(rec["fwd_rel_l2"] <= rec["tolerance_rel_l2"]
+              and rec["wgrad_rel_l2"] <= rec["tolerance_rel_l2"],
+              f"packed stem off the plain conv in {rec['dtype']}: "
+              f"{rec['fwd_rel_l2']}, {rec['wgrad_rel_l2']}")
+        check(not rec["padding_kernels_us"]["packed"],
+              f"the packed stem pads: {rec['padding_kernels_us']}")
+    return out
+
+
+#: Phase train_augment's ops on top of the preset's flip and mixup: crop
+#: jitter 8 px, cutmix at the CutMix paper's ImageNet alpha of 1, two
+#: rounds of RandAugment-lite at magnitude 0.5
+_AUGMENT_ALL = {"data.augment.crop_jitter": "8",
+                "data.augment.cutmix_alpha": "1.0",
+                "data.augment.rand_ops": "2",
+                "data.augment.rand_magnitude": "0.5"}
+#: RandAugment on the card against the CPU (tests/test_torch_augment.py):
+#: elements within 2e-6 (normalised), except at images that drew
+#: posterize, where a contrast mean summed in another order can move a
+#: pixel across a quantisation step in the next round; those, at most
+#: this share of the posterized images' elements
+_RAND_ATOL, _TWO_ROUND_SHARE = 2e-6, 0.30
+
+
+def phase_train_augment(train_ref):
+    """Every op of JAX's augment stage on the flagship at full width
+    (batch 1024, 224 px, bf16 compute): (a) one batch through the stage's
+    ops on the card and on the CPU from the same draws (flip, jitter and
+    cutmix bit-equal, mixup within 1e-6, RandAugment within _RAND_ATOL
+    but for counted posterize flips), the stage as the train step calls
+    it equal to the ops packed, and its device µs a batch (torch.profiler
+    over 3 batches: the stage copies its draws to the card, so events
+    around it would time the host too); (b) 20 steps
+    of Trainer.fit on phase train's seeded u8 batch: finite losses, step
+    ms beside phase train's, 40 + 40 LRN launches (all vector). Returns
+    (b)'s launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_vgg_f_tpu_torch.config import (apply_overrides,
+                                                     get_config)
+    from distributed_vgg_f_tpu_torch.data.augment import (
+        AUGMENT_RNG_FOLD, crop_jitter, cutmix, draw_augment, hflip,
+        make_device_augment, mixup, rand_ops)
+    from distributed_vgg_f_tpu_torch.data.device_ingest import (
+        make_device_finish, space_to_depth_batch)
+    from distributed_vgg_f_tpu_torch.data.synthetic import SyntheticU8
+    from distributed_vgg_f_tpu_torch.ops import lrn_cuda
+    from distributed_vgg_f_tpu_torch.train.trainer import Trainer
+    cfg = apply_overrides(get_config("vggf_imagenet_dp"), {
+        **_AUGMENT_ALL, "train.log_every": "1", "train.seed": "0"})
+    aug, data_cfg = cfg.data.augment, cfg.data
+    b, size = data_cfg.global_batch_size, data_cfg.image_size
+    data = SyntheticU8(b, size, cfg.model.num_classes, seed=0, pin=True)
+
+    # (a) the ops on both devices from one step's draws
+    t0 = time.perf_counter()
+    finish = make_device_finish(data_cfg.mean_rgb, data_cfg.stddev_rgb,
+                                image_dtype=data_cfg.image_dtype)
+    images, labels = data.batch["image"], data.batch["label"]
+    key = (0, 3, AUGMENT_RNG_FOLD)
+    d = draw_augment(aug, key, b, size, size)
+    mean = torch.tensor(data_cfg.mean_rgb, dtype=torch.float32)
+    inv_std = torch.tensor(1.0) / torch.tensor(data_cfg.stddev_rgb,
+                                               dtype=torch.float32)
+    card = finish(images.cuda()).float()
+    host = finish(images).float()
+    exact = {}
+    card, host = hflip(card, d.flip), hflip(host, d.flip)
+    exact["flip"] = torch.equal(card.cpu(), host)
+    card, host = crop_jitter(card, *d.jitter), crop_jitter(host, *d.jitter)
+    exact["jitter"] = torch.equal(card.cpu(), host)
+    card = rand_ops(card, *d.rand, mean, inv_std, aug.rand_magnitude)
+    host = rand_ops(host, *d.rand, mean, inv_std, aug.rand_magnitude)
+    diff = (card.cpu() - host).abs()
+    posterized = (d.rand[0] == 3).any(0)
+    far = diff > _RAND_ATOL
+    rand_rec = {"max_abs_err": float(diff.max()),
+                "far_elements": int(far.sum()),
+                "far_outside_posterize": int(far[~posterized].sum()),
+                "posterized_elements": int(posterized.sum()) * size * size * 3,
+                "ops_drawn": np.bincount(d.rand[0].numpy().ravel(),
+                                         minlength=4).tolist()}
+    # both mixes on the card's RandAugment output, on both devices
+    src = card.cpu()
+    labels_card = labels.cuda()
+    cut_card = cutmix(card, labels_card, d.mix.perm, d.mix.lam, d.mix.cy,
+                      d.mix.cx)
+    cut_host = cutmix(src, labels, d.mix.perm, d.mix.lam, d.mix.cy, d.mix.cx)
+    exact["cutmix"] = (torch.equal(cut_card[0].cpu(), cut_host[0])
+                       and torch.equal(cut_card[1].cpu(), cut_host[1])
+                       and float(cut_card[2]) == float(cut_host[2]))
+    mix_card = mixup(card, labels_card, d.mix.perm, d.mix.lam)
+    mix_host = mixup(src, labels, d.mix.perm, d.mix.lam)
+    mix_err = float((mix_card[0].cpu() - mix_host[0]).abs().max())
+    chosen = cut_card if d.mix.use_cut else mix_card
+    stage = make_device_augment(aug, data_cfg.mean_rgb, data_cfg.stddev_rgb,
+                                space_to_depth=data_cfg.space_to_depth)
+    x_in = finish(images.cuda())
+    staged, staged_labels, staged_lam = stage(key, x_in, labels_card)
+    stage_equal = (torch.equal(staged, space_to_depth_batch(
+        chosen[0].to(x_in.dtype))) and torch.equal(staged_labels, chosen[1])
+        and float(staged_lam) == float(chosen[2]))
+    a_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for step in range(3):
+            stage((0, step, AUGMENT_RNG_FOLD), x_in, labels_card)
+        torch.cuda.synchronize()
+    t = _trace_breakdown(prof, 3, top=8)
+    emit("train_augment", part="a", batch=b, image_size=size,
+         augment=aug.describe(), key=list(key), use_cut=d.mix.use_cut,
+         lam=float(d.mix.lam), box_centre=[d.mix.cy, d.mix.cx],
+         bit_equal=exact, mixup_max_abs_err=mix_err,
+         mixup_tolerance=1e-6, rand=rand_rec,
+         rand_tolerance={"atol": _RAND_ATOL,
+                         "share_of_posterized": _TWO_ROUND_SHARE},
+         stage_equals_ops=stage_equal, seconds=a_s,
+         stage_profile={"device_busy_us_per_batch": t["busy_us"],
+                        "window_us_per_batch": t["window_us"],
+                        "device_idle_share": t["idle_share"],
+                        "top_device_us_per_batch": t["top_us"]})
+    del card, host, diff, far, src, cut_card, cut_host, mix_card, mix_host
+    del chosen, staged, x_in
+    torch.cuda.empty_cache()
+
+    # (b) Trainer.fit with every op on
+    steps = 20
+    stamps = []
+    trainer = Trainer(cfg, log=lambda event, rec: stamps.append(
+        time.perf_counter()))
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lrn_cuda.LAUNCHES = lrn_cuda.BWD_LAUNCHES = 0
+    lrn_cuda.VEC_LAUNCHES = lrn_cuda.VEC_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    state = trainer.fit(state, data, num_steps=steps)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"fwd": lrn_cuda.LAUNCHES, "bwd": lrn_cuda.BWD_LAUNCHES}
+    vec_launches = {"fwd": lrn_cuda.VEC_LAUNCHES,
+                    "bwd": lrn_cuda.VEC_BWD_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    recs = [r for r in trainer.records if r["event"] == "train"]
+    losses = [r["loss"] for r in recs]
+    stamps.insert(0, t0)
+    step_ms = [(t1 - t0_) * 1e3 for t0_, t1 in zip(stamps, stamps[1:])]
+    median_ms = statistics.median(step_ms[4:])
+    profile_b = _profile_train(trainer, state, next(iter(data)))
+    emit("train_augment", part="b", config=cfg.name, batch=b,
+         image_size=size, compute_dtype=cfg.model.compute_dtype,
+         augment=aug.describe(), steps=steps, wall_s=wall_s,
+         first_step_ms=step_ms[0], step_ms_median=median_ms,
+         step_ms=step_ms, images_per_s=b / (median_ms / 1e3),
+         train_step_ms_median=train_ref["step_ms_median"],
+         vs_train=median_ms / train_ref["step_ms_median"],
+         stage_device_us=t["busy_us"], peak_memory_bytes=peak,
+         losses=losses,
+         record_augment=recs[-1].get("augment"),
+         lrn_launches=launches, lrn_vec_launches=vec_launches,
+         profile=profile_b)
+    check(all(exact.values()), f"not bit-equal across devices: {exact}")
+    check(mix_err <= 1e-6, f"mixup card against CPU {mix_err}")
+    check(rand_rec["far_outside_posterize"] == 0
+          and rand_rec["far_elements"]
+          <= _TWO_ROUND_SHARE * rand_rec["posterized_elements"],
+          f"RandAugment card against CPU: {rand_rec}")
+    check(stage_equal, "the stage differs from its ops")
+    check(len(recs) == steps and all(math.isfinite(v) for v in losses),
+          f"losses {losses}")
+    check(all(r["bad_step"] == 0.0 for r in recs), "a step was skipped")
+    check(recs[-1].get("augment") == aug.describe(),
+          f"the record's augment block {recs[-1].get('augment')}")
+    check(launches == {"fwd": 2 * steps, "bwd": 2 * steps}
+          and vec_launches == launches,
+          f"LRN launches {launches}, vector {vec_launches}")
+    del trainer, state, data
+    torch.cuda.empty_cache()
+    return launches
 
 
 @contextlib.contextmanager
@@ -5735,7 +6033,9 @@ def main() -> int:
     serve_cli_launches = phase_serve_cli()
     distill_launches = phase_distill()
     phase_train_parity(tree)
+    phase_stem(tree)
     train_launches, train_ref = phase_train()
+    augment_launches = phase_train_augment(train_ref)
     zero2_launches, zero2_ref = phase_train_zero2(tree, train_ref)
     zero3_launches = phase_train_zero3(tree, zero2_ref)
     feed_dir = tempfile.mkdtemp(prefix="train_feed_")
@@ -5890,12 +6190,14 @@ def main() -> int:
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:67", records, "bucket", 32,
         serve_launches + serve_tiers_launches + serve_cli_launches
         + distill_launches["fwd"] + train_launches["fwd"]
+        + augment_launches["fwd"]
         + zero2_launches["fwd"] + zero3_launches["fwd"]
         + feed_launches["fwd"] + ckpt_launches["fwd"] + e2e_launches["fwd"]
         + autotune_launches["fwd"] + snapshot_launches["fwd"],
         {"serve": serve_launches, "serve_tiers": serve_tiers_launches,
          "serve_cli": serve_cli_launches,
          "distill": distill_launches["fwd"], "train": train_launches["fwd"],
+         "train_augment": augment_launches["fwd"],
          "train_zero2": zero2_launches["fwd"],
          "train_zero3": zero3_launches["fwd"],
          "train_feed": feed_launches["fwd"],
@@ -5913,12 +6215,14 @@ def main() -> int:
         "lrn_bwd", "distributed_vgg_f_tpu_torch/csrc/lrn_bwd.cu",
         "distributed_vgg_f_tpu/ops/lrn_pallas.py:74", bwd_records, "batch",
         1024, distill_launches["bwd"] + train_launches["bwd"]
+        + augment_launches["bwd"]
         + zero2_launches["bwd"] + zero3_launches["bwd"]
         + feed_launches["bwd"] + ckpt_launches["bwd"] + e2e_launches["bwd"]
         + autotune_launches["bwd"] + snapshot_launches["bwd"],
         {"serve": 0, "serve_tiers": 0, "serve_cli": 0,
          "distill": distill_launches["bwd"],
          "train": train_launches["bwd"],
+         "train_augment": augment_launches["bwd"],
          "train_zero2": zero2_launches["bwd"],
          "train_zero3": zero3_launches["bwd"],
          "train_feed": feed_launches["bwd"],

@@ -68,16 +68,23 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class AugmentConfig:
-    """On-device augmentation of the train step (data/augment.py): the
-    flip and mixup the flagship turns on. Crop jitter, cutmix and
-    RandAugment-lite are fields of the reference the port refuses until
-    they are ported (ROADMAP A4). Off by default."""
+    """On-device augmentation of the train step (data/augment.py; JAX
+    `config.py:455–525`): flip, crop jitter, mixup or cutmix, and
+    RandAugment-lite. Off by default; the flagship preset turns on the
+    flip and mixup."""
     enabled: bool = False
     hflip: bool = True                 # per-image 50% horizontal flip
-    crop_jitter: int = 0               # not ported: must stay 0
+    # max |shift| in pixels of the per-image translation (edge pixels
+    # replicate); 0 disables
+    crop_jitter: int = 0
     mixup_alpha: float = 0.0           # Beta(alpha, alpha) mixup; 0 disables
-    cutmix_alpha: float = 0.0          # not ported: must stay 0
-    rand_ops: int = 0                  # not ported: must stay 0
+    # Beta(alpha, alpha) cutmix; 0 disables. With mixup on too, each step
+    # draws one of the two
+    cutmix_alpha: float = 0.0
+    # RandAugment-lite: op draws a round per image from {identity,
+    # brightness, contrast, posterize}; 0 disables
+    rand_ops: int = 0
+    rand_magnitude: float = 0.5        # RandAugment-lite strength in [0, 1]
 
     def __post_init__(self):
         if self.crop_jitter < 0:
@@ -90,6 +97,10 @@ class AugmentConfig:
         if self.rand_ops < 0:
             raise ValueError(
                 f"data.augment.rand_ops must be >= 0, got {self.rand_ops}")
+        if not 0.0 <= self.rand_magnitude <= 1.0:
+            raise ValueError(
+                f"data.augment.rand_magnitude must be in [0, 1], got "
+                f"{self.rand_magnitude}")
 
     @property
     def owns_hflip(self) -> bool:
@@ -98,13 +109,13 @@ class AugmentConfig:
         return self.enabled and self.hflip
 
     def describe(self) -> dict:
-        """The train record's `augment` block (JAX `config.py:499`,
-        without RandAugment's magnitude, which the port has not)."""
+        """The train record's `augment` block (JAX `config.py:499`)."""
         return {"enabled": self.enabled, "hflip": self.hflip,
                 "crop_jitter": self.crop_jitter,
                 "mixup_alpha": self.mixup_alpha,
                 "cutmix_alpha": self.cutmix_alpha,
                 "rand_ops": self.rand_ops,
+                "rand_magnitude": self.rand_magnitude,
                 "host_flips_disabled": self.owns_hflip}
 
 
@@ -681,8 +692,6 @@ UNPORTED_KEYS = (
                               "(ROADMAP A14)"),
     ("train.profile", "the step profiler waits for ROADMAP A14"),
     ("train.fault_injection", "the fault tokens wait for ROADMAP A14"),
-    ("data.augment.rand_magnitude", "RandAugment-lite waits for ROADMAP "
-                                    "A4"),
     ("data.wire", "the port feeds the u8 wire only; the host wires wait "
                   "for ROADMAP A17"),
     ("data.backend", "the tf.data and grain backends wait for ROADMAP "

@@ -16,10 +16,15 @@ with its bits drawn from the `torch.Generator` the caller passes, so the
 train step can replay a step's mask from (seed, step).
 
 The public layout is the JAX one: the input is NHWC, plain (S, S, 3) or
-4x4-packed (S/4, S/4, 48) in (dy, dx, c) channel order; a packed input
-is unpacked and both run the plain 11x11/4 stem, which computes the same
-function as the JAX package's space-to-depth stem (a TPU matrix-unit fill
-trick). Inside,
+4x4-packed (S/4, S/4, 48) in (dy, dx, c) channel order. The stem is the
+JAX package's `Conv1SpaceToDepth` (`models/vggf.py:35–78`): a packed
+input, or a plain one whose H and W are multiples of 4 and at least 12
+(packed here), is convolved VALID at stride 1 with the 11x11 kernel
+padded to 12x12 and rearranged to 3x3 over the 48 packed channels
+(`pack_stem_weight`): the same function as the 11x11/4 conv, with a
+16x deeper contraction and no 3-channel input for cuDNN to pad. Other
+sizes take the plain 11x11/4 conv, as JAX's. The parameter stays the
+11x11 weight, so checkpoints and the weight bridge do not change. Inside,
 activations are NCHW tensors in `torch.channels_last` memory, so cuDNN
 runs NHWC and the LRN kernel sees contiguous rows of C channels.
 
@@ -38,6 +43,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from distributed_vgg_f_tpu_torch.data.device_ingest import \
+    space_to_depth_batch
 from distributed_vgg_f_tpu_torch.models.ingest import reject_raw_uint8
 from distributed_vgg_f_tpu_torch.ops.lrn import relu_lrn
 from distributed_vgg_f_tpu_torch.ops.pooling import (_ceil_pad,
@@ -57,11 +64,31 @@ class _Layer(nn.Module):
 
 def depth_to_space(x: torch.Tensor, block: int = 4) -> torch.Tensor:
     """(B, H, W, b*b*C) in (dy, dx, c) channel order -> (B, H*b, W*b, C):
-    the inverse of data/device_ingest.py space_to_depth_batch."""
+    the inverse of data/device_ingest.py space_to_depth_batch (the model
+    does not unpack; tests and tools do)."""
     b, h, w, c = x.shape
     c //= block * block
     x = x.reshape(b, h, w, block, block, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, h * block, w * block, c)
+
+
+def pack_stem_weight(w: torch.Tensor) -> torch.Tensor:
+    """The stem's (F, 3, 11, 11) OIHW weight as the packed conv's
+    (F, 48, 3, 3): padded to 12x12 taps, each 4x4 tap block folded into
+    the channels in (dy, dx, c) order, the layout `space_to_depth_batch`
+    packs. The padded 12th tap meets pixels the 11-tap kernel never sees,
+    so its product is zero and its gradient is dropped by the pad."""
+    f = w.shape[0]
+    k = F.pad(w, (0, 1, 0, 1))                      # (F, 3, 12, 12)
+    k = k.reshape(f, 3, 3, 4, 3, 4)                 # (F, c, ky, dy, kx, dx)
+    return k.permute(0, 3, 5, 1, 2, 4).reshape(f, 48, 3, 3)
+
+
+def takes_packed_stem(h: int, w: int, c: int) -> bool:
+    """Whether the stem runs the packed conv on an (h, w, c) input: a
+    packed input, or H and W multiples of 4 and at least 12 (JAX's
+    condition)."""
+    return c == 48 or (h % 4 == 0 and w % 4 == 0 and h >= 12 and w >= 12)
 
 
 def _pooled(n: int) -> int:
@@ -74,6 +101,13 @@ def fc6_fan_in(image_size: int, conv_features: int) -> int:
     for _ in range(3):
         side = _pooled(side)
     return side * side * conv_features
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    """An NHWC tensor as NCHW in channels_last memory: a free view of a
+    contiguous NHWC tensor, a copy otherwise."""
+    return x.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
 
 
 class VGGF(nn.Module):
@@ -109,10 +143,28 @@ class VGGF(nn.Module):
         self.fc7 = _Layer((fc_features, fc_features), fc_features)
         self.fc8 = _Layer((num_classes, fc_features), num_classes)
 
-    def _conv(self, layer: _Layer, x, stride: int, padding: int):
+    def _conv(self, layer: _Layer, x, stride: int, padding: int,
+              weight: torch.Tensor = None):
         cd = self.compute_dtype
-        y = F.conv2d(x, layer.weight.to(cd), None, stride, padding)
+        weight = layer.weight if weight is None else weight
+        y = F.conv2d(x, weight.to(cd), None, stride, padding)
         return y + layer.bias.to(cd).view(1, -1, 1, 1)
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """conv1 with its bias on NHWC images in the compute dtype, plain
+        or packed -> NCHW in channels_last memory: the packed 3x3/1 conv
+        where `takes_packed_stem`, else the plain 11x11/4 conv."""
+        b, h, w, c = x.shape
+        if not takes_packed_stem(h, w, c):
+            if h < 11 or w < 11:  # JAX's VALID conv gives an empty map
+                return x.new_zeros((b, self.conv1.bias.shape[0],
+                                    max(0, (h - 11) // 4 + 1),
+                                    max(0, (w - 11) // 4 + 1)))
+            return self._conv(self.conv1, _nchw(x), 4, 0)
+        if c != 48:
+            x = space_to_depth_batch(x)
+        return self._conv(self.conv1, _nchw(x), 1, 0,
+                          weight=pack_stem_weight(self.conv1.weight))
 
     def _dense(self, layer: _Layer, x):
         cd = self.compute_dtype
@@ -135,13 +187,8 @@ class VGGF(nn.Module):
         in NHWC order, in the compute dtype — fc6's input. The int8 tier
         (serving/tiers.py) runs it without the heads."""
         reject_raw_uint8(x, "VGGF")
-        x = x.to(self.compute_dtype)
-        if x.shape[-1] == 48:  # 4x4-packed stem input
-            x = depth_to_space(x)
-        x = x.permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
         x = maxpool_3x3s2_ceil_nchw(
-            self._relu_lrn(self._conv(self.conv1, x, 4, 0)))
+            self._relu_lrn(self.stem(x.to(self.compute_dtype))))
         x = maxpool_3x3s2_ceil_nchw(
             self._relu_lrn(self._conv(self.conv2, x, 1, 2)))
         x = F.relu(self._conv(self.conv3, x, 1, 1))

@@ -227,7 +227,8 @@ class Trainer:
             cfg.data.mean_rgb, cfg.data.stddev_rgb,
             image_dtype=cfg.data.image_dtype)
         self.device_augment = make_device_augment(
-            cfg.data.augment, space_to_depth=cfg.data.space_to_depth)
+            cfg.data.augment, cfg.data.mean_rgb, cfg.data.stddev_rgb,
+            space_to_depth=cfg.data.space_to_depth)
         self.train_step = build_train_step(
             self.schedule, cfg.optim.weight_decay,
             grad_clip_norm=cfg.optim.grad_clip_norm,

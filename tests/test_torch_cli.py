@@ -156,7 +156,6 @@ def test_both_refuse_an_unknown_key_or_a_bad_value(item):
     ("train.tensorboard_dir=/tb", "A14"), ("telemetry.enabled=false", "A14"),
     ("data.wire=host_f32", "A17"),
     ("mesh.elastic.min_survivors=3", "A13"),
-    ("data.augment.rand_magnitude=0.3", "A4"),
     ("train.checkpoint_save_retries=5", "A14"),
     ("train.resume_data_fast_forward=false", "A14"),
     ("data.iterator_state.enabled=false", "A14"),
@@ -170,6 +169,31 @@ def test_keys_the_port_has_not_raise_naming_their_item(key, item):
     jcfg.parse_cli(["--config", "vggf_imagenet_dp", "--set", key])
     with pytest.raises(KeyError, match=f"ROADMAP {item}"):
         tcfg.parse_cli(["--set", key])
+
+
+@pytest.mark.parametrize("items,error", [
+    (["data.augment.crop_jitter=8", "data.augment.cutmix_alpha=1.0"], None),
+    (["data.augment.rand_ops=2", "data.augment.rand_magnitude=0.3"], None),
+    (["data.augment.rand_magnitude=1.5"],
+     "data.augment.rand_magnitude must be in [0, 1], got 1.5"),
+    (["data.augment.crop_jitter=-2"],
+     "data.augment.crop_jitter must be >= 0, got -2"),
+    (["data.augment.cutmix_alpha=-1.0"],
+     "data.augment.mixup_alpha and cutmix_alpha must be >= 0")])
+def test_augment_keys_behave_as_jax(items, error, capsys):
+    """Every key of JAX's augment stage parses, with JAX's checks."""
+    argv = ["--config", "vggf_imagenet_dp"]
+    for item in items:
+        argv += ["--set", item]
+    if error is None:
+        port, ref = tcfg.parse_cli(argv), jcfg.parse_cli(argv)
+        assert dataclasses.asdict(port.data.augment) == dataclasses.asdict(
+            ref.data.augment)
+        return
+    for parse in (tcfg.parse_cli, jcfg.parse_cli):
+        with pytest.raises(SystemExit):
+            parse(argv)
+        assert error in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("items,error", [

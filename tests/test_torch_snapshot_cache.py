@@ -754,11 +754,13 @@ def test_fit_across_the_switch_resumed_sees_jax_stream_and_fit_losses(
     first = Trainer(_fit_cfg(root, cache, **ck), device="cpu")
     seen, made = _spy(first), _made(first)
     first.fit(num_steps=4)
+    first.checkpoints.close()   # its writer thread ends with the run
     assert isinstance(made[0], psc.SnapshotCachingTrainIterator)
     second = Trainer(_fit_cfg(root, cache, **ck), device="cpu")
     seen += _spy(second)
     made_second = _made(second)
     got = second.fit(num_steps=14)
+    second.checkpoints.close()
     events = [r["event"] for r in second.records]
     assert "iterator_state_restore" in events
     assert "data_fast_forward" not in events

@@ -23,7 +23,19 @@ and 8 records (21: two full batches of 8 and a partial one of 5) at 1
 rank, and at 2 ranks with uneven shards (13 and 8 records, one rank a
 file), against JAX's `Trainer.evaluate` over the same shards on a
 2-device mesh, on the same weights: equal top-1 and top-5 counts and
-eval_examples equal to the split's 21."""
+eval_examples equal to the split's 21.
+
+Every augment op (the slice of ROADMAP A4): the same narrowed flagship
+with flip, crop jitter 2, mixup 0.2, cutmix 1.0 and two rounds of
+RandAugment-lite at magnitude 0.5, trained 10 steps by the port's
+`Trainer.fit` on one process and by JAX's on a one-device mesh, from the
+same weights, on the same seeded u8 batches. The port's stage is handed
+JAX's draws for each step's key (tests/_torch_jax_draws.py), as torch
+cannot reproduce JAX's generator. Tolerance: losses rtol 1e-5, as
+above. Beside the convolutions, RandAugment's posterize moves a few
+pixels by one step between the two (tests/test_torch_augment.py: XLA
+fuses multiply-adds the port computes as two ops), which changes a loss
+by far less than the bound."""
 
 import io
 import json
@@ -35,7 +47,11 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+import torch
+
 from _torch_dp_worker import run_group
+from _torch_jax_draws import jax_augment_draws, jax_draws_for_port_key, \
+    jax_step_augment_key
 from distributed_vgg_f_tpu import config as jcfg
 from distributed_vgg_f_tpu import telemetry as jtelemetry
 from distributed_vgg_f_tpu.data import imagenet as jimagenet
@@ -44,6 +60,7 @@ from distributed_vgg_f_tpu.parallel.mesh import MeshSpec, build_mesh
 from distributed_vgg_f_tpu.train.trainer import Trainer as JaxTrainer
 from distributed_vgg_f_tpu.utils.logging import MetricLogger as JaxLogger
 from distributed_vgg_f_tpu_torch import config as tcfg
+from distributed_vgg_f_tpu_torch.data import augment as paug
 from distributed_vgg_f_tpu_torch.train.trainer import Trainer
 from distributed_vgg_f_tpu_torch.weights import init_params
 
@@ -266,3 +283,55 @@ def test_exact_eval_on_two_ranks_with_uneven_shards_matches_jax(
         assert r["eval_examples"] == 21
         assert _counts(r) == _counts(jax_eval)
     assert results[0]["eval_top1"] == results[1]["eval_top1"]
+
+
+# ------------------------------------------------------ every augment op
+#: Every op of JAX's augment stage, as dotted keys both packages take
+AUGMENT_ALL = {"data.augment.enabled": "true", "data.augment.hflip": "true",
+               "data.augment.crop_jitter": "2",
+               "data.augment.mixup_alpha": "0.2",
+               "data.augment.cutmix_alpha": "1.0",
+               "data.augment.rand_ops": "2",
+               "data.augment.rand_magnitude": "0.5"}
+
+
+def test_every_augment_op_matches_the_jax_trainer(data_dir, tmp_path,
+                                                  monkeypatch):
+    rng = np.random.default_rng(23)
+    batches = [{"image": rng.integers(0, 256, (BATCH, 32, 32, 3),
+                                      dtype=np.uint8),
+                "label": rng.integers(0, 10, (BATCH,), dtype=np.int32)}
+               for _ in range(STEPS)]
+    jax_cfg = jcfg.apply_overrides(jcfg.get_config("vggf_imagenet_dp"), {
+        **NARROW, **AUGMENT_ALL, "data.data_dir": data_dir,
+        "data.name": "synthetic", "train.steps": str(STEPS),
+        "telemetry.enabled": "false", "data.autotune.enabled": "false",
+        "mesh.num_data": "0"})
+    impl = jax_cfg.train.dropout_rng_impl
+    # the steps take both mix branches and posterize
+    draws = [jax_augment_draws(jax_cfg.data.augment,
+                               jax_step_augment_key(0, s, 0, impl),
+                               BATCH, 32, 32) for s in range(STEPS)]
+    assert {d.mix.use_cut for d in draws} == {True, False}
+    assert any((d.rand[0] == 3).any() for d in draws)
+
+    monkeypatch.setattr(paug, "draw_augment", jax_draws_for_port_key(impl))
+    cfg = _port_cfg(data_dir, **AUGMENT_ALL)
+    port = Trainer(cfg, device="cpu")
+    port.fit(port.init_state(),
+             [{k: torch.from_numpy(v) for k, v in b.items()}
+              for b in batches], num_steps=STEPS)
+    records = [r for r in port.records if r["event"] == "train"]
+    got = np.array([r["loss"] for r in records])
+    assert records[-1]["augment"] == cfg.data.augment.describe()
+
+    jsonl = str(tmp_path / "jax.jsonl")
+    mesh = build_mesh(MeshSpec(("data",), (1,)), devices=jax.devices()[:1])
+    tr = JaxTrainer(jax_cfg, mesh=mesh,
+                    logger=JaxLogger(jsonl_path=jsonl, stream=io.StringIO()))
+    state = _with_port_params(tr, tr.init_state(), cfg)
+    tr.fit(state, dataset=iter(batches), num_steps=STEPS)
+    want = _train_losses(jsonl)
+    assert len(got) == len(want) == STEPS
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               err_msg=f"gap {np.abs(got / want - 1)}")

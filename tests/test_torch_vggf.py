@@ -7,7 +7,12 @@ frameworks, and fc6 sums 9216 terms at 224 px). bf16 compute at 32 px:
 rtol 2e-2 with atol 2e-2 * max|logit| — both models round every
 activation to bf16 (8 mantissa bits, 2**-8 relative), at points that
 differ between the two frameworks by at most one rounding per op, and
-one such step can carry through the remaining layers."""
+one such step can carry through the remaining layers.
+
+The stem (JAX `Conv1SpaceToDepth`): the packed 3x3x48 stride-1 conv
+against JAX's on the same weights, and against the port's plain 11x11/4
+conv, outputs and weight gradients: rtol/atol 1e-5 (JAX's own stem test's
+bound; the two convs sum the same 363 products in another order)."""
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +30,9 @@ from distributed_vgg_f_tpu_torch.data.device_ingest import \
     space_to_depth_batch
 from distributed_vgg_f_tpu_torch.models.ingest import reject_raw_uint8
 from distributed_vgg_f_tpu_torch.models.registry import build_model
-from distributed_vgg_f_tpu_torch.models.vggf import depth_to_space
+from distributed_vgg_f_tpu_torch.models.vggf import (VGGF, depth_to_space,
+                                                     pack_stem_weight,
+                                                     takes_packed_stem)
 from distributed_vgg_f_tpu_torch.ops import lrn_cuda
 from distributed_vgg_f_tpu_torch.ops.pooling import maxpool_3x3s2_ceil
 from distributed_vgg_f_tpu_torch.weights import (init_params, load_npz,
@@ -179,6 +186,93 @@ def test_packed_and_plain_input_give_equal_logits():
         {"params": tree}, jax_space_to_depth(jnp.asarray(x)), train=False))
     np.testing.assert_allclose(packed_logits.numpy(), want, rtol=1e-4,
                                atol=1e-4)
+
+
+# -------------------------------------------------------------------- stem
+def _jax_stem(size, features=16, seed=0):
+    from distributed_vgg_f_tpu.models.vggf import Conv1SpaceToDepth
+    mod = Conv1SpaceToDepth(features=features, compute_dtype=jnp.float32)
+    variables = mod.init(jax.random.key(seed),
+                         jnp.zeros((1, size, size, 3), jnp.float32))
+    return mod, variables
+
+
+def _port_stem(variables, size):
+    """A narrow port VGG-F whose conv1 holds the JAX stem's weights."""
+    kernel = np.asarray(variables["params"]["kernel"])     # HWIO
+    model = VGGF(10, compute_dtype=torch.float32, image_size=max(size, 32),
+                 stem_features=kernel.shape[-1], conv_features=8,
+                 fc_features=8)
+    with torch.no_grad():
+        model.conv1.weight.copy_(torch.from_numpy(
+            kernel.transpose(3, 2, 0, 1).copy()))
+        model.conv1.bias.copy_(torch.from_numpy(
+            np.array(variables["params"]["bias"])))
+    return model
+
+
+def _stem_nhwc(model, x):
+    return model.stem(x).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("size", [224, 32, 12])
+@pytest.mark.parametrize("packed", [False, True])
+def test_packed_stem_matches_jax_conv1_space_to_depth(size, packed):
+    mod, variables = _jax_stem(size, seed=size)
+    x = _images(2, size, seed=size)
+    xin = space_to_depth_batch(torch.from_numpy(x)) if packed \
+        else torch.from_numpy(x)
+    want = np.asarray(mod.apply(variables, jnp.asarray(xin.numpy())))
+    model = _port_stem(variables, size)
+    assert takes_packed_stem(*xin.shape[1:])
+    with torch.no_grad():
+        got = _stem_nhwc(model, xin).numpy()
+    assert got.shape == want.shape == (2, (size - 11) // 4 + 1,
+                                       (size - 11) // 4 + 1, 16)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_packed_stem_equals_the_plain_conv_and_its_weight_gradient():
+    """The packed conv and the plain 11x11/4 conv on the same weight: the
+    outputs, and the weight's gradient through the rearrangement (the
+    padded 12th tap's gradient dropped by the pad's backward)."""
+    torch.manual_seed(0)
+    w = (torch.randn(16, 3, 11, 11) * 0.05).requires_grad_()
+    x = torch.from_numpy(_images(3, 64, seed=11))
+    g = torch.randn(3, 16, 14, 14)
+    packed = torch.nn.functional.conv2d(
+        space_to_depth_batch(x).permute(0, 3, 1, 2), pack_stem_weight(w))
+    (gw_packed,) = torch.autograd.grad((packed * g).sum(), w)
+    plain = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w, stride=4)
+    (gw_plain,) = torch.autograd.grad((plain * g).sum(), w)
+    assert packed.shape == plain.shape == (3, 16, 14, 14)
+    np.testing.assert_allclose(packed.detach().numpy(),
+                               plain.detach().numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gw_packed.numpy(), gw_plain.numpy(),
+                               rtol=1e-5,
+                               atol=1e-5 * float(gw_plain.abs().max()))
+    assert pack_stem_weight(w).shape == (16, 48, 3, 3)
+
+
+@pytest.mark.parametrize("size", [30, 8])
+def test_stem_falls_back_where_jax_does(size):
+    """H not a multiple of 4 (30) or under 12 (8): the plain 11x11/4
+    conv, as JAX's stem; at 8 px both give an empty map."""
+    mod, variables = _jax_stem(size, seed=size)
+    x = _images(2, size, seed=size)
+    want = np.asarray(mod.apply(variables, jnp.asarray(x)))
+    model = _port_stem(variables, size)
+    assert not takes_packed_stem(size, size, 3)
+    with torch.no_grad():
+        got = _stem_nhwc(model, torch.from_numpy(x))
+        plain = torch.nn.functional.conv2d(
+            torch.from_numpy(x).permute(0, 3, 1, 2), model.conv1.weight,
+            model.conv1.bias, stride=4).permute(0, 2, 3, 1) \
+            if size >= 11 else got
+    assert got.shape == want.shape
+    assert want.size == 0 or size == 30
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_depth_to_space_inverts_space_to_depth():
